@@ -1,0 +1,69 @@
+"""Shared kernel pieces: the abstract-value contract and the backend rule.
+
+The rule replaces the JAX package's ``default_interpret``: there a Pallas
+kernel ran compiled on an accelerator and interpreted on the CPU.  Here a
+wrapper launches its hand-written CUDA kernel for tensors on a CUDA device
+and takes its plain PyTorch version for tensors on the CPU.  There is no
+third path: any other device raises, and a failed build or launch raises
+rather than dropping to the plain version.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+
+class Aval(NamedTuple):
+    """Shape/dtype abstract value for the ``abstract_params``/``out_aval``
+    hooks every ``ops.py`` entry point exposes.  The hooks only ever read
+    ``.shape`` and ``.dtype``, so tensors, lazy traced values and these
+    Avals are interchangeable inputs."""
+    shape: tuple
+    dtype: object
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when the operands lie on one CUDA device (launch the kernel),
+    False when they lie on the CPU (take the plain version)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on different devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    device = devices.pop()
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {device}: operands must lie on "
+                     "a CUDA device or on the CPU")
+
+
+def device_guard(tensor: torch.Tensor):
+    """Context that makes ``tensor``'s card the current device for a
+    launch; a no-op when it already is (the common case, kept cheap)."""
+    index = tensor.get_device()
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def launch_stream(tensor: torch.Tensor) -> int:
+    """Raw handle of the current CUDA stream on ``tensor``'s device — the
+    stream a kernel launches on.  ``torch.cuda.current_stream()`` builds a
+    Python stream object per call, a host cost of the same order as a
+    small kernel's whole device time."""
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point creates tensors on.  Entry points default
+    to ``cuda``; without a card they raise instead of running on the CPU,
+    which a caller must ask for with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was asked for but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the host")
+    return device

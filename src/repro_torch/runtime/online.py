@@ -1,0 +1,75 @@
+"""Online refinement: actual wall times feed back into the cached model.
+
+Every dispatch (under ``DispatchPolicy(online=True)``) reports the chosen
+variant's feature row and its *actual* wall time.  The refiner appends the
+row to the cache entry and, once ``refit_every`` new rows accumulate,
+refits the lightweight model — warm-started from the current weights and
+bounded to the paper's <250-instance training budget, so a refit costs
+about the same as the original fit and can run inline.
+
+Rolling MAPE over the last ``window`` observations is the drift signal: a
+workload or clock-speed shift shows up as a rising MAPE that the next
+refit pulls back down.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict, deque
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.runtime.cache import TRAIN_BUDGET_ROWS, TuningCache
+
+
+@dataclasses.dataclass
+class OnlineConfig:
+    refit_every: int = 24          # new rows between refits
+    window: int = 64               # rolling-MAPE window
+    budget_rows: int = TRAIN_BUDGET_ROWS
+    refit_epochs: int = 2000
+    warm_start: bool = True
+
+
+class OnlineRefiner:
+    def __init__(self, cache: TuningCache,
+                 config: Optional[OnlineConfig] = None):
+        self.cache = cache
+        self.config = config or OnlineConfig()
+        self._pending = defaultdict(int)       # rows since last refit
+        self._apes = defaultdict(
+            lambda: deque(maxlen=self.config.window))
+        self.refits = defaultdict(int)
+
+    def observe(self, kernel: str, feature_row: np.ndarray, bucket: tuple,
+                actual_s: float, predicted_s: Optional[float] = None) -> None:
+        """Record one executed dispatch; refit when enough rows accumulated.
+
+        ``predicted_s`` is the model's estimate for the chosen variant (None
+        on the cold/measured path, where there was no prediction to score).
+        """
+        entry = self.cache.entry(kernel)
+        if predicted_s is not None:
+            self._apes[kernel].append(
+                abs(actual_s - predicted_s) / max(abs(actual_s), 1e-12))
+        entry.add_rows(np.asarray(feature_row)[None, :], [actual_s], bucket)
+        self._pending[kernel] += 1
+        if self._pending[kernel] >= self.config.refit_every \
+                and entry.n_rows >= 2:
+            entry.fit(epochs=self.config.refit_epochs,
+                      warm_start=self.config.warm_start,
+                      budget_rows=self.config.budget_rows)
+            self.cache.save(kernel)
+            self._pending[kernel] = 0
+            self.refits[kernel] += 1
+
+    def rolling_mape(self, kernel: str) -> float:
+        """Mean absolute percentage error over the observation window
+        (NaN until the first scored observation)."""
+        apes = self._apes[kernel]
+        if not apes:
+            return float("nan")
+        return 100.0 * float(np.mean(apes))
+
+    def observed_kernels(self) -> list[str]:
+        return sorted(self._apes)

@@ -1,0 +1,72 @@
+"""The port stands alone: nothing under src/repro_torch/, and not
+chip_smoke.py, imports jax or any module of the JAX package ``repro``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("kernels/__init__.py", "kernels/matmul/ops.py",
+                   "kernels/matvec/ops.py", "core/nnc.py",
+                   "runtime/dispatch.py", "api/compile_.py",
+                   "workloads/library.py"):
+        assert f"src/repro_torch/{module}" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_repro_import(path):
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+def _import_in_subprocess(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_importing_the_port_loads_no_jax():
+    out = _import_in_subprocess(
+        "import sys\n"
+        "import repro_torch.api, repro_torch.runtime, repro_torch.workloads\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n")
+    assert out.strip() == "[]"
+
+
+def test_workloads_import_without_the_compiler():
+    out = _import_in_subprocess(
+        "import sys\n"
+        "import repro_torch.workloads\n"
+        "print('repro_torch.api.compile_' in sys.modules)\n"
+        "from repro_torch.api import compile_program\n"
+        "print('repro_torch.api.compile_' in sys.modules)\n")
+    assert out.split() == ["False", "True"]
