@@ -202,5 +202,22 @@ def matvec(a, x):
     return _apply("matvec", a, x)
 
 
-# kernel name -> front-end function (the slice's registry surface)
-KERNEL_OPS = {"matmul": matmul, "matvec": matvec}
+def conv2d(a, w):
+    """Valid 2-D convolution of A[m,n] with W[r,r]."""
+    return _apply("conv2d", a, w)
+
+
+def maxpool(a, *, r: int, s: int):
+    """r x r max pooling with stride s over A[m,n]."""
+    return _apply("maxpool", a, r=r, s=s)
+
+
+def blur(a):
+    """3x3 box blur of A[m,n] (valid region) — host schedule chosen by the
+    predictor."""
+    return _apply("blur", a)
+
+
+# kernel name -> front-end function (the port's registry surface)
+KERNEL_OPS = {"matmul": matmul, "matvec": matvec, "conv2d": conv2d,
+              "maxpool": maxpool, "blur": blur}

@@ -1,7 +1,11 @@
 // Shared pieces of the port's hand-written CUDA kernels: the dtype codes the
-// ctypes wrappers pass, and element conversion to and from the fp32
-// accumulator (only through the conversion intrinsics).
+// ctypes wrappers pass, element conversion to and from the fp32 accumulator
+// (only through the conversion intrinsics), and the skeleton of the window
+// kernels (conv2d, maxpool): a block per output tile that stages its input
+// window in shared memory, and the dispatch on the compiled tiles.
 #pragma once
+
+#include <cstddef>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -24,6 +28,50 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// Dynamic shared memory a launch may take without opting in to more.
+constexpr size_t kSmemLimit = 48 * 1024;
+
+// Threads of a block that owns a BM x BN output tile: one per output up to
+// 256, laid out BN along a row; each thread then owns a few rows.
+template <int BM, int BN>
+__host__ __device__ constexpr int tile_threads() {
+  return BM * BN < 256 ? BM * BN : 256;
+}
+
+// Stages the h x w window at (row0, col0) of the row-major [m, n] plane `a`
+// into `dst` as fp32, row stride w, with the NT threads of the block.
+// Coalesced: consecutive threads read consecutive elements of a row.
+// Elements past the plane get `fill`; they feed only masked outputs.
+template <int NT, typename T>
+__device__ __forceinline__ void stage_window(const T* __restrict__ a,
+                                             float* dst, int m, int n,
+                                             int row0, int col0, int h, int w,
+                                             float fill) {
+  for (int e = threadIdx.x; e < h * w; e += NT) {
+    const int i = e / w, j = e % w;
+    const int gi = row0 + i, gj = col0 + j;
+    dst[e] = (gi < m && gj < n)
+                 ? to_float(a[static_cast<size_t>(gi) * n + gj])
+                 : fill;
+  }
+}
+
+// A compiled BM x BN output tile, as a tag for with_tile.
+template <int M, int N>
+struct Tile {
+  static constexpr int BM = M, BN = N;
+};
+
+// Returns launch(Tile<BM, BN>{}) for the listed tile that equals (bm, bn),
+// or cudaErrorInvalidValue when none does.
+template <typename... Tiles, typename F>
+int with_tile(int bm, int bn, F&& launch) {
+  int code = static_cast<int>(cudaErrorInvalidValue);
+  (void)((bm == Tiles::BM && bn == Tiles::BN && ((code = launch(Tiles{})), true))
+         || ...);
+  return code;
 }
 
 }  // namespace repro

@@ -10,6 +10,7 @@ rather than dropping to the plain version.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -55,6 +56,27 @@ def launch_stream(tensor: torch.Tensor) -> int:
     Python stream object per call, a host cost of the same order as a
     small kernel's whole device time."""
     return torch._C._cuda_getCurrentRawStream(tensor.get_device())
+
+
+_CUDNN_FLAGS = threading.RLock()
+
+
+@contextlib.contextmanager
+def cudnn_fp32():
+    """Run cuDNN convolutions in full fp32 inside the block.  PyTorch lets
+    cuDNN round fp32 convolution inputs to TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), about 1e-3 relative,
+    far outside the workloads' 1e-5 budget; the port's library paths pin
+    it off here, locally, and restore the caller's setting after.  The
+    flag is process-wide, so one thread at a time holds the block: a
+    second thread's exit cannot restore TF32 under the first's call."""
+    with _CUDNN_FLAGS:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
 
 
 def resolve_device(device="cuda") -> torch.device:

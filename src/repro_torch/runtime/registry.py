@@ -11,8 +11,10 @@ Variant and feature names are persisted data: they are the JAX package's,
 so fitted cache entries move between the two packages.  In the port,
 ``pallas_<blk>`` names the hand-written CUDA kernel at that output tile
 (on a CPU tensor, its plain version), and ``ref`` is the library path,
-``torch.matmul``/``torch.mv`` in fp32 — the counterpart of the jnp path
-XLA compiled.  This slice registers matmul and matvec only.
+``torch.matmul``/``torch.mv``/``F.conv2d``/``F.max_pool2d`` in fp32 — the
+counterpart of the jnp path XLA compiled.  The blur variants are the host
+schedules of ``kernels.blur.ops``, torch-op schedules as the JAX ones are
+jnp.  ``flash_attention`` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.features import blur_complexity
 from repro_torch.kernels import Aval
 
 
@@ -149,9 +152,72 @@ def _matvec() -> RegisteredKernel:
         abstract_params=ops.abstract_params, out_aval=ops.out_aval)
 
 
+def _conv2d() -> RegisteredKernel:
+    from repro_torch.kernels.conv2d import ops
+
+    flops = lambda p: 2.0 * (p["m"] - p["r"] + 1) * (p["n"] - p["r"] + 1) \
+        * p["r"] ** 2
+
+    def feat(block, pallas):
+        return lambda p: [p["m"], p["n"], p["r"], block, pallas]
+
+    return RegisteredKernel(
+        "conv2d", ops.abstract_params, ("m", "n", "r", "block", "pallas"),
+        (Variant("conv2d", "ref",
+                 lambda args, p: ops.conv2d(*args, use_kernel=False),
+                 feat(0.0, 0.0), flops),
+         Variant("conv2d", "pallas_32",
+                 lambda args, p: ops.conv2d(*args, bm=32, bn=32),
+                 feat(32.0, 1.0), flops)),
+        abstract_params=ops.abstract_params, out_aval=ops.out_aval)
+
+
+def _maxpool() -> RegisteredKernel:
+    from repro_torch.kernels.maxpool import ops
+
+    # the JAX registry's form, not core.features' mp_complexity
+    flops = lambda p: float((p["m"] // p["s"]) * (p["n"] // p["s"])
+                            * p["r"] ** 2)
+
+    def feat(block, pallas):
+        return lambda p: [p["m"], p["n"], p["r"], p["s"], block, pallas]
+
+    return RegisteredKernel(
+        "maxpool", ops.abstract_params, ("m", "n", "r", "s", "block", "pallas"),
+        (Variant("maxpool", "ref",
+                 lambda args, p: ops.maxpool(args[0], r=p["r"], s=p["s"],
+                                             use_kernel=False),
+                 feat(0.0, 0.0), flops),
+         Variant("maxpool", "pallas_32",
+                 lambda args, p: ops.maxpool(args[0], r=p["r"], s=p["s"],
+                                             bm=32, bn=32),
+                 feat(32.0, 1.0), flops)),
+        abstract_params=ops.abstract_params, out_aval=ops.out_aval)
+
+
+def _blur() -> RegisteredKernel:
+    from repro_torch.kernels.blur import ops
+
+    variants = []
+    for sched, fn in ops.HOST_SCHEDULES.items():
+        variants.append(Variant(
+            "blur", sched, lambda args, p, _f=fn: _f(args[0]),
+            lambda p, _x=ops.SCHEDULE_FEATURES[sched]: [p["m"], p["n"], *_x],
+            blur_complexity))
+    return RegisteredKernel("blur", ops.abstract_params,
+                            ("m", "n", "separable", "conv", "n_blocks"),
+                            tuple(variants),
+                            abstract_params=ops.abstract_params,
+                            out_aval=ops.out_aval)
+
+
+# in the JAX package's order
 _BUILDERS = {
     "matmul": _matmul,
     "matvec": _matvec,
+    "conv2d": _conv2d,
+    "maxpool": _maxpool,
+    "blur": _blur,
 }
 
 

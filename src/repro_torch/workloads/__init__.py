@@ -1,6 +1,6 @@
 """repro_torch.workloads — named, parameterized multi-kernel programs, the
-port of ``repro.workloads`` (this slice: ``mlp_block`` and
-``decode_microbatch``).
+port of ``repro.workloads`` (all but ``attention_block``, which comes with
+the flash-attention slice).
 
 Each workload
 

@@ -1,5 +1,7 @@
-"""The workload definitions of this slice: ``mlp_block`` and
-``decode_microbatch``, the programs the matmul and matvec kernels carry.
+"""The workload definitions ported so far: ``image_pipeline``,
+``mlp_block``, ``decode_microbatch`` and ``mixed_dag``, the programs the
+matmul, matvec, conv2d, maxpool and blur kernels carry
+(``attention_block`` comes with the flash-attention slice).
 
 Every factory returns ``(make, reference)`` over one shared set of input
 tensors: ``make()`` records the program through ``repro_torch.api.ops``
@@ -14,8 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.api import ops
+from repro_torch.kernels.blur import ref as blur_ref
+from repro_torch.kernels.conv2d import ref as conv2d_ref
 from repro_torch.kernels.matmul import ref as matmul_ref
 from repro_torch.kernels.matvec import ref as matvec_ref
+from repro_torch.kernels.maxpool import ref as maxpool_ref
 
 
 def _np_arr(rng, *shape) -> np.ndarray:
@@ -32,6 +37,27 @@ def _weight(rng, device, *shape) -> torch.Tensor:
     1e-5 parity budget instead of compounding with value growth."""
     w = _np_arr(rng, *shape) / np.sqrt(np.float32(shape[0]))
     return torch.from_numpy(w).to(device)
+
+
+# --------------------------------------------------------------------------
+# image_pipeline: blur -> conv2d -> maxpool (the classic Halide pipeline)
+# --------------------------------------------------------------------------
+
+def _image_pipeline(p, rng, device):
+    a = _arr(rng, device, p["m"], p["n"])
+    w = _arr(rng, device, 3, 3)          # taps drawn as _arr, not _weight
+
+    def make():
+        x = ops.blur(a)
+        y = ops.conv2d(x, w)
+        return (ops.maxpool(y, r=2, s=2),)
+
+    def reference():
+        x = blur_ref.blur(a)
+        y = conv2d_ref.conv2d(x, w)
+        return (maxpool_ref.maxpool(y, r=2, s=2),)
+
+    return make, reference
 
 
 # --------------------------------------------------------------------------
@@ -91,9 +117,48 @@ def _decode_microbatch(p, rng, device):
     return make, reference
 
 
-# name -> (kernels used, size presets, factory); the presets are the JAX
-# package's
+# --------------------------------------------------------------------------
+# mixed_dag: a wide diamond of mixed kernels (multi-device overlap stress)
+# --------------------------------------------------------------------------
+
+def _mixed_dag(p, rng, device):
+    n, width = p["n"], p["width"]
+    a, b = _arr(rng, device, n, n), _arr(rng, device, n, n)
+    ws = [_weight(rng, device, n, n) for _ in range(width)]
+
+    def make():
+        root = ops.matmul(a, b)
+        branches = [ops.matmul(root, w) for w in ws]
+        blurred = ops.blur(root)
+        pooled = ops.maxpool(root, r=2, s=2)
+        join = branches[0]
+        for br in branches[1:]:
+            join = ops.matmul(join, br)
+        # root is an *interior* output — only reachable via mark_output
+        return (join, blurred, pooled, root)
+
+    def reference():
+        root = matmul_ref.matmul(a, b)
+        branches = [matmul_ref.matmul(root, w) for w in ws]
+        blurred = blur_ref.blur(root)
+        pooled = maxpool_ref.maxpool(root, r=2, s=2)
+        join = branches[0]
+        for br in branches[1:]:
+            join = matmul_ref.matmul(join, br)
+        return (join, blurred, pooled, root)
+
+    return make, reference
+
+
+# name -> (kernels used, size presets, factory); the presets and the order
+# are the JAX package's
 WORKLOAD_BUILDERS = {
+    "image_pipeline": (
+        ("blur", "conv2d", "maxpool"),
+        {"small": {"m": 96, "n": 96},
+         "medium": {"m": 384, "n": 384},
+         "large": {"m": 1024, "n": 1024}},
+        _image_pipeline),
     "mlp_block": (
         ("matmul",),
         {"small": {"b": 48, "d": 64, "h": 96, "depth": 3},
@@ -106,4 +171,10 @@ WORKLOAD_BUILDERS = {
          "medium": {"h": 512, "depth": 4, "chains": 3},
          "large": {"h": 1024, "depth": 6, "chains": 4}},
         _decode_microbatch),
+    "mixed_dag": (
+        ("matmul", "blur", "maxpool"),
+        {"small": {"n": 64, "width": 3},
+         "medium": {"n": 192, "width": 4},
+         "large": {"n": 384, "width": 6}},
+        _mixed_dag),
 }

@@ -31,7 +31,9 @@ def _imports(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for module in ("kernels/__init__.py", "kernels/matmul/ops.py",
-                   "kernels/matvec/ops.py", "core/nnc.py",
+                   "kernels/matvec/ops.py", "kernels/conv2d/ops.py",
+                   "kernels/maxpool/ops.py", "kernels/blur/ops.py",
+                   "core/features.py", "core/nnc.py",
                    "runtime/dispatch.py", "api/compile_.py",
                    "workloads/library.py"):
         assert f"src/repro_torch/{module}" in names

@@ -6,10 +6,16 @@ import numpy as np
 import pytest
 import torch
 
+import repro.api  # noqa: F401  (before repro.workloads: import cycle)
 from repro.core import nnc as jnnc
+from repro.runtime import Dispatcher as JDispatcher
 from repro.runtime import Fingerprint as JFingerprint
 from repro.runtime import TuningCache as JTuningCache
 from repro.runtime import current_fingerprint as jax_fingerprint
+from repro.runtime import default_registry as jdefault_registry
+from repro.runtime import seed_from_programs as jseed
+from repro.workloads import get_workload as jget_workload
+from repro.workloads import suite_registry as jsuite_registry
 from repro_torch.core import nnc
 from repro_torch.kernels import Aval
 from repro_torch.runtime import (Dispatcher, DispatchPolicy, Fingerprint,
@@ -187,6 +193,72 @@ def test_cache_files_move_between_packages(writer, tmp_path):
                            variant_names=["only"])
     assert r.n_rows == entry.n_rows and r.buckets == entry.buckets
     assert np.array_equal(r.predict(X), entry.predict(X))
+
+
+# --------------------------------------------------------------------------
+# the registry and JAX-seeded caches carry the slice-2 kernels
+# --------------------------------------------------------------------------
+
+REGISTRY_PARAMS = {
+    "conv2d": [{"m": 64, "n": 64, "r": 3}, {"m": 1022, "n": 1022, "r": 3},
+               {"m": 41, "n": 77, "r": 7}],
+    "maxpool": [{"m": 1020, "n": 1020, "r": 2, "s": 2},
+                {"m": 65, "n": 43, "r": 5, "s": 1},
+                {"m": 384, "n": 384, "r": 2, "s": 2}],
+    "blur": [{"m": 1024, "n": 1024}, {"m": 66, "n": 200},
+             {"m": 384, "n": 384}],
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(REGISTRY_PARAMS))
+def test_registry_matches_jax_for_slice2_kernels(kernel):
+    """Same feature names, variant names and order, and candidate rows (the
+    c column included) as the JAX registry: fitted states key on them."""
+    jreg = jdefault_registry(include=[kernel])
+    reg = default_registry(include=[kernel])
+    assert reg.get(kernel).feature_names == jreg.get(kernel).feature_names
+    assert reg.variant_names(kernel) == jreg.variant_names(kernel)
+    for params in REGISTRY_PARAMS[kernel]:
+        assert np.array_equal(reg.feature_rows(kernel, params),
+                              jreg.feature_rows(kernel, params))
+    assert default_registry().kernels() == sorted(
+        ["matmul", "matvec", "conv2d", "maxpool", "blur"])
+
+
+def test_jax_seeded_cache_for_slice2_workloads_predicts_identically(
+        tmp_path):
+    """A JAX dispatcher seeded over image_pipeline and mixed_dag writes its
+    cache; the port loads the directory and predicts every node alike."""
+    names = ["image_pipeline", "mixed_dag"]
+    jreg = jsuite_registry(names)
+    progs = [jget_workload(n).build("small", registry=jreg).program
+             for n in names]
+    jd = JDispatcher(registry=jreg, cache=JTuningCache(
+        str(tmp_path), JFingerprint(*SIM)))
+    seeded = jseed(jd, progs, 1e9)
+    assert {"conv2d", "maxpool", "blur"} <= set(seeded)
+    reg = default_registry(include=sorted(seeded))
+    port = TuningCache(str(tmp_path), Fingerprint(*SIM))
+    for kernel in seeded:
+        jentry = jd.cache.entry(kernel)
+        entry = port.entry(kernel,
+                           feature_names=reg.get(kernel).feature_names,
+                           variant_names=reg.variant_names(kernel))
+        assert list(entry.feature_names) == list(jentry.feature_names)
+        assert list(entry.variant_names) == list(jentry.variant_names)
+        assert entry.n_rows == jentry.n_rows and entry.model is not None
+    td = Dispatcher(registry=reg, cache=port)
+    n_nodes = 0
+    for prog in progs:
+        for node in prog.nodes:
+            want = jd.predict_times(node.kernel, node.params)
+            got = td.predict_times(node.kernel, node.params)
+            assert got.keys() == want.keys()
+            np.testing.assert_allclose(list(got.values()),
+                                       list(want.values()), rtol=1e-12)
+            assert min(got, key=got.get) == min(want, key=want.get)
+            n_nodes += 1
+    assert n_nodes == 3 + 8          # image_pipeline, mixed_dag (width 3)
 
 
 # --------------------------------------------------------------------------
