@@ -10,17 +10,22 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build   — compiles every hand-written kernel from ``src/repro_torch/csrc``
-   (matmul, matvec, conv2d, maxpool) with ``nvcc``, one process per source,
-   all at once, and prints the time and the compiler's register and
-   shared-memory report.
+   (matmul, matvec, conv2d, maxpool, flash_attention) with ``nvcc``, one
+   process per source, all at once, and prints the time and the compiler's
+   register and shared-memory report.
 3. kernels — each kernel at each schedule, fp32 and bf16, against its plain
    PyTorch version on the card, over the ragged shape grid of the JAX
    package's kernel tests and the workloads' shapes: matmul and matvec at
    1e-4 (fp32) and 2e-2 (bf16), relative to the output's largest magnitude
    above 1 for ``mixed_dag``'s chained products; conv2d and maxpool
-   exactly (a maxpool NaN case included); then the five blur host
-   schedules against the plain blur at 1e-5.
-4. main path — two paths, each over a fresh tuning cache with the card's
+   exactly (a maxpool NaN case included); the five blur host schedules
+   against the plain blur at 1e-5; the four flash-attention kernels over
+   the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
+   window) and at full width: ``attention_block``'s q/k/v and one
+   attention layer each of yi-9b and gemma3-1b at 4096 tokens (B = 1 of the
+   train_4k shape's global batch of 256), at 1e-4 (fp32) and 3e-2 (bf16),
+   gradients relative to their largest magnitude above 1.
+4. main path — three paths, each over a fresh tuning cache with the card's
    fingerprint and its own dispatcher over the port's registry, the launch
    counters zeroed just before each and read just after.  Slice 1: eager
    ``ops.matmul``/``ops.matvec`` on cold shapes (every variant measured,
@@ -28,16 +33,24 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``decode_microbatch`` workloads traced, compiled (sequential) and run.
    Slice 2: eager ``ops.matmul`` (``mixed_dag``'s shape among them),
    ``ops.conv2d``, ``ops.maxpool`` and ``ops.blur`` on cold shapes, then
-   ``large`` ``image_pipeline`` and ``mixed_dag``.  Every output is held
-   against its workload's reference within 1e-5 (relative to the output's
-   largest magnitude where that exceeds 1), and every hand kernel a path
-   runs must have launched in it.  cuDNN's TF32 default is left as PyTorch
-   sets it: the port pins fp32 itself.
+   ``large`` ``image_pipeline`` and ``mixed_dag``.  Slice 3: eager
+   ``ops.matmul`` and ``ops.attention`` on cold shapes, then ``large``
+   ``attention_block``, then the differentiable flash-attention op on the
+   workload's q/k/v: its forward held to the compiled run's attention
+   output, the gradients of sum(sin(o)) to autograd through the plain
+   oracle at 1e-4.  Every output is held against its workload's reference
+   within 1e-5 (relative to the output's largest magnitude where that
+   exceeds 1), and every hand kernel a path runs must have launched in it.
+   cuDNN's TF32 default is left as PyTorch sets it: the port pins fp32
+   itself.
 5. times   — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
-   card's data sheet; the blur schedules' times once, for information.
+   card's data sheet; the blur schedules' times once, for information; the
+   flash-attention kernels at the three attention shapes, forward and
+   backward, beside ``scaled_dot_product_attention`` forward and
+   forward+backward.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -88,6 +101,27 @@ WARM_BLUR = WORK_BLUR + [(512, 1536), (2048, 256)]
 # min_rows_to_fit
 WARM_MM_DAG = WORK_MM_DAG + [(128, 512, 512), (384, 640, 768), (32, 64, 128),
                              (512, 1024, 256)]
+# attention_block large: its MLP branch x [512,512] @ w1 [512,1024] @ w2,
+# and its causal attention over q/k/v [b=4, s=512, h=8, dh=32]
+WORK_MM_ATT = [(512, 1024, 512), (512, 512, 1024)]
+# the slice-3 path's cold shapes: 3 matmul variants x 4 shapes and 4
+# attention variants x 4 shapes exceed min_rows_to_fit; (b, s, h, d) past
+# s = 512 make the chunked schedules differ from the full one
+WARM_MM_ATT = WORK_MM_ATT + [(128, 512, 512), (32, 64, 128)]
+WARM_ATT = [(4, 512, 8, 32), (2, 1024, 8, 32), (1, 2048, 4, 64),
+            (2, 768, 8, 32)]
+FA_BF16_TOL = 3e-2    # the JAX flash-attention tests' bf16 tolerance
+# the JAX flash-attention tests' grid: b=2, Sq=Sk=100, d=32, bq=bk=32
+FA_GRID = [(h, kv, causal, window) for h, kv in ((8, 2), (4, 4), (6, 1))
+           for causal, window in ((True, 0), (False, 0), (True, 16))]
+# (label, B, H, KV, S, D, causal, window) at full width: attention_block
+# large, and one attention layer each of yi-9b (src/repro/configs/yi_9b.py)
+# and gemma3-1b (src/repro/configs/gemma3_1b.py, a local layer) at the
+# train_4k sequence of 4096 (src/repro/configs/base.py), B = 1 of its
+# global batch of 256
+FA_SHAPES = (("attention_block", 4, 8, 8, 512, 32, True, 0),
+             ("yi-9b", 1, 32, 4, 4096, 128, True, 0),
+             ("gemma3-1b", 1, 4, 1, 4096, 256, True, 512))
 
 # fp32 FLOP/s outside the tensor cores and device-memory bytes/s, from
 # NVIDIA's data sheets, by a fragment of the name nvidia-smi reports
@@ -95,6 +129,47 @@ WARM_MM_DAG = WORK_MM_DAG + [(128, 512, 512), (384, 640, 768), (32, 64, 128),
 CARD_PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
               ("H100", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
 L2_BYTES = 50 * 2 ** 20
+
+# the TPU kernel each record's kernel replaces, and its source in the port
+REPLACES = {
+    "matmul": "src/repro/kernels/matmul/matmul.py:17",
+    "matvec": "src/repro/kernels/matvec/matvec.py:16",
+    "conv2d": "src/repro/kernels/conv2d/conv2d.py:19",
+    "maxpool": "src/repro/kernels/maxpool/maxpool.py:15",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:24",
+    "flash_attention_fwd":
+        "src/repro/kernels/flash_attention/flash_attention.py:63",
+    "flash_attention_bwd_dq":
+        "src/repro/kernels/flash_attention/flash_attention.py:114",
+    "flash_attention_bwd_dkv":
+        "src/repro/kernels/flash_attention/flash_attention.py:143",
+}
+
+
+def source_of(kernel: str) -> str:
+    base = "flash_attention" if kernel.startswith("flash_attention") \
+        else kernel
+    return f"src/repro_torch/csrc/{base}.cu"
+
+
+def launch_counts(K) -> dict:
+    """Kernel -> launches so far: each wrapper's plain-int counter under its
+    kernel's name, or its per-entry-point counters."""
+    counts = {}
+    for name, mod in K.items():
+        if isinstance(mod.LAUNCHES, dict):
+            counts.update(mod.LAUNCHES)
+        else:
+            counts[name] = mod.LAUNCHES
+    return counts
+
+
+def zero_counts(K) -> None:
+    for mod in K.values():
+        if isinstance(mod.LAUNCHES, dict):
+            mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))
+        else:
+            mod.LAUNCHES = 0
 
 
 def card_line() -> str:
@@ -284,20 +359,100 @@ def _check_blur(device, gen) -> None:
               + json.dumps(errs))
 
 
+def _fa_inputs(b, h, kv, s, d, dtype, device, gen) -> tuple:
+    """q, k scaled by 0.5 and v, do standard normal, as the JAX
+    flash-attention tests draw them."""
+    q, k = (torch.randn(b, n, s, d, generator=gen, device=device) * 0.5
+            for n in (h, kv))
+    v, do = (torch.randn(b, n, s, d, generator=gen, device=device)
+             for n in (kv, h))
+    return tuple(t.to(dtype) for t in (q, k, v, do))
+
+
+def _fa_case(fa, q, k, v, do, kw, tol) -> dict:
+    """The four kernels against their plain versions on one input set;
+    returns kernel -> error (outputs absolute, lse absolute, gradients
+    relative to their largest magnitude above 1)."""
+    pkw = {key: val for key, val in kw.items() if key not in ("bq", "bk")}
+    want_o, want_lse = fa.plain_fwd(q, k, v, **pkw)
+    out = fa.flash_attention(q, k, v, **kw)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for got in (out, o):
+        torch.testing.assert_close(got.float(), want_o.float(), rtol=tol,
+                                   atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=FP32_TOL, atol=FP32_TOL)
+    if not (torch.isfinite(out).all() and torch.isfinite(o).all()):
+        raise RuntimeError("flash attention: non-finite output")
+    errs = {"flash_attention": (out.float() - want_o.float()).abs().max(),
+            "flash_attention_fwd": max((o.float() - want_o.float()).abs()
+                                       .max(), (lse - want_lse).abs().max())}
+    delta = (do.float() * want_o.float()).sum(dim=-1)
+    bwd = {"flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
+                                      fa.plain_bwd_dq),
+           "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
+                                       fa.plain_bwd_dkv)}
+    for name, (kernel, plain) in bwd.items():
+        gots = kernel(q, k, v, do, want_lse, delta, **kw)
+        wants = plain(q, k, v, do, want_lse, delta, **pkw)
+        torch.cuda.synchronize()
+        gots = gots if isinstance(gots, tuple) else (gots,)
+        wants = wants if isinstance(wants, tuple) else (wants,)
+        err = 0.0
+        for got, want in zip(gots, wants):
+            scale = max(1.0, want.float().abs().max().item())
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol * scale)
+            err = max(err, (got.float() - want.float()).abs().max().item()
+                      / scale)
+        errs[name] = err
+        del gots, wants
+    return {name: float(e) for name, e in errs.items()}
+
+
+def _check_flash_attention(fa, device, gen, report, worst) -> None:
+    """Each kernel against its plain version over the JAX tests' grid
+    (Sq = Sk = 100 padded to 128 as ops.attention pads at bq = bk = 32,
+    sk_orig masking the padded keys) and at FA_SHAPES' full widths."""
+    for dtype, tol in ((torch.float32, FP32_TOL),
+                       (torch.bfloat16, FA_BF16_TOL)):
+        dname = str(dtype).removeprefix("torch.")
+        cases = [(f"grid h={h} kv={kv} causal={c} window={w}",
+                  (2, h, kv, 128, 32),
+                  {"causal": c, "window": w, "bq": 32, "bk": 32,
+                   "sk_orig": 100}) for h, kv, c, w in FA_GRID]
+        cases += [(label, (b, h, kv, s, d),
+                   {"causal": c, "window": w, "bq": 256, "bk": 256})
+                  for label, b, h, kv, s, d, c, w in FA_SHAPES]
+        for label, dims, kw in cases:
+            q, k, v, do = _fa_inputs(*dims, dtype, device, gen)
+            if "sk_orig" in kw:           # zero padding, as ops.attention
+                for t in (q, k, v, do):
+                    t[:, :, kw["sk_orig"]:] = 0
+            errs = _fa_case(fa, q, k, v, do, kw, tol)
+            for name, err in errs.items():
+                key = (f"{name} {label.split()[0]}", dname)
+                report[key] = max(report.get(key, 0.0), err)
+                if dtype == torch.float32 and label == FA_SHAPES[0][0]:
+                    worst[name] = max(worst[name], err)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+
 def phase_kernels(K, device) -> dict:
     """Every kernel at every schedule against its plain version; returns
     kernel -> worst abs error at the main path's shapes in fp32."""
     gen = torch.Generator(device=device).manual_seed(0)
-    worst = {name: 0.0 for name in K}
+    worst = dict.fromkeys(launch_counts(K), 0.0)
     report = {}
     _check_mm_mv(K["matmul"], K["matvec"], device, gen, report, worst)
     _check_conv_pool(K["conv2d"], K["maxpool"], device, gen, report, worst)
+    _check_flash_attention(K["flash_attention"], device, gen, report, worst)
     print("kernels: " + json.dumps(
         {f"{k}/{d}": e for (k, d), e in sorted(report.items())}))
     print(f"kernels: all within tolerance of their plain versions (conv2d "
           f"and maxpool exact, a NaN case included); launches while "
-          f"checking: "
-          + json.dumps({name: mod.LAUNCHES for name, mod in K.items()}))
+          f"checking: " + json.dumps(launch_counts(K)))
     _check_blur(device, gen)
     return worst
 
@@ -324,14 +479,67 @@ def _warm_slice2(ops, device, gen) -> None:
         ops.blur(torch.randn(m, n, generator=gen, device=device))
 
 
+def _warm_slice3(ops, device, gen) -> None:
+    for m, n, k in WARM_MM_ATT:
+        ops.matmul(torch.randn(m, k, generator=gen, device=device),
+                   torch.randn(k, n, generator=gen, device=device))
+    for b, s, h, d in WARM_ATT:
+        ops.attention(*(torch.randn(b, s, h, d, generator=gen, device=device)
+                        for _ in range(3)))
+
+
+def _attention_op(runs) -> None:
+    """The differentiable flash-attention op on attention_block's q/k/v,
+    transposed to [B,H,S,D]: without gradients (the no-lse forward kernel)
+    and with them (the lse forward, then the dq and dk/dv kernels through
+    autograd).  Both forwards are held to the compiled run's attention
+    output as the workloads' outputs are; the gradients of sum(sin(o)) to
+    autograd through the plain oracle at 1e-4 of their largest magnitude
+    above 1."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    built, outs = runs["attention_block"]
+    q, k, v = (built.bindings[f"in{i}"].transpose(1, 2).contiguous()
+               for i in range(3))
+    with torch.no_grad():
+        out = fa_ops.attention(q, k, v, causal=True)
+    err = _check_outputs("attention op forward",
+                         (out.transpose(1, 2),), (outs[0],))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.attention(*leaves, causal=True)
+    err = max(err, _check_outputs("attention op forward with lse",
+                                  (out.detach().transpose(1, 2),),
+                                  (outs[0],)))
+    torch.sin(out).sum().backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.sin(fa_ops.attention(*plain, causal=True,
+                               use_kernel=False)).sum().backward()
+    torch.cuda.synchronize()
+    gerr = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, plain):
+        scale = max(1.0, want.grad.abs().max().item())
+        torch.testing.assert_close(
+            got.grad, want.grad, rtol=FP32_TOL, atol=FP32_TOL * scale,
+            msg=lambda x: f"attention op {name}: {x}")
+        gerr = max(gerr, (got.grad - want.grad).abs().max().item() / scale)
+    print(f"main: attention op on attention_block's q/k/v [B,H,S,D] = "
+          f"{list(q.shape)}: forward vs the compiled run {err:.3g} (budget "
+          f"{PARITY_TOL}), gradients of sum(sin(o)) vs autograd through the "
+          f"plain oracle {gerr:.3g} of max(1, |grad|) (budget {FP32_TOL})")
+
+
 # (label, hand kernels that must launch, models that must be fitted, eager
-# warm-up, workloads driven at ``large``)
+# warm-up, workloads driven at ``large``, a check run after them or None)
 PATHS = (
     ("slice 1", ("matmul", "matvec"), ("matmul", "matvec"), _warm_slice1,
-     ("mlp_block", "decode_microbatch")),
+     ("mlp_block", "decode_microbatch"), None),
     ("slice 2", ("matmul", "conv2d", "maxpool"),
      ("matmul", "conv2d", "maxpool", "blur"), _warm_slice2,
-     ("image_pipeline", "mixed_dag")),
+     ("image_pipeline", "mixed_dag"), None),
+    ("slice 3", ("matmul", "flash_attention", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+     ("matmul", "flash_attention"), _warm_slice3, ("attention_block",),
+     _attention_op),
 )
 
 
@@ -370,11 +578,12 @@ def _device_busy_s(fn) -> float:
                if e.device_type == DeviceType.CUDA) / 1e6
 
 
-def _run_workload(name, disp, device) -> None:
+def _run_workload(name, disp, device) -> tuple:
     """Trace, compile and run the ``large`` preset twice (the first call
     carries one-off costs such as library plans for new shapes), check
     both runs' outputs, and print the second run's breakdown and the
-    card's busy share over a third, profiled run."""
+    card's busy share over a third, profiled run.  Returns the built
+    workload and the second run's outputs."""
     from repro_torch.workloads import get_workload
 
     built = get_workload(name).build("large", registry=disp.registry,
@@ -407,6 +616,7 @@ def _run_workload(name, disp, device) -> None:
           f"(budget {PARITY_TOL})")
     print(f"main: {name} second run, node=variant/mode/call to synchronise: "
           f"{' '.join(chosen)}")
+    return built, outs
 
 
 def phase_main_path(K, device) -> dict:
@@ -421,11 +631,10 @@ def phase_main_path(K, device) -> dict:
     with tempfile.TemporaryDirectory() as root:
         fp = current_fingerprint("cuda")
         print(f"main: fingerprint {fp.key}")
-        for label, hand, fitted, warm, workloads in PATHS:
+        for label, hand, fitted, warm, workloads, after in PATHS:
             cache_dir = str(Path(root) / label.replace(" ", "_"))
             disp = Dispatcher(default_registry(), TuningCache(cache_dir, fp))
-            for mod in K.values():
-                mod.LAUNCHES = 0
+            zero_counts(K)
             t0 = time.perf_counter()
             with use_dispatcher(disp):
                 warm(ops, device, gen)
@@ -444,9 +653,11 @@ def phase_main_path(K, device) -> dict:
                     raise RuntimeError(f"no model fitted for {kernel}")
                 print(f"main: {kernel} model fitted on {entry.n_rows} rows, "
                       f"fit MAPE {entry.fit_mape:.1f}%")
-            for name in workloads:
-                _run_workload(name, disp, device)
-            counts = {name: mod.LAUNCHES for name, mod in K.items()}
+            runs = {name: _run_workload(name, disp, device)
+                    for name in workloads}
+            if after is not None:
+                after(runs)
+            counts = launch_counts(K)
             print(f"main: {label} hand-kernel launches: {counts}")
             for kernel in hand:
                 if counts[kernel] <= 0:
@@ -501,17 +712,23 @@ def _fmt_us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
 
 
+def _bound(flops, nbytes, card) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``flops`` fp32 operations on ``nbytes`` of device memory traffic."""
+    flops_peak, bandwidth = card_peaks(card)
+    bound_by = "operations" if flops / flops_peak >= nbytes / bandwidth \
+        else "bytes"
+    return max(flops / flops_peak, nbytes / bandwidth) * 1e3, bound_by
+
+
 def _measure(label, fns, sets, flops, nbytes, card) -> dict:
     """Time each function (events and device time) and print one line
     with the bound of the work: the larger of operations over the fp32
     peak and bytes (each input read once, the output written once) over
     the memory rate."""
-    flops_peak, bandwidth = card_peaks(card)
     t = _best(fns, sets)
     dev = {name: _device_ms(fn, sets) for name, fn in fns.items()}
-    bound_by = "operations" if flops / flops_peak >= nbytes / bandwidth \
-        else "bytes"
-    bound = max(flops / flops_peak, nbytes / bandwidth) * 1e3
+    bound, bound_by = _bound(flops, nbytes, card)
     print(f"times: {label}: " + ", ".join(
         f"{v} {ms * 1e3:.1f} us (device {_fmt_us(dev[v])})"
         for v, ms in t.items())
@@ -523,19 +740,14 @@ def _measure(label, fns, sets, flops, nbytes, card) -> dict:
 def _record(name, schedule, shape, res, worst, by_path) -> dict:
     """One kernel's record; ``launches`` sums the paths' runs, and
     ``launches_by_path`` gives each path's own count."""
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": {"matmul": "src/repro/kernels/matmul/matmul.py:17",
-                         "matvec": "src/repro/kernels/matvec/matvec.py:16",
-                         "conv2d": "src/repro/kernels/conv2d/conv2d.py:19",
-                         "maxpool": "src/repro/kernels/maxpool/maxpool.py:15",
-                         }[name],
+    return {"name": name, "route": "cuda", "source": source_of(name),
+            "replaces": REPLACES[name],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": worst[name],
             "ms": res["ms"][schedule], "plain_ms": res["ms"]["plain"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res["ms"]["library"],
+            "library_ms": res["ms"].get("library"),
             "device_ms": res["device_ms"][schedule],
             "schedule": schedule, "shape": list(shape), "dtype": "float32"}
 
@@ -617,6 +829,131 @@ def _times_blur(device, gen) -> None:
             f"{v} {ms * 1e3:.1f} us" for v, ms in t.items()))
 
 
+def _visible_pairs(s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs an [s, s] attention sees, counted exactly:
+    the work that remains once the kernels skip masked tiles."""
+    q = torch.arange(s)
+    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    hi = q if causal else torch.full_like(q, s - 1)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def _fa_sets(fa, dims, kw, device, gen) -> tuple:
+    """Forward operand sets (q, k, v) and backward ones (q, k, v, do, lse,
+    delta), together past the L2 cache, the residuals from the forward."""
+    b, h, kv, s, d = dims
+    count = max(2, -(-2 * L2_BYTES // (8 * (b * h + b * kv) * s * d)))
+    fwd, bwd = [], []
+    for _ in range(count):
+        q, k, v, do = _fa_inputs(b, h, kv, s, d, torch.float32, device, gen)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        fwd.append((q, k, v))
+        bwd.append((q, k, v, do, lse, (do * o).sum(dim=-1)))
+    return fwd, bwd
+
+
+def _sdpa(causal, window, s, device) -> tuple:
+    """``scaled_dot_product_attention`` forward and forward+backward, fp32,
+    GQA, the window as a boolean mask: the library yardstick, called here
+    only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref
+
+    mask = None if window == 0 else ref.visible(
+        s, s, causal=causal, window=window, sk_orig=0, device=device)
+
+    def fwd(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    def fwd_bwd(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fwd(*leaves), leaves, do)
+
+    return fwd, fwd_bwd
+
+
+def _times_flash_attention(fa, device, gen, card, worst, by_path) -> list:
+    """The four kernels at FA_SHAPES, each beside its plain version and its
+    bound over the visible pairs; the forward beside SDPA's forward, and
+    the op's forward+backward (the lse forward, delta, the two backward
+    kernels, the GQA sum) beside SDPA's.  Records hold attention_block's
+    numbers, with every shape's under ``shapes``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    per_shape = {}
+    for label, b, h, kv, s, d, causal, window in FA_SHAPES:
+        kw = {"causal": causal, "window": window, "bq": 256, "bk": 256}
+        pkw = {"causal": causal, "window": window}
+        fwd_sets, bwd_sets = _fa_sets(fa, (b, h, kv, s, d), kw, device, gen)
+        fb_sets = [t[:4] for t in bwd_sets]
+        pairs = _visible_pairs(s, causal, window)
+        work = float(b * h * pairs * d)
+        q_bytes, kv_bytes, row_bytes = (4 * b * h * s * d, 4 * b * kv * s * d,
+                                        4 * b * h * s)
+        tag = (f"fp32 {label} B={b} H={h} KV={kv} S={s} D={d} "
+               f"causal={causal} window={window}, {pairs} visible pairs of "
+               f"{s * s}")
+        sdpa_fwd, sdpa_fwd_bwd = _sdpa(causal, window, s, device)
+        fwd = _measure(
+            f"flash attention forward {tag}",
+            {"flash_attention": lambda q, k, v: fa.flash_attention(
+                q, k, v, **kw),
+             "flash_attention_fwd": lambda q, k, v: fa.flash_attention_fwd(
+                 q, k, v, **kw),
+             "plain": lambda q, k, v: fa.plain_fwd(q, k, v, **pkw),
+             "library": sdpa_fwd},
+            fwd_sets, 4 * work, 2 * q_bytes + 2 * kv_bytes, card)
+        bound, bound_by = _bound(4 * work, 2 * q_bytes + 2 * kv_bytes
+                                 + row_bytes, card)
+        fwd_lse = dict(fwd, bound_ms=bound, bound_by=bound_by)
+        bwd_in = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+        dq = _measure(
+            f"flash attention backward dq {tag}",
+            {"flash_attention_bwd_dq": lambda *a: fa.flash_attention_bwd_dq(
+                *a, **kw),
+             "plain": lambda *a: fa.plain_bwd_dq(*a, **pkw)},
+            bwd_sets, 6 * work, bwd_in + q_bytes, card)
+        dkv = _measure(
+            f"flash attention backward dk/dv {tag}",
+            {"flash_attention_bwd_dkv":
+                lambda *a: fa.flash_attention_bwd_dkv(*a, **kw),
+             "plain": lambda *a: fa.plain_bwd_dkv(*a, **pkw)},
+            bwd_sets, 8 * work, bwd_in + 2 * q_bytes, card)
+
+        def op_fwd_bwd(q, k, v, do):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fa_ops.attention(*leaves, **kw),
+                                       leaves, do)
+
+        _measure(f"flash attention op forward+backward {tag}",
+                 {"op": op_fwd_bwd, "library": sdpa_fwd_bwd}, fb_sets,
+                 18 * work, 3 * q_bytes + 4 * kv_bytes, card)
+        per_shape[label] = {"flash_attention": fwd,
+                            "flash_attention_fwd": fwd_lse,
+                            "flash_attention_bwd_dq": dq,
+                            "flash_attention_bwd_dkv": dkv}
+        del fwd_sets, bwd_sets, fb_sets
+        torch.cuda.empty_cache()
+    main_label, *dims = FA_SHAPES[0]
+    records = []
+    for name in per_shape[main_label]:
+        rec = _record(name, name, dims[:5], per_shape[main_label][name],
+                      worst, by_path)
+        rec["shapes"] = {}
+        for label, shapes in per_shape.items():
+            res = shapes[name]
+            rec["shapes"][label] = {
+                "ms": res["ms"][name], "device_ms": res["device_ms"][name],
+                "plain_ms": res["ms"]["plain"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"],
+                "library_ms": res["ms"].get("library")}
+        records.append(rec)
+    return records
+
+
 def phase_times(K, device, card: str, worst: dict, by_path: dict) -> list:
     gen = torch.Generator(device=device).manual_seed(2)
     records = _times_mm_mv(K["matmul"], K["matvec"], device, gen, card,
@@ -624,6 +961,8 @@ def phase_times(K, device, card: str, worst: dict, by_path: dict) -> list:
     records += _times_conv_pool(K["conv2d"], K["maxpool"], device, gen, card,
                                 worst, by_path)
     _times_blur(device, gen)
+    records += _times_flash_attention(K["flash_attention"], device, gen, card,
+                                      worst, by_path)
     return records
 
 
@@ -635,13 +974,15 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.conv2d import conv2d as mc
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matvec import matvec as mv
     from repro_torch.kernels.maxpool import maxpool as mp
 
     # TF32 stays at PyTorch's defaults (off for matmul, on for cuDNN): the
     # port pins fp32 around its own cuDNN calls
-    K = {"matmul": mm, "matvec": mv, "conv2d": mc, "maxpool": mp}
+    K = {"matmul": mm, "matvec": mv, "conv2d": mc, "maxpool": mp,
+         "flash_attention": fa}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 

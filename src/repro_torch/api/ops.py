@@ -218,6 +218,14 @@ def blur(a):
     return _apply("blur", a)
 
 
+def attention(q, k, v):
+    """Causal attention over [B, S, H, D] — full vs chunked (q_chunk,
+    k_chunk) schedule chosen by the predictor."""
+    return _apply("flash_attention", q, k, v)
+
+
+flash_attention = attention
+
 # kernel name -> front-end function (the port's registry surface)
 KERNEL_OPS = {"matmul": matmul, "matvec": matvec, "conv2d": conv2d,
-              "maxpool": maxpool, "blur": blur}
+              "maxpool": maxpool, "blur": blur, "flash_attention": attention}

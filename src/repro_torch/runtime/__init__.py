@@ -14,13 +14,16 @@ from repro_torch.runtime.dispatch import (DispatchPolicy, Dispatcher,
                                           Selection, default_dispatcher)
 from repro_torch.runtime.fingerprint import Fingerprint, current_fingerprint
 from repro_torch.runtime.online import OnlineConfig, OnlineRefiner
-from repro_torch.runtime.registry import (KernelRegistry, RegisteredKernel,
-                                          Variant, default_registry)
+from repro_torch.runtime.registry import (ATTENTION_SCHEDULE_GRID,
+                                          ATTENTION_SCHEDULES, KernelRegistry,
+                                          RegisteredKernel, Variant,
+                                          attention_flops, default_registry)
 from repro_torch.runtime.seeding import seed_from_programs, variant_skews
 
 __all__ = ["CacheEntry", "TuningCache", "bucket_dim", "shape_bucket",
            "shape_class", "TRAIN_BUDGET_ROWS", "DispatchPolicy", "Dispatcher",
            "Selection", "default_dispatcher", "Fingerprint",
            "current_fingerprint", "OnlineConfig", "OnlineRefiner",
-           "KernelRegistry", "RegisteredKernel", "Variant",
+           "ATTENTION_SCHEDULE_GRID", "ATTENTION_SCHEDULES", "KernelRegistry",
+           "RegisteredKernel", "Variant", "attention_flops",
            "default_registry", "seed_from_programs", "variant_skews"]

@@ -14,7 +14,11 @@ so fitted cache entries move between the two packages.  In the port,
 ``torch.matmul``/``torch.mv``/``F.conv2d``/``F.max_pool2d`` in fp32 — the
 counterpart of the jnp path XLA compiled.  The blur variants are the host
 schedules of ``kernels.blur.ops``, torch-op schedules as the JAX ones are
-jnp.  ``flash_attention`` comes with a later slice.
+jnp.  The ``flash_attention`` variants are, as in the JAX package,
+``models.attention``'s ``attend_full`` and ``attend_chunked`` over the
+(q_chunk, k_chunk) schedule axis, plain torch ops; the hand flash-attention
+kernels run through ``kernels.flash_attention.ops.attention``, the
+differentiable op, not through dispatch.
 """
 from __future__ import annotations
 
@@ -25,6 +29,19 @@ import numpy as np
 
 from repro_torch.core.features import blur_complexity
 from repro_torch.kernels import Aval
+
+
+def attention_flops(b: int, h: int, s: int, d: int) -> float:
+    """Analytic c for one causal attention call (qk^T + pv)."""
+    return 4.0 * b * h * s * s * d
+
+
+# The chunked-attention (q_chunk, k_chunk) schedule axis, the JAX package's:
+# ATTENTION_SCHEDULE_GRID is the full measurement sweep of its autotuner;
+# ATTENTION_SCHEDULES is the curated subset the dispatcher ranks at run time.
+ATTENTION_SCHEDULE_GRID = tuple((q, k) for q in (64, 128, 256, 512)
+                                for k in (128, 256, 512, 1024))
+ATTENTION_SCHEDULES = ((128, 256), (256, 512), (512, 1024))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +228,42 @@ def _blur() -> RegisteredKernel:
                             out_aval=ops.out_aval)
 
 
+def _flash_attention() -> RegisteredKernel:
+    from repro_torch.models.attention import attend_chunked, attend_full
+
+    # this variant set is built over models.attention ([B, S, H, D] layout),
+    # so its abstract hooks live here, not in kernels/flash_attention/ops.py
+    # (whose entry point is [B, H, S, D])
+    def abstract_params(q, k, v):
+        b, s, h, d = q.shape
+        return {"b": int(b), "h": int(h), "s": int(s), "d": int(d)}
+
+    def out_aval(q, k, v):
+        return Aval(tuple(q.shape), q.dtype)
+
+    flops = lambda p: attention_flops(p["b"], p["h"], p["s"], p["d"])
+
+    def feat(qc, kc):
+        # qc/kc == 0 encodes "no tiling" (the full reference path)
+        return lambda p: [p["b"], p["h"], p["s"], p["d"],
+                          qc or p["s"], kc or p["s"]]
+
+    variants = [Variant("flash_attention", "full",
+                        lambda args, p: attend_full(*args, causal=True),
+                        feat(0, 0), flops)]
+    for qc, kc in ATTENTION_SCHEDULES:
+        variants.append(Variant(
+            "flash_attention", f"chunked_q{qc}_k{kc}",
+            lambda args, p, _qc=qc, _kc=kc: attend_chunked(
+                *args, causal=True, q_chunk=_qc, k_chunk=_kc),
+            feat(qc, kc), flops))
+    return RegisteredKernel("flash_attention", abstract_params,
+                            ("b", "h", "s", "d", "q_chunk", "k_chunk"),
+                            tuple(variants),
+                            abstract_params=abstract_params,
+                            out_aval=out_aval)
+
+
 # in the JAX package's order
 _BUILDERS = {
     "matmul": _matmul,
@@ -218,6 +271,7 @@ _BUILDERS = {
     "conv2d": _conv2d,
     "maxpool": _maxpool,
     "blur": _blur,
+    "flash_attention": _flash_attention,
 }
 
 

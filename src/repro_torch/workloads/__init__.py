@@ -1,6 +1,5 @@
 """repro_torch.workloads — named, parameterized multi-kernel programs, the
-port of ``repro.workloads`` (all but ``attention_block``, which comes with
-the flash-attention slice).
+port of ``repro.workloads``.
 
 Each workload
 

@@ -1,12 +1,11 @@
-"""The workload definitions ported so far: ``image_pipeline``,
-``mlp_block``, ``decode_microbatch`` and ``mixed_dag``, the programs the
-matmul, matvec, conv2d, maxpool and blur kernels carry
-(``attention_block`` comes with the flash-attention slice).
+"""The workload definitions: the JAX package's five multi-kernel program
+families.
 
 Every factory returns ``(make, reference)`` over one shared set of input
 tensors: ``make()`` records the program through ``repro_torch.api.ops``
 under an active trace; ``reference()`` computes the identical outputs with
-the kernels' plain versions — no registry, no dispatch, no variants.
+the kernels' plain versions and ``models.attention.attend_full`` — no
+registry, no dispatch, no variants.
 Inputs are drawn exactly as the JAX package draws them (same numpy calls,
 float32 arithmetic), so with the same seed they are bit-identical.
 """
@@ -21,6 +20,7 @@ from repro_torch.kernels.conv2d import ref as conv2d_ref
 from repro_torch.kernels.matmul import ref as matmul_ref
 from repro_torch.kernels.matvec import ref as matvec_ref
 from repro_torch.kernels.maxpool import ref as maxpool_ref
+from repro_torch.models.attention import attend_full
 
 
 def _np_arr(rng, *shape) -> np.ndarray:
@@ -82,6 +82,30 @@ def _mlp_block(p, rng, device):
         for w in ws:
             y = matmul_ref.matmul(y, w)
         return (y,)
+
+    return make, reference
+
+
+# --------------------------------------------------------------------------
+# attention_block: flash_attention + a parallel 2-matmul MLP branch
+# --------------------------------------------------------------------------
+
+def _attention_block(p, rng, device):
+    b, s, h, dh = p["b"], p["s"], p["h"], p["dh"]
+    q, k, v = (_arr(rng, device, b, s, h, dh) for _ in range(3))
+    x = _arr(rng, device, s, p["e"])
+    w1 = _weight(rng, device, p["e"], p["f"])
+    w2 = _weight(rng, device, p["f"], p["e"])
+
+    def make():
+        attn = ops.attention(q, k, v)
+        mlp = ops.matmul(ops.matmul(x, w1), w2)
+        return (attn, mlp)
+
+    def reference():
+        attn = attend_full(q, k, v, causal=True)
+        mlp = matmul_ref.matmul(matmul_ref.matmul(x, w1), w2)
+        return (attn, mlp)
 
     return make, reference
 
@@ -165,6 +189,13 @@ WORKLOAD_BUILDERS = {
          "medium": {"b": 128, "d": 256, "h": 512, "depth": 4},
          "large": {"b": 256, "d": 1024, "h": 2048, "depth": 4}},
         _mlp_block),
+    "attention_block": (
+        ("flash_attention", "matmul"),
+        {"small": {"b": 1, "s": 64, "h": 2, "dh": 8, "e": 64, "f": 96},
+         "medium": {"b": 2, "s": 256, "h": 4, "dh": 16, "e": 256, "f": 512},
+         "large": {"b": 4, "s": 512, "h": 8, "dh": 32, "e": 512,
+                   "f": 1024}},
+        _attention_block),
     "decode_microbatch": (
         ("matvec",),
         {"small": {"h": 192, "depth": 3, "chains": 2},

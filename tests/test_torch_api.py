@@ -26,9 +26,11 @@ from repro_torch.runtime import (Dispatcher, Fingerprint, TuningCache,
                                  current_fingerprint, seed_from_programs)
 from repro_torch.workloads import get_workload, suite_registry
 
-NAMES = ["mlp_block", "decode_microbatch", "image_pipeline", "mixed_dag"]
-# workloads whose compiled JAX program can execute here
-JAX_EXECUTES = {"mlp_block", "decode_microbatch"}
+NAMES = ["mlp_block", "decode_microbatch", "image_pipeline", "mixed_dag",
+         "attention_block"]
+# workloads whose compiled JAX program can execute here (the attention
+# variants are jnp, the Pallas matmul runs in interpret mode)
+JAX_EXECUTES = {"mlp_block", "decode_microbatch", "attention_block"}
 
 
 @pytest.fixture(scope="module")

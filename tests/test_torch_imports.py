@@ -1,4 +1,4 @@
-"""The port stands alone: nothing under src/repro_torch/, and not
+"""The port stands alone: nothing under src/repro_torch/ or tools/, and not
 chip_smoke.py, imports jax or any module of the JAX package ``repro``."""
 import ast
 import os
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -1,13 +1,14 @@
-"""repro_torch kernels: the port's matmul/matvec ops against the JAX
-package's Pallas kernels (interpret mode) and its ref oracles, and its
-conv2d/maxpool/blur ops against the JAX ref oracles and jnp paths (the
-Pallas conv2d, maxpool and blur kernels need ``pl.load``, which jax 0.9.0
-lacks), on the same numpy-drawn inputs; the backend rule; the build's
-failure modes; and, on a card, the CUDA kernels against their plain
-versions."""
+"""repro_torch kernels: the port's matmul/matvec and flash-attention ops
+against the JAX package's Pallas kernels (interpret mode) and its ref
+oracles, and its conv2d/maxpool/blur ops against the JAX ref oracles and
+jnp paths (the Pallas conv2d, maxpool and blur kernels need ``pl.load``,
+which jax 0.9.0 lacks), on the same numpy-drawn inputs; the backend rule;
+the build's failure modes; and, on a card, the CUDA kernels against their
+plain versions."""
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,8 @@ import torch
 
 from repro.kernels.blur import ops as jbl_ops, ref as jbl_ref
 from repro.kernels.conv2d import ops as jmc_ops, ref as jmc_ref
+from repro.kernels.flash_attention import flash_attention as jfa_kernel
+from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.matmul import ops as jmm_ops, ref as jmm_ref
 from repro.kernels.matvec import ops as jmv_ops, ref as jmv_ref
 from repro.kernels.maxpool import ops as jmp_ops, ref as jmp_ref
@@ -22,6 +25,8 @@ from repro_torch.kernels import Aval, build, cudnn_fp32, on_cuda, \
     resolve_device
 from repro_torch.kernels.blur import ops as bl_ops, ref as bl_ref
 from repro_torch.kernels.conv2d import conv2d as mc_kernel, ops as mc_ops
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.matmul import matmul as mm_kernel, ops as mm_ops
 from repro_torch.kernels.matvec import matvec as mv_kernel, ops as mv_ops
 from repro_torch.kernels.maxpool import maxpool as mp_kernel, ops as mp_ops
@@ -171,6 +176,179 @@ def test_blur_op_and_its_unported_kernel():
     assert list(bl_ops.HOST_SCHEDULES) == list(jbl_ops.HOST_SCHEDULES)
 
 
+# --------------------------------------------------------------------------
+# flash attention: the port's op and wrappers against the JAX Pallas kernels
+# in interpret mode (each call about 0.5-1.7 s here), on the JAX tests' grid
+# --------------------------------------------------------------------------
+
+FA_MASKS = [(True, 0), (False, 0), (True, 16)]
+FA_HEADS = [(8, 2), (4, 4), (6, 1)]
+
+
+def _fa_draw(rng, h, kv, dtype, scale, sq=100, b=2, d=32):
+    """q, k scaled as the JAX tests draw them, v standard normal; the same
+    values in both packages."""
+    xs = [rng.randn(b, h, sq, d) * scale, rng.randn(b, kv, sq, d) * scale,
+          rng.randn(b, kv, sq, d)]
+    jd, td, _ = DTYPES[dtype]
+    xs = [x.astype(np.float32) for x in xs]
+    return ([jnp.asarray(x, jd) for x in xs],
+            [torch.from_numpy(x).to(td) for x in xs])
+
+
+@pytest.mark.parametrize("h,kv", FA_HEADS)
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_flash_attention_op_matches_pallas(h, kv, causal, window):
+    """fp32: the op without gradients (the no-lse kernel) and with them (the
+    lse kernel of the autograd forward) against the Pallas op at 1e-4."""
+    rng = np.random.RandomState(h * 10 + kv + 100 * causal + window)
+    (jq, jk, jv), (tq, tk, tv) = _fa_draw(rng, h, kv, "float32", 0.5)
+    kw = {"causal": causal, "window": window, "bq": 32, "bk": 32}
+    want = np.asarray(jfa_ops.attention(jq, jk, jv, **kw))
+    out = fa_ops.attention(tq, tk, tv, **kw)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (2, h, 100, 32)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-4, atol=1e-4)
+    grad_in = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = fa_ops.attention(*grad_in, **kw)
+    assert out.requires_grad
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-4,
+                               atol=1e-4)
+    # the plain oracle path is the JAX oracle's arithmetic
+    np.testing.assert_allclose(
+        fa_ops.attention(tq, tk, tv, causal=causal, window=window,
+                         use_kernel=False).numpy(),
+        np.asarray(jfa_ref.attention(jq, jk, jv, causal=causal,
+                                     window=window)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kv,causal,window", [(8, 2, True, 0),
+                                                (4, 4, False, 0),
+                                                (6, 1, True, 16)])
+def test_flash_attention_op_bf16_matches_pallas(h, kv, causal, window):
+    rng = np.random.RandomState(h * 10 + kv + window)
+    (jq, jk, jv), (tq, tk, tv) = _fa_draw(rng, h, kv, "bfloat16", 0.5)
+    kw = {"causal": causal, "window": window, "bq": 32, "bk": 32}
+    want = np.float32(jfa_ops.attention(jq, jk, jv, **kw))
+    out = fa_ops.attention(tq, tk, tv, **kw)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+
+
+def _grad_close(got: torch.Tensor, want, tol=1e-4):
+    """Within tol of the largest magnitude above 1 (absolute below)."""
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("h,kv,causal,window", [(8, 2, True, 0),
+                                                (4, 4, False, 0),
+                                                (6, 1, True, 16)])
+def test_flash_attention_grads_match_jax(h, kv, causal, window):
+    """The autograd backward (the dq and dk/dv sweeps, delta and the GQA
+    group sum in torch) against jax.grad through the Pallas op, and against
+    autograd through the plain oracle, on the JAX backward tests' draws."""
+    rng = np.random.RandomState(7 * h + kv + window)
+    (jq, jk, jv), (tq, tk, tv) = _fa_draw(rng, h, kv, "float32", 0.4)
+    kw = {"causal": causal, "window": window, "bq": 32, "bk": 32}
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.sin(jfa_ops.attention(q, k, v, **kw)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    torch.sin(fa_ops.attention(*leaves, **kw)).sum().backward()
+    plain = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    torch.sin(fa_ops.attention(*plain, causal=causal, window=window,
+                               use_kernel=False)).sum().backward()
+    for leaf, ref_leaf, w in zip(leaves, plain, want):
+        assert leaf.grad.shape == leaf.shape
+        _grad_close(leaf.grad, w)
+        _grad_close(ref_leaf.grad, w)
+
+
+@pytest.mark.parametrize("h,kv,causal,window", [(6, 2, True, 16),
+                                                (4, 4, False, 24)])
+def test_flash_attention_wrappers_match_pallas_kernels(h, kv, causal, window):
+    """The three wrapper functions against the JAX kernel functions at a
+    ragged Sq (100 padded to 128) with ``sk_orig`` masking the padded keys;
+    the padded query rows see no key under the window, so they average
+    every key's value, in both packages, and must stay finite."""
+    rng = np.random.RandomState(h + kv + window)
+    (jq, jk, jv), (tq, tk, tv) = _fa_draw(rng, h, kv, "float32", 0.5)
+    jpad = [jnp.pad(x, ((0, 0), (0, 0), (0, 28), (0, 0))) for x in
+            (jq, jk, jv)]
+    tpad = [torch.nn.functional.pad(x, (0, 0, 0, 28)) for x in (tq, tk, tv)]
+    kw = {"causal": causal, "window": window, "bq": 32, "bk": 32,
+          "sk_orig": 100}
+    want_o = np.asarray(jfa_kernel.flash_attention(*jpad, **kw))
+    out = fa_kernel.flash_attention(*tpad, **kw)
+    np.testing.assert_allclose(out.numpy(), want_o, rtol=1e-4, atol=1e-4)
+    jo, jlse = jfa_kernel.flash_attention_fwd(*jpad, **kw)
+    out, lse = fa_kernel.flash_attention_fwd(*tpad, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-4,
+                               atol=1e-4)
+    assert lse.dtype == torch.float32 and torch.isfinite(out).all()
+    # the rows past the last key's window are blind: m stays NEG_INF
+    assert (lse[:, :, 99 + window:] == -1e30).all()
+    assert (lse[:, :, :99 + window] > -1e29).all()
+    do = rng.randn(*tpad[0].shape).astype(np.float32)
+    do[:, :, 100:] = 0.0
+    delta = (do * np.asarray(jo)).sum(-1)
+    jgrads = jfa_kernel.flash_attention_bwd(*jpad, jnp.asarray(do), jlse,
+                                            jnp.asarray(delta), **kw)
+    grads = fa_kernel.flash_attention_bwd(*tpad, torch.from_numpy(do), lse,
+                                          torch.from_numpy(delta), **kw)
+    assert tuple(grads[1].shape) == (2, h, 128, 32)        # per q head
+    for got, want in zip(grads, jgrads):
+        _grad_close(got, want)
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernels_do_not_take():
+    q, k = torch.zeros(1, 4, 64, 32), torch.zeros(1, 2, 64, 32)
+    with pytest.raises(ValueError, match=r"q \[B,H,Sq,D\]"):
+        fa_kernel.flash_attention(q[0], k, k)
+    with pytest.raises(ValueError, match="H % KV == 0"):
+        fa_kernel.flash_attention(q, torch.zeros(1, 3, 64, 32),
+                                  torch.zeros(1, 3, 64, 32))
+    with pytest.raises(ValueError, match="Sq % bq == 0"):
+        fa_kernel.flash_attention(q, k, k, bq=48, bk=32)
+    with pytest.raises(ValueError, match="sk_orig"):
+        fa_kernel.flash_attention(q, k, k, bq=32, bk=32, sk_orig=65)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention(q.double(), k.double(), k.double(), bq=32,
+                                  bk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), k, k, bq=32, bk=32)
+    lse = torch.zeros(1, 4, 64)
+    with pytest.raises(ValueError, match="lse fp32"):
+        fa_kernel.flash_attention_bwd(q, k, k, q, lse.double(), lse, bq=32,
+                                      bk=32)
+    with pytest.raises(ValueError, match="do like q"):
+        fa_kernel.flash_attention_bwd(q, k, k, q.bfloat16(), lse, lse,
+                                      bq=32, bk=32)
+    # what only the CUDA kernels refuse: an uncompiled head dim
+    with pytest.raises(ValueError, match="no flash-attention kernel for head"):
+        fa_kernel._check_kernel(torch.zeros(1, 1, 1, 48))
+    for d in fa_kernel.HEAD_DIMS:
+        fa_kernel._check_kernel(torch.zeros(1, 1, 1, d))
+    # gemma3-1b's head dim opts in to more than 48 KB and fits the card
+    assert fa_kernel.smem_bytes("fwd", 256) == 4 * (192 * 257 + 64 * 80)
+    assert 48 * 1024 < fa_kernel.smem_bytes("fwd", 256) <= fa_kernel.SMEM_LIMIT
+    assert fa_kernel.smem_bytes("dkv", 256) == \
+        4 * (128 * 257 + 2 * 32 * 48 + 64)
+    # the op pads, so a ragged Sq and Sk at any bq, bk reach the wrapper
+    # aligned; the JAX bq rule keeps bq = Sq when Sq divides evenly
+    out = fa_ops.attention(torch.ones(1, 4, 40, 32), torch.ones(1, 2, 40, 32),
+                           torch.ones(1, 2, 40, 32), bq=256, bk=48)
+    torch.testing.assert_close(out, torch.ones(1, 4, 40, 32))
+
+
 def test_cudnn_fp32_holds_one_thread_at_a_time():
     """The flag is process-wide: a second thread waits for the first's
     block, so neither restores TF32 under the other's call."""
@@ -220,11 +398,14 @@ def test_cudnn_fp32_pins_tf32_off_and_restores():
 
 
 @pytest.mark.parametrize("kernel", ["matmul", "matvec", "conv2d", "maxpool",
-                                    "blur"])
+                                    "blur", "flash_attention"])
 def test_abstract_params_errors_match(kernel):
     """Same shape hooks, same ValueError on a bad operand, in both
     packages."""
     jops, tops, bad, good, kw = {
+        "flash_attention": (jfa_ops, fa_ops, ((2, 8, 4),) * 3,
+                            ((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)),
+                            {}),
         "matmul": (jmm_ops, mm_ops, ((4, 5), (6, 3)), ((4, 5), (5, 3)), {}),
         "matvec": (jmv_ops, mv_ops, ((4, 5), (6,)), ((4, 5), (5,)), {}),
         "conv2d": (jmc_ops, mc_ops, ((4, 5, 6), (3, 3)), ((9, 7), (3, 3)),
@@ -310,7 +491,8 @@ def test_build_is_content_keyed_and_failures_raise(monkeypatch, tmp_path):
     assert build.library_path("matmul") == build.library_path("matmul")
     assert build.library_path("matmul").name.startswith("libmatmul-")
     assert build.library_path("matmul") != build.library_path("matvec")
-    assert set(build.SOURCES) == {"matmul", "matvec", "conv2d", "maxpool"}
+    assert set(build.SOURCES) == {"matmul", "matvec", "conv2d", "maxpool",
+                                  "flash_attention"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
@@ -389,3 +571,46 @@ def test_cuda_kernels_match_plain_versions(dtype):
             torch.testing.assert_close(got, mp_kernel.plain(a, r=r, s=s),
                                        rtol=0, atol=0, equal_nan=True)
     assert mp_kernel.LAUNCHES == before + 3 * len(mp_kernel.SCHEDULES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_kernels_match_plain(dtype):
+    """On a card: the four flash-attention kernels against their plain
+    versions at every compiled head dim, GQA, the three masks and a ragged
+    Sq with sk_orig, counting each entry point's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    td = DTYPES[dtype][1]
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = dict(fa_kernel.LAUNCHES)
+    cases = [(2, 8, 2, 128, 32, True, 0, 100), (2, 4, 4, 128, 32, False, 0, 0),
+             (2, 6, 1, 128, 32, True, 16, 100), (1, 8, 1, 256, 64, True, 0, 0),
+             (1, 8, 2, 192, 128, True, 0, 150),
+             (1, 4, 1, 320, 256, True, 64, 300)]
+    for b, h, kv, s, d, causal, window, sk_orig in cases:
+        q, k, v, do = (torch.randn(b, n, s, d, generator=gen, device="cuda")
+                       .mul(0.5).to(td) for n in (h, kv, kv, h))
+        pkw = {"causal": causal, "window": window, "sk_orig": sk_orig}
+        kw = dict(pkw, bq=32, bk=32)
+        want_o, want_lse = fa_kernel.plain_fwd(q, k, v, **pkw)
+        out = fa_kernel.flash_attention(q, k, v, **kw)
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        for got in (out, o):
+            torch.testing.assert_close(got.float(), want_o.float(), rtol=tol,
+                                       atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+        delta = (do.float() * want_o.float()).sum(-1)
+        grads = fa_kernel.flash_attention_bwd(q, k, v, do, want_lse, delta,
+                                              **kw)
+        wants = fa_kernel.plain_bwd(q, k, v, do, want_lse, delta, **pkw)
+        torch.cuda.synchronize()
+        for got, want in zip(grads, wants):
+            scale = max(1.0, want.float().abs().max().item())
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol * scale)
+    n = len(cases)
+    assert {e: fa_kernel.LAUNCHES[e] - before[e] for e in before} == \
+        {e: n for e in before}

@@ -222,7 +222,7 @@ def test_registry_matches_jax_for_slice2_kernels(kernel):
         assert np.array_equal(reg.feature_rows(kernel, params),
                               jreg.feature_rows(kernel, params))
     assert default_registry().kernels() == sorted(
-        ["matmul", "matvec", "conv2d", "maxpool", "blur"])
+        ["matmul", "matvec", "conv2d", "maxpool", "blur", "flash_attention"])
 
 
 def test_jax_seeded_cache_for_slice2_workloads_predicts_identically(
@@ -259,6 +259,77 @@ def test_jax_seeded_cache_for_slice2_workloads_predicts_identically(
             assert min(got, key=got.get) == min(want, key=want.get)
             n_nodes += 1
     assert n_nodes == 3 + 8          # image_pipeline, mixed_dag (width 3)
+
+
+# --------------------------------------------------------------------------
+# the registry and JAX-fitted models carry the attention variants
+# --------------------------------------------------------------------------
+
+ATTENTION_PARAMS = [{"b": 1, "h": 2, "s": 64, "d": 8},
+                    {"b": 4, "h": 8, "s": 512, "d": 32},
+                    {"b": 2, "h": 8, "s": 1024, "d": 32},
+                    {"b": 1, "h": 32, "s": 4096, "d": 128}]
+
+
+def test_registry_matches_jax_for_flash_attention():
+    """The attention variant axis: names, order, feature columns (``qc or
+    s``) and candidate rows with the c column, as in the JAX registry, and
+    the shared schedule constants."""
+    from repro.runtime import registry as jregistry
+    from repro_torch.runtime import registry
+
+    jreg = jdefault_registry(include=["flash_attention"])
+    reg = default_registry(include=["flash_attention"])
+    assert reg.variant_names("flash_attention") == \
+        jreg.variant_names("flash_attention") == \
+        ["full", "chunked_q128_k256", "chunked_q256_k512",
+         "chunked_q512_k1024"]
+    assert reg.get("flash_attention").feature_names == \
+        jreg.get("flash_attention").feature_names
+    for params in ATTENTION_PARAMS:
+        assert np.array_equal(reg.feature_rows("flash_attention", params),
+                              jreg.feature_rows("flash_attention", params))
+    assert registry.ATTENTION_SCHEDULES == jregistry.ATTENTION_SCHEDULES
+    assert registry.ATTENTION_SCHEDULE_GRID == \
+        jregistry.ATTENTION_SCHEDULE_GRID
+    assert registry.attention_flops(2, 4, 96, 16) == \
+        jregistry.attention_flops(2, 4, 96, 16)
+    aval = Aval((2, 96, 4, 16), "float32")
+    assert reg.abstract_params("flash_attention", aval, aval, aval) == \
+        jreg.abstract_params("flash_attention", aval, aval, aval)
+
+
+def test_jax_fitted_attention_model_predicts_identically(tmp_path):
+    """A JAX dispatcher seeded over attention_block's presets, its
+    ``flash_attention`` entry refitted with the production MLP, writes its
+    cache; the port loads the directory and predicts every node alike."""
+    names = ["attention_block"]
+    jreg = jsuite_registry(names)
+    progs = [jget_workload("attention_block").build(size, registry=jreg)
+             .program for size in ("small", "medium", "large")]
+    jd = JDispatcher(registry=jreg, cache=JTuningCache(
+        str(tmp_path), JFingerprint(*SIM)))
+    seeded = jseed(jd, progs, 1e9)
+    assert seeded == ["flash_attention", "matmul"]
+    entry = jd.cache.entry("flash_attention")
+    assert type(entry.fit(epochs=300)).__name__ == "MLPModel"
+    jd.cache.save()
+    reg = default_registry(include=seeded)
+    td = Dispatcher(registry=reg, cache=TuningCache(str(tmp_path),
+                                                    Fingerprint(*SIM)))
+    for prog in progs:
+        for node in prog.nodes:
+            want = jd.predict_times(node.kernel, node.params)
+            got = td.predict_times(node.kernel, node.params)
+            assert list(got) == list(want)
+            np.testing.assert_allclose(list(got.values()),
+                                       list(want.values()), rtol=1e-6)
+    # the attention model also predicts the shapes it never saw alike
+    for params in ATTENTION_PARAMS:
+        want = jd.predict_times("flash_attention", params)
+        got = td.predict_times("flash_attention", params)
+        np.testing.assert_allclose(list(got.values()), list(want.values()),
+                                   rtol=1e-6)
 
 
 # --------------------------------------------------------------------------
