@@ -10,24 +10,28 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build   — compiles every hand-written kernel from ``src/repro_torch/csrc``
-   (matmul, matvec, conv2d, maxpool, flash_attention) with ``nvcc``, one
-   process per source, all at once, and prints the time and the compiler's
-   register and shared-memory report.
+   (matmul, matvec, conv2d, maxpool, blur, flash_attention) with ``nvcc``,
+   one process per source, all at once, and prints the time and the
+   compiler's register and shared-memory report.
 3. kernels — each kernel at each schedule, fp32 and bf16, against its plain
    PyTorch version on the card, over the ragged shape grid of the JAX
    package's kernel tests and the workloads' shapes: matmul and matvec at
    1e-4 (fp32) and 2e-2 (bf16), relative to the output's largest magnitude
    above 1 for ``mixed_dag``'s chained products; conv2d and maxpool
-   exactly (a maxpool NaN case included); the five blur host schedules
+   exactly (a maxpool NaN case included); the blur kernels (fused and
+   separable, both tiles) at the workloads' planes and the JAX tests'
+   ragged shapes, against their plain version exactly and the plain blur
+   within 1e-5 (fp32) and 2e-2 (bf16), and the five blur host schedules
    against the plain blur at 1e-5; the four flash-attention kernels over
    the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
    window) and at full width: ``attention_block``'s q/k/v and one
    attention layer each of yi-9b and gemma3-1b at 4096 tokens (B = 1 of the
    train_4k shape's global batch of 256), at 1e-4 (fp32) and 3e-2 (bf16),
    gradients relative to their largest magnitude above 1.
-4. main path — three paths, each over a fresh tuning cache with the card's
-   fingerprint and its own dispatcher over the port's registry, the launch
-   counters zeroed just before each and read just after.  Slice 1: eager
+4. main path — four paths, each over fresh tuning caches (the card's
+   fingerprint, and the host's for slice 4) and its own dispatchers over
+   the port's registry, the launch counters zeroed just before each and
+   read just after.  Slice 1: eager
    ``ops.matmul``/``ops.matvec`` on cold shapes (every variant measured,
    each model fitted), then the ``large`` ``mlp_block`` and
    ``decode_microbatch`` workloads traced, compiled (sequential) and run.
@@ -38,7 +42,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``attention_block``, then the differentiable flash-attention op on the
    workload's q/k/v: its forward held to the compiled run's attention
    output, the gradients of sum(sin(o)) to autograd through the plain
-   oracle at 1e-4.  Every output is held against its workload's reference
+   oracle at 1e-4.  Slice 4: a second dispatcher over the host
+   (``device="cpu"``) beside the card's, both warmed at the slice-2 cold
+   shapes; copies ``cpu->cuda:0`` and ``cuda:0->cpu`` measured into a
+   ``CommModel``; ``large`` ``image_pipeline`` and ``mixed_dag``, bound on
+   the host, compiled over ``{"cuda:0", "cpu"}`` with that model and the
+   real-copy hook, and run under the sequential, async and adaptive
+   executors (steals and online feedback on): placements, transfers,
+   steals, predicted and measured wall time and the card's busy share are
+   printed, async must equal sequential bit for bit; then the blur kernels
+   (both tiles, fused and separable) on the plane each workload's blur
+   node took, against that node's output, with the counters zeroed just
+   before.  Every output is held against its workload's reference
    within 1e-5 (relative to the output's largest magnitude where that
    exceeds 1), and every hand kernel a path runs must have launched in it.
    cuDNN's TF32 default is left as PyTorch sets it: the port pins fp32
@@ -47,8 +62,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
-   card's data sheet; the blur schedules' times once, for information; the
-   flash-attention kernels at the three attention shapes, forward and
+   card's data sheet; the blur kernels (the fused one and each separable
+   pass, both tiles) beside ``F.avg_pool2d``, with the host schedules'
+   times for information; the flash-attention kernels at the three attention shapes, forward and
    backward, beside ``scaled_dot_product_attention`` forward and
    forward+backward.
 
@@ -89,6 +105,7 @@ RAGGED_MP = [(64, 64, 2, 2), (100, 90, 3, 2), (65, 43, 5, 1), (32, 32, 4, 2)]
 WORK_MC = [(1022, 1022, 3)]                            # image_pipeline large
 WORK_MP = [(1020, 1020, 2, 2), (384, 384, 2, 2)]       # image, mixed_dag
 WORK_BLUR = [(1024, 1024), (384, 384)]                 # image, mixed_dag
+RAGGED_BLUR = [(66, 66), (128, 100), (51, 200)]        # the JAX blur tests
 # eager warm-up shapes in the paper's ranges (core/features.py mc_sample,
 # mp_sample, blur_sample), the workloads' included; 2 variants x 7 shapes
 # exceed min_rows_to_fit = 12, as do 5 blur variants x 4 shapes
@@ -136,6 +153,9 @@ REPLACES = {
     "matvec": "src/repro/kernels/matvec/matvec.py:16",
     "conv2d": "src/repro/kernels/conv2d/conv2d.py:19",
     "maxpool": "src/repro/kernels/maxpool/maxpool.py:15",
+    "blur_direct": "src/repro/kernels/blur/blur.py:21",
+    "blur_h": "src/repro/kernels/blur/blur.py:33",
+    "blur_v": "src/repro/kernels/blur/blur.py:42",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:24",
     "flash_attention_fwd":
         "src/repro/kernels/flash_attention/flash_attention.py:63",
@@ -147,8 +167,8 @@ REPLACES = {
 
 
 def source_of(kernel: str) -> str:
-    base = "flash_attention" if kernel.startswith("flash_attention") \
-        else kernel
+    base = next((b for b in ("flash_attention", "blur")
+                 if kernel.startswith(b)), kernel)
     return f"src/repro_torch/csrc/{base}.cu"
 
 
@@ -341,10 +361,47 @@ def _check_conv_pool(mc, mp, device, gen, report, worst) -> None:
                                    "dropped the NaN")
 
 
-def _check_blur(device, gen) -> None:
-    """The five host schedules against the plain blur, as the workloads
-    feed them (uniform planes), at the suite's 1e-5."""
+def _check_blur(bk, device, gen, report, worst) -> None:
+    """The hand blur kernels, both tiles, fused and separable, fp32 and
+    bf16, at the workloads' planes (uniform, as they feed it) and the JAX
+    blur tests' ragged shapes (standard normal): against their plain
+    version exactly (the bf16 rounding of h between the passes included)
+    and against the plain blur within 1e-5 (fp32) or 2e-2 (bf16).  Then the
+    five host schedules against the plain blur, as the workloads feed them,
+    at the suite's 1e-5."""
     from repro_torch.kernels.blur import ops, ref
+    for dtype, tol in ((torch.float32, PARITY_TOL), (torch.bfloat16,
+                                                      BF16_TOL)):
+        dname = str(dtype).removeprefix("torch.")
+        for m, n in WORK_BLUR + RAGGED_BLUR:
+            work = (m, n) in WORK_BLUR
+            a = _plane((m, n), work, device, gen).to(dtype)
+            oracle = ref.blur(a).float()
+            for separable in (False, True):
+                want = bk.plain(a, separable=separable)
+                for bm, bn in bk.SCHEDULES:
+                    got = bk.blur(a, bm=bm, bn=bn, separable=separable)
+                    torch.cuda.synchronize()
+                    label = (f"blur tile {bm} separable={separable} {dtype} "
+                             f"{(m, n)}")
+                    torch.testing.assert_close(
+                        got, want, rtol=0, atol=0,
+                        msg=lambda x: f"{label} vs plain: {x}")
+                    torch.testing.assert_close(
+                        got.float(), oracle, rtol=tol, atol=tol,
+                        msg=lambda x: f"{label} vs ref.blur: {x}")
+                    err = (got.float() - want.float()).abs().max().item()
+                    names = ("blur_h", "blur_v") if separable \
+                        else ("blur_direct",)
+                    for name in names:
+                        key = (f"{name}_t{bm}", dname)
+                        report[key] = max(report.get(key, 0.0), err)
+                        if dtype == torch.float32 and work:
+                            worst[name] = max(worst[name], err)
+                    key = (f"blur_t{bm} separable={separable} vs ref.blur",
+                           dname)
+                    report[key] = max(report.get(key, 0.0), (
+                        got.float() - oracle).abs().max().item())
     for m, n in WORK_BLUR:
         a = _plane((m, n), True, device, gen)
         want = ref.blur(a)
@@ -447,13 +504,13 @@ def phase_kernels(K, device) -> dict:
     report = {}
     _check_mm_mv(K["matmul"], K["matvec"], device, gen, report, worst)
     _check_conv_pool(K["conv2d"], K["maxpool"], device, gen, report, worst)
+    _check_blur(K["blur"], device, gen, report, worst)
     _check_flash_attention(K["flash_attention"], device, gen, report, worst)
     print("kernels: " + json.dumps(
         {f"{k}/{d}": e for (k, d), e in sorted(report.items())}))
-    print(f"kernels: all within tolerance of their plain versions (conv2d "
-          f"and maxpool exact, a NaN case included); launches while "
+    print(f"kernels: all within tolerance of their plain versions (conv2d, "
+          f"maxpool and blur exact, a NaN case included); launches while "
           f"checking: " + json.dumps(launch_counts(K)))
-    _check_blur(device, gen)
     return worst
 
 
@@ -619,6 +676,239 @@ def _run_workload(name, disp, device) -> tuple:
     return built, outs
 
 
+# the slice-4 path: the card and the host as two devices of one program
+EXEC_DEVICES = ("cuda:0", "cpu")
+EXEC_WORKLOADS = ("image_pipeline", "mixed_dag")
+EXEC_MODES = ("sequential", "async", "adaptive")
+# payload sweep of the measured copies, 4 KB to 8 MB: past the workloads'
+# 4 MB planes
+COPY_SIZES = (1 << 12, 1 << 16, 1 << 20, 1 << 23)
+
+
+def _cudnn_lock_us(reps: int = 20000) -> float:
+    """Microseconds to enter and leave ``kernels.cudnn_fp32`` (the
+    process-wide lock around the TF32 flag) with no other holder."""
+    from repro_torch.kernels import cudnn_fp32
+
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with cudnn_fp32():
+            pass
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+EXEC_RUNS = 4          # timed runs per executor; the first carries set-up
+
+
+def _exec_mode(name, compiled, mode, outputs, refs) -> dict:
+    """Run ``compiled`` under ``mode`` EXEC_RUNS times, hold every run's
+    outputs to the references, and print each run's wall time and the
+    part of it its online refits took, the predicted makespan, the last run's placements, picks, per-node and
+    per-lane times, transfers and steals, and the card's busy share over
+    one more, profiled run against the last run's wall time.  Returns
+    node -> output of the last run."""
+    walls, refits = [], []
+    for _ in range(EXEC_RUNS):
+        sels = {d: len(disp.selections)
+                for d, disp in compiled.dispatchers.items()}
+        r0 = _refit_s(compiled)
+        t0 = time.perf_counter()
+        outs = compiled(_executor=mode)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        refits.append(_refit_s(compiled) - r0)
+        by_name = dict(zip(compiled.program.outputs, outs))
+        err = _check_outputs(f"{name} {mode}",
+                             tuple(by_name[o].cpu() for o in outputs), refs)
+    trace = compiled.last_trace
+    picks = {d: sorted({f"{s.kernel}{list(s.params.values())}={s.chosen}"
+                        for s in list(disp.selections)[sels[d]:]})
+             for d, disp in compiled.dispatchers.items()}
+    nodes = {e.name: f"{e.device}/{e.dur_s * 1e6:.0f}us"
+             for e in trace.by_start() if e.kind == "compute"}
+    moved = [e for e in trace.events if e.kind == "transfer"]
+    busy = _device_busy_s(lambda: compiled(_executor=mode))
+    share = "not measured (the profiler recorded no device activity)" \
+        if busy <= 0 else (f"{busy * 1e3:.3f} ms in a profiled run, "
+                           f"{100 * busy / walls[-1]:.1f}% of the last run")
+    print(f"main: slice 4 {name} {mode}: predicted makespan "
+          f"{compiled.makespan * 1e3:.3f} ms; runs "
+          + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+          + " ms, of which online refits (on lane workers) "
+          + ", ".join(f"{r * 1e3:.3f}" for r in refits)
+          + f" ms; card busy {share}; max abs err vs reference over "
+          f"max(1, |ref|) {err:.3g} (budget {PARITY_TOL})")
+    print(f"main: slice 4 {name} {mode} last run: node=lane/time "
+          f"{json.dumps(nodes)}; picks {json.dumps(picks)}; transfers "
+          + json.dumps({e.name: f"{e.dur_s * 1e6:.0f}us" for e in moved})
+          + f"; steals {[e.note for e in trace.steals()]}; busy per lane "
+          + json.dumps({d: f"{trace.busy_s(d) * 1e3:.3f}ms"
+                        for d in trace.devices()}))
+    return by_name
+
+
+def _refit_s(compiled) -> float:
+    """Wall seconds the compiled program's online refiners have spent in
+    refits so far."""
+    return sum(sum(r.refit_s.values()) for r in compiled.refiners.values())
+
+
+def _card_picks(disp, start: int) -> dict:
+    """kernel -> variant -> dispatches on ``disp`` since its selection
+    ``start``."""
+    sels = list(disp.selections)
+    if len(sels) == disp.selections.maxlen:
+        raise RuntimeError("the selection log is full: picks since the "
+                           "counters were zeroed cannot be tallied")
+    tally: dict = {}
+    for s in sels[start:]:
+        per = tally.setdefault(s.kernel, {})
+        per[s.chosen] = per.get(s.chosen, 0) + 1
+    return tally
+
+
+def _thread_cost(device) -> None:
+    """Microseconds of one call, best of five, on the calling thread and
+    on a thread started for the call (as each executor run starts its
+    lane workers), for a cuDNN convolution, a cuBLAS product and a hand
+    kernel at the workloads' shapes."""
+    import threading
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cudnn_fp32
+    from repro_torch.kernels.conv2d import conv2d as mc
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    a = torch.rand(1024, 1024, generator=gen, device=device)
+    w = torch.rand(3, 3, generator=gen, device=device)
+    b = torch.rand(384, 384, generator=gen, device=device)
+
+    def conv():
+        with cudnn_fp32():
+            F.conv2d(a[None, None], w[None, None])
+        torch.cuda.synchronize()
+
+    calls = {"cudnn conv [1024,1024] r=3": conv,
+             "cublas matmul 384^3": lambda: (b @ b, torch.cuda.synchronize()),
+             "hand conv2d [1024,1024] r=3": lambda: (
+                 mc.conv2d(a, w), torch.cuda.synchronize())}
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        here = min(timed(fn) for _ in range(5))
+        fresh = []
+        for _ in range(5):
+            box = []
+            t = threading.Thread(target=lambda: box.append(timed(fn)))
+            t.start()
+            t.join()
+            fresh.append(box[0])
+        out[label] = f"{here * 1e6:.1f} / {min(fresh) * 1e6:.1f}"
+    print("main: slice 4 one call, us on the calling thread / on a fresh "
+          "thread: " + json.dumps(out))
+
+
+def _slice4(K, device, root, fp) -> tuple:
+    """The exec path over the card and the host.  Returns path label ->
+    launch counts, for the compiled runs and for the blur kernels on their
+    planes, and the card dispatcher's picks in the compiled runs."""
+    from repro_torch.api import Program, ops, use_dispatcher
+    from repro_torch.exec import (CommModel, StealPolicy, copy_to_dst,
+                                  measure_copies)
+    from repro_torch.kernels.blur import ops as blur_ops
+    from repro_torch.runtime import (Dispatcher, TuningCache,
+                                     current_fingerprint, default_registry)
+    from repro_torch.workloads import get_workload
+
+    fps = {"cuda:0": fp, "cpu": current_fingerprint("cpu")}
+    disps = {name: Dispatcher(default_registry(), TuningCache(
+        str(Path(root) / f"slice_4_{name.replace(':', '')}"), fps[name]))
+        for name in EXEC_DEVICES}
+    t0 = time.perf_counter()
+    for name, disp in disps.items():
+        dev = torch.device(name)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with use_dispatcher(disp):
+            _warm_slice2(ops, dev, gen)
+        print(f"main: slice 4 {name} dispatcher ({fps[name].key}): "
+              f"{disp.n_measured} measured, {disp.n_gated} gated, "
+              f"{disp.n_predicted} predicted")
+    comm = CommModel(TuningCache(str(Path(root) / "slice_4_comm"), fp))
+    pairs = [(a, b) for a in EXEC_DEVICES for b in EXEC_DEVICES if a != b]
+    measure_copies(comm, pairs, sizes=COPY_SIZES)
+    print(f"main: slice 4 warm-up and copy measurement "
+          f"{time.perf_counter() - t0:.2f} s; predicted copies: " + ", ".join(
+              f"{a}->{b} {nb >> 10} KB {comm.predict(a, b, nb) * 1e6:.0f}us"
+              for a, b in pairs for nb in (4 * 384 * 384, 4 * 1024 * 1024)))
+    print(f"main: slice 4 cudnn_fp32 block entered and left in "
+          f"{_cudnn_lock_us():.3f} us with no other holder")
+    _thread_cost(device)
+    work = {}
+    for name in EXEC_WORKLOADS:
+        built = get_workload(name).build("large", registry=disps["cpu"]
+                                         .registry, device="cpu")
+        p = built.program
+        # every node an output, so each node's value can be read back
+        every = Program(p.inputs, p.nodes, tuple(n.name for n in p.nodes))
+        compiled = every.compile(devices=disps, bindings=built.bindings,
+                                 comm=comm, transfer=copy_to_dst,
+                                 steal=StealPolicy(), online=True)
+        print(f"main: slice 4 {name} large planned on "
+              + json.dumps({n: compiled.device_of(n)
+                            for n in compiled.assignments})
+              + "; planned transfers "
+              + json.dumps({t.name: t.nbytes for t in compiled.transfers}))
+        work[name] = (built, compiled, built.reference())
+    # the counted window: the compiled runs and nothing else
+    card = disps[EXEC_DEVICES[0]]
+    zero_counts(K)
+    start = len(card.selections)
+    runs = {name: {mode: _exec_mode(name, compiled, mode,
+                                    built.program.outputs, refs)
+                   for mode in EXEC_MODES}
+            for name, (built, compiled, refs) in work.items()}
+    counts = {"slice 4": launch_counts(K)}
+    picks = _card_picks(card, start)
+    planes = {}
+    for name, (built, _, _) in work.items():
+        seq = runs[name]["sequential"]
+        if any(not torch.equal(runs[name]["async"][n], seq[n]) for n in seq):
+            raise RuntimeError(f"{name}: async outputs differ from the "
+                               "sequential run's")
+        same = all(torch.equal(runs[name]["adaptive"][n], seq[n])
+                   for n in seq)
+        print(f"main: slice 4 {name}: async equals sequential bit for bit; "
+              "adaptive " + ("equals it too" if same else
+                             "differs from it within the budget above"))
+        node = next(n for n in built.program.nodes if n.kernel == "blur")
+        src = node.deps[0]
+        plane = built.bindings[src] if src in built.bindings else seq[src]
+        planes[name] = (plane.to(device), seq[node.name].to(device))
+    zero_counts(K)
+    for name, (plane, want) in planes.items():
+        errs = {}
+        for bm, bn in K["blur"].SCHEDULES:
+            for separable in (False, True):
+                got = blur_ops.blur(plane, bm=bm, bn=bn, separable=separable,
+                                    use_kernel=True)
+                torch.cuda.synchronize()
+                errs[f"t{bm} separable={separable}"] = _check_outputs(
+                    f"{name} blur kernel tile {bm} separable={separable}",
+                    (got,), (want,))
+        print(f"main: slice 4 blur kernels on {name}'s blur plane "
+              f"{list(plane.shape)} vs the blur node's output, max abs err "
+              f"over max(1, |out|): " + json.dumps(errs))
+    counts["slice 4 blur"] = launch_counts(K)
+    return counts, picks
+
+
 def phase_main_path(K, device) -> dict:
     """Each path through its own dispatcher over a fresh cache; returns
     path label -> kernel -> launches in that path's run."""
@@ -664,6 +954,24 @@ def phase_main_path(K, device) -> dict:
                     raise RuntimeError(f"{kernel}: the {label} path never "
                                        "launched its hand kernel")
             by_path[label] = counts
+        counts, picks = _slice4(K, device, root, fp)
+        by_path.update(counts)
+    # on the exec path the card's dispatcher decides which kernels run: a
+    # pick of a hand variant (pallas_*) launches its kernel at least once,
+    # a pick of a library variant launches none of the hand kernels
+    need = {k: sum(n for v, n in per.items() if v.startswith("pallas_"))
+            for k, per in picks.items() if k in by_path["slice 4"]}
+    print(f"main: slice 4 picks on cuda:0 in the compiled runs "
+          f"(kernel -> variant -> dispatches): {json.dumps(picks)}")
+    for label, want in (("slice 4", need),
+                        ("slice 4 blur", dict.fromkeys(
+                            ("blur_direct", "blur_h", "blur_v"), 1))):
+        print(f"main: {label} hand-kernel launches: {by_path[label]}")
+        for kernel, n in want.items():
+            if by_path[label][kernel] < n:
+                raise RuntimeError(
+                    f"{kernel}: the {label} path launched its hand kernel "
+                    f"{by_path[label][kernel]} times for {n} picks")
     return by_path
 
 
@@ -817,16 +1125,60 @@ def _times_conv_pool(mc, mp, device, gen, card, worst, by_path) -> list:
     return records
 
 
-def _times_blur(device, gen) -> None:
-    """The host schedules' times, for information (they are PyTorch's own
-    kernels, not the port's)."""
+def _times_blur(bk, device, gen, card, worst, by_path) -> list:
+    """The blur kernels at the workloads' planes: the fused kernel and the
+    separable pair at both tiles beside the plain version, ``F.avg_pool2d``
+    (one PyTorch call of the same function) and the ``conv`` host schedule
+    (cuDNN, which pins TF32 off itself); then each separable pass alone beside its plain
+    version and its ``F.avg_pool2d``.  Bounds count each input read once
+    and each output written once.  The five host schedules' times follow,
+    for information.  Records hold [1024,1024] at tile 128."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.blur import ops
 
-    for m, n in WORK_BLUR:
-        sets = _operand_sets([(m, n)], 4 * m * n, device, gen)
+    records = []
+    for idx, (m, n) in enumerate(WORK_BLUR):
+        om, on = m - 2, n - 2
+        nbytes = 4 * (m * n + om * on)
+        sets = _operand_sets([(m, n)], nbytes, device, gen)
+        fns = {}
+        for bm, bn in bk.SCHEDULES:
+            for sep in (False, True):
+                fns[f"t{bm} {'separable' if sep else 'direct'}"] = (
+                    lambda a, _t=(bm, bn), _s=sep: bk.blur(
+                        a, bm=_t[0], bn=_t[1], separable=_s))
+        fns.update(plain=bk.plain, library=lambda a: F.avg_pool2d(
+            a[None, None], 3, stride=1)[0, 0], conv=ops.HOST_SCHEDULES["conv"])
+        whole = _measure(f"blur fp32 [{m},{n}]", fns, sets, 9.0 * om * on,
+                         nbytes, card)
+        h_bytes = 4 * (m * n + m * on)
+        passes = {
+            "blur_h": _measure(
+                f"blur pass h fp32 [{m},{n}] -> [{m},{on}]",
+                {"blur_h": bk.blur_h, "plain": bk.plain_h,
+                 "library": lambda a: F.avg_pool2d(
+                     a[None, None], (1, 3), stride=1)[0, 0]},
+                sets, 3.0 * m * on, h_bytes, card),
+            "blur_v": _measure(
+                f"blur pass v fp32 [{m},{on}] -> [{om},{on}]",
+                {"blur_v": bk.blur_v, "plain": bk.plain_v,
+                 "library": lambda h: F.avg_pool2d(
+                     h[None, None], (3, 1), stride=1)[0, 0]},
+                [(bk.blur_h(a),) for (a,) in sets], 3.0 * om * on,
+                4 * (m * on + om * on), card)}
         t = _best(ops.HOST_SCHEDULES, sets)
-        print(f"times: blur schedules fp32 [{m},{n}]: " + ", ".join(
-            f"{v} {ms * 1e3:.1f} us" for v, ms in t.items()))
+        print(f"times: blur host schedules fp32 [{m},{n}] (TF32 as PyTorch "
+              f"sets it): " + ", ".join(f"{v} {ms * 1e3:.1f} us"
+                                        for v, ms in t.items()))
+        if idx == 0:
+            records.append(_record("blur_direct", "t128 direct", (m, n),
+                                   whole, worst, by_path))
+            for name, res in passes.items():
+                rec = _record(name, name, (m, n), res, worst, by_path)
+                rec["schedule"] = "t128"
+                records.append(rec)
+    return records
 
 
 def _visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -960,7 +1312,7 @@ def phase_times(K, device, card: str, worst: dict, by_path: dict) -> list:
                            worst, by_path)
     records += _times_conv_pool(K["conv2d"], K["maxpool"], device, gen, card,
                                 worst, by_path)
-    _times_blur(device, gen)
+    records += _times_blur(K["blur"], device, gen, card, worst, by_path)
     records += _times_flash_attention(K["flash_attention"], device, gen, card,
                                       worst, by_path)
     return records
@@ -973,6 +1325,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.blur import blur as bk
     from repro_torch.kernels.conv2d import conv2d as mc
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.matmul import matmul as mm
@@ -982,7 +1335,7 @@ def main() -> int:
     # TF32 stays at PyTorch's defaults (off for matmul, on for cuDNN): the
     # port pins fp32 around its own cuDNN calls
     K = {"matmul": mm, "matvec": mv, "conv2d": mc, "maxpool": mp,
-         "flash_attention": fa}
+         "blur": bk, "flash_attention": fa}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 

@@ -16,7 +16,6 @@ the same JSON and loads in the other.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -37,19 +36,6 @@ def norm_dtype(dtype) -> str:
         if isinstance(named, torch.dtype):
             return str(named).removeprefix("torch.")
         raise
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a canonical dtype string."""
-    dtype = getattr(torch, norm_dtype(name), None)
-    if not isinstance(dtype, torch.dtype):
-        raise TypeError(f"no torch dtype for {name!r}")
-    return dtype
-
-
-def value_nbytes(shape, dtype) -> int:
-    """Payload size of a value from its aval."""
-    return math.prod(int(d) for d in shape) * torch_dtype(dtype).itemsize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +144,7 @@ class Program:
         filtered to node names (program inputs are materialised values, not
         schedulable work).  ``out_bytes`` and ``input_deps`` carry payload
         sizes so a comm-aware schedule can price cross-device edges."""
+        from repro_torch.exec.buffers import value_nbytes
         node_names = {n.name for n in self.nodes}
         in_bytes = {s.name: float(value_nbytes(s.shape, s.dtype))
                     for s in self.inputs}

@@ -32,6 +32,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 
 // Dynamic shared memory a launch may take without opting in to more.
 constexpr size_t kSmemLimit = 48 * 1024;
+// The most a block of an H100 may take after opting in with
+// cudaFuncSetAttribute (227 KB of the SM's 256 KB).
+constexpr size_t kSmemOptIn = 232448;
 
 // Threads of a block that owns a BM x BN output tile: one per output up to
 // 256, laid out BN along a row; each thread then owns a few rows.

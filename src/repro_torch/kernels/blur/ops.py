@@ -6,10 +6,12 @@ as PyTorch ops: each computes the same 3x3 box mean by another route
 only in time, which is what the NN+C selector learns.  On a card they run
 as PyTorch's own CUDA kernels, as the jnp schedules ran as XLA's.
 
-``blur(use_kernel=True)`` would launch the hand-written blur kernel, the
-port of the Pallas ``blur`` kernels; that kernel is not ported yet
-(``ROADMAP.md`` Queue 2 item 5), so it raises.  No dispatch path reaches
-it: the registry's blur variants are the host schedules.
+``blur(use_kernel=True)`` runs the hand-written blur kernels
+(``csrc/blur.cu``, the port of the Pallas ``blur`` kernels) at tile (bm, bn),
+fused or separable, on a CUDA tensor, and their plain version on a CPU
+tensor; ``use_kernel=False`` is the plain blur.  No dispatch path reaches
+the kernels: the registry's blur variants are the host schedules, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import Aval, cudnn_fp32
+from repro_torch.kernels.blur import blur as _kernel
 from repro_torch.kernels.blur import ref as _ref
 
 
@@ -30,14 +33,14 @@ def out_aval(a) -> Aval:
     return Aval((a.shape[0] - 2, a.shape[1] - 2), a.dtype)
 
 
-def blur(a: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    """``use_kernel=False`` is the plain blur; the hand kernel (and with it
-    the Pallas op's tile and ``separable`` knobs) is not ported yet."""
+def blur(a: torch.Tensor, *, bm: int = 128, bn: int = 128,
+         separable: bool = False, use_kernel: bool = True) -> torch.Tensor:
+    """``use_kernel=False`` is the plain blur; otherwise the hand kernels at
+    tile (bm, bn), fused or separable.  The kernels mask their ragged edge,
+    so unlike the JAX op nothing is padded."""
     if not use_kernel:
         return _ref.blur(a)
-    raise NotImplementedError(
-        "the hand-written blur kernel is not ported yet (ROADMAP.md Queue 2 "
-        "item 5); use use_kernel=False or a HOST_SCHEDULES entry")
+    return _kernel.blur(a, bm=bm, bn=bn, separable=separable)
 
 
 # --- host schedule variants --------------------------------------------------

@@ -25,6 +25,7 @@ the other; the fingerprint keys keep the two packages' directories apart.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -121,14 +122,18 @@ class CacheEntry:
                              "enough to fit")
         X, y = self.X[-budget_rows:], self.y[-budget_rows:]
         if model is not None:
-            self.model = model
-            self.model.fit(X, y)
+            model.fit(X, y)
         elif warm_start and isinstance(self.model, MLPModel):
-            self.model.fit(X, y, warm_start=True)
+            model = copy.deepcopy(self.model)
+            model.fit(X, y, warm_start=True)
         else:
             nf = X.shape[1]
-            self.model = MLPModel(lightweight_dims(nf, 75, 1), epochs=epochs)
-            self.model.fit(X, y)
+            model = MLPModel(lightweight_dims(nf, 75, 1), epochs=epochs)
+            model.fit(X, y)
+        # swapped in whole: a reader on another thread (the adaptive
+        # executor prices steals while a worker refits) sees the old model
+        # or the new one, never one in the middle of its fit
+        self.model = model
         self.fit_mape = float(mape(y, self.model.predict_np(X)))
         self.dirty = True
         self.version += 1

@@ -14,6 +14,7 @@ refit pulls back down.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import defaultdict, deque
 from typing import Optional
 
@@ -29,6 +30,13 @@ class OnlineConfig:
     budget_rows: int = TRAIN_BUDGET_ROWS
     refit_epochs: int = 2000
     warm_start: bool = True
+    model_factory: object = None   # e.g. nnc.LinearModel: refit with this
+    #   closed-form model instead of the MLP — microseconds per refit, the
+    #   right trade when refits run inline on an executor worker thread
+    #   (the adaptive executor's mid-run feedback)
+    save: bool = True              # persist the cache after each refit;
+    #   False keeps refits purely in memory — file I/O on an executor
+    #   worker's critical path would dwarf a closed-form refit
 
 
 class OnlineRefiner:
@@ -40,6 +48,7 @@ class OnlineRefiner:
         self._apes = defaultdict(
             lambda: deque(maxlen=self.config.window))
         self.refits = defaultdict(int)
+        self.refit_s = defaultdict(float)      # wall seconds in refits+saves
 
     def observe(self, kernel: str, feature_row: np.ndarray, bucket: tuple,
                 actual_s: float, predicted_s: Optional[float] = None) -> None:
@@ -56,12 +65,19 @@ class OnlineRefiner:
         self._pending[kernel] += 1
         if self._pending[kernel] >= self.config.refit_every \
                 and entry.n_rows >= 2:
-            entry.fit(epochs=self.config.refit_epochs,
-                      warm_start=self.config.warm_start,
-                      budget_rows=self.config.budget_rows)
-            self.cache.save(kernel)
+            t0 = time.perf_counter()
+            if self.config.model_factory is not None:
+                entry.fit(model=self.config.model_factory(),
+                          budget_rows=self.config.budget_rows)
+            else:
+                entry.fit(epochs=self.config.refit_epochs,
+                          warm_start=self.config.warm_start,
+                          budget_rows=self.config.budget_rows)
+            if self.config.save:
+                self.cache.save(kernel)
             self._pending[kernel] = 0
             self.refits[kernel] += 1
+            self.refit_s[kernel] += time.perf_counter() - t0
 
     def rolling_mape(self, kernel: str) -> float:
         """Mean absolute percentage error over the observation window

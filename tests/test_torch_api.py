@@ -211,15 +211,20 @@ def test_compile_contract(tmp_path, reg):
     d, (a, b, x) = _seeded(tmp_path, reg)
     with trace(registry=reg) as tb:
         ops.matmul(a, b)
-    for kw in ({"executor": "async"}, {"executor": "adaptive"},
-               {"comm": lambda s, t, n: 0.0}, {"online": True}):
-        with pytest.raises(NotImplementedError, match="exec slice"):
-            tb.program.compile(devices=d, **kw)
+    # the exec slice's options compile and run; the obs slice's raise
+    with pytest.raises(NotImplementedError, match="obs slice"):
+        tb.program.compile(devices=d, telemetry=object())
     with pytest.raises(ValueError, match="executor must be one of"):
         tb.program.compile(devices=d, executor="threads")
-    compiled = tb.program.compile(devices=d, bindings=tb.bindings)
-    with pytest.raises(NotImplementedError, match="exec slice"):
-        compiled(_executor="async")
+    compiled = tb.program.compile(devices=d, bindings=tb.bindings,
+                                  comm=lambda s, t, n: 0.0, online=True)
+    want = compiled()
+    for mode in ("async", "adaptive"):
+        assert torch.equal(compiled(_executor=mode), want)
+        assert [e.name for e in compiled.last_trace.events] == ["matmul_0"]
+    with pytest.raises(NotImplementedError, match="obs slice"):
+        compiled.explain()
+    assert compiled.last_memory is None
     # same shape class reuses the schedule; another class must re-trace
     small = compiled(torch.ones(47, 40), torch.ones(40, 32))
     assert tuple(small.shape) == (47, 32)

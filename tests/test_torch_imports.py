@@ -35,7 +35,9 @@ def test_port_files_exist():
                    "kernels/maxpool/ops.py", "kernels/blur/ops.py",
                    "core/features.py", "core/nnc.py",
                    "runtime/dispatch.py", "api/compile_.py",
-                   "workloads/library.py"):
+                   "workloads/library.py", "kernels/blur/blur.py",
+                   "exec/__init__.py", "exec/trace.py", "exec/buffers.py",
+                   "exec/comm.py", "exec/executor.py", "runtime/simdev.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -58,6 +60,7 @@ def test_importing_the_port_loads_no_jax():
     out = _import_in_subprocess(
         "import sys\n"
         "import repro_torch.api, repro_torch.runtime, repro_torch.workloads\n"
+        "import repro_torch.exec, repro_torch.runtime.simdev\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

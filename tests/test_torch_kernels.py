@@ -2,9 +2,10 @@
 against the JAX package's Pallas kernels (interpret mode) and its ref
 oracles, and its conv2d/maxpool/blur ops against the JAX ref oracles and
 jnp paths (the Pallas conv2d, maxpool and blur kernels need ``pl.load``,
-which jax 0.9.0 lacks), on the same numpy-drawn inputs; the backend rule;
-the build's failure modes; and, on a card, the CUDA kernels against their
-plain versions."""
+which jax 0.9.0 lacks; the blur kernels' arithmetic is also held to a jnp
+restatement of the Pallas bodies), on the same numpy-drawn inputs; the
+backend rule; the build's failure modes; and, on a card, the CUDA kernels
+against their plain versions."""
 import threading
 import time
 
@@ -23,6 +24,7 @@ from repro.kernels.matvec import ops as jmv_ops, ref as jmv_ref
 from repro.kernels.maxpool import ops as jmp_ops, ref as jmp_ref
 from repro_torch.kernels import Aval, build, cudnn_fp32, on_cuda, \
     resolve_device
+from repro_torch.kernels.blur import blur as bl_kernel
 from repro_torch.kernels.blur import ops as bl_ops, ref as bl_ref
 from repro_torch.kernels.conv2d import conv2d as mc_kernel, ops as mc_ops
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
@@ -164,6 +166,10 @@ def test_blur_schedules_match_jax_schedules(m, n, schedule):
 
 
 def test_blur_op_and_its_unported_kernel():
+    """The op's two paths: ``use_kernel=False`` is the plain blur, as in
+    JAX; the default runs the hand kernels, whose plain version a CPU
+    tensor takes (the kernel is ported now; the registry's variants stay
+    the host schedules)."""
     rng = np.random.RandomState(1)
     ja, ta = _pair(rng, (40, 30), "float32")
     np.testing.assert_allclose(bl_ops.blur(ta, use_kernel=False).numpy(),
@@ -171,9 +177,68 @@ def test_blur_op_and_its_unported_kernel():
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(bl_ref.blur(ta).numpy(),
                                   bl_ops.blur(ta, use_kernel=False).numpy())
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        bl_ops.blur(ta)
+    for separable in (False, True):
+        assert torch.equal(bl_ops.blur(ta, separable=separable),
+                           bl_kernel.plain(ta, separable=separable))
     assert list(bl_ops.HOST_SCHEDULES) == list(jbl_ops.HOST_SCHEDULES)
+
+
+@pytest.mark.parametrize("m,n", [(66, 66), (128, 100), (51, 200)])
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("tile", [16, 128])
+def test_blur_kernel_path_matches_jax_ref(m, n, separable, tile):
+    """``ops.blur(use_kernel=True)`` on CPU tensors (the kernels' plain
+    version) against the JAX oracle and the JAX op's plain path at
+    ``tests/test_kernels.py``'s 1e-5, at the JAX blur tests' shapes."""
+    rng = np.random.RandomState(m * 3 + n)
+    ja, ta = _pair(rng, (m, n), "float32")
+    out = bl_ops.blur(ta, bm=tile, bn=tile, separable=separable)
+    assert tuple(out.shape) == (m - 2, n - 2) and out.dtype == torch.float32
+    for want in (jbl_ref.blur(ja), jbl_ops.blur(ja, use_kernel=False)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def _pallas_blur_bodies(a, separable):
+    """The Pallas blur bodies (src/repro/kernels/blur/blur.py:21-48) over
+    the whole valid region in jnp: direct from a zero fp32 accumulator,
+    times 1/9; separable as the h body stored in a's type (the Pallas
+    out_shape), then the v body."""
+    m, n = a.shape
+    om, on = m - 2, n - 2
+    if not separable:
+        tile = a.astype(jnp.float32)
+        acc = jnp.zeros((om, on), jnp.float32)
+        for di in range(3):
+            for dj in range(3):
+                acc += tile[di:di + om, dj:dj + on]
+        return (acc * (1.0 / 9.0)).astype(a.dtype)
+    tile = a.astype(jnp.float32)
+    h = ((tile[:, 0:on] + tile[:, 1:on + 1] + tile[:, 2:on + 2])
+         * (1.0 / 3.0)).astype(a.dtype)
+    tile = h.astype(jnp.float32)
+    return ((tile[0:om] + tile[1:om + 1] + tile[2:om + 2])
+            * (1.0 / 3.0)).astype(a.dtype)
+
+
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blur_kernel_arithmetic_is_the_pallas_bodies(separable, dtype):
+    """The kernels' plain version equals the Pallas bodies bit for bit,
+    bf16 included: the separable path rounds h to bf16 between the passes
+    as the Pallas kernel stores it, which is seen to matter because the
+    unrounded sum differs."""
+    rng = np.random.RandomState(7)
+    ja, ta = _pair(rng, (51, 200), dtype)
+    got = bl_kernel.plain(ta, separable=separable).float().numpy()
+    want = np.asarray(_pallas_blur_bodies(ja, separable), np.float32)
+    np.testing.assert_array_equal(got, want)
+    if separable and dtype == "bfloat16":
+        t = ta.float()
+        h = (t[:, :-2] + t[:, 1:-1] + t[:, 2:]) * torch.tensor(1.0 / 3.0)
+        unrounded = ((h[:-2] + h[1:-1] + h[2:]) * torch.tensor(1.0 / 3.0))
+        assert not np.array_equal(unrounded.bfloat16().float().numpy(),
+                                  want)
 
 
 # --------------------------------------------------------------------------
@@ -483,6 +548,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="bytes of shared memory"):
         mp_kernel.maxpool(torch.zeros(200, 200), r=2, s=4)
     assert mp_kernel.smem_bytes(5, 2, 32, 32) == 4 * 67 * 67
+    with pytest.raises(ValueError, match="no blur kernel for tile"):
+        bl_kernel.blur(p, bm=32, bn=32)
+    with pytest.raises(ValueError, match="m >= 3, n >= 3"):
+        bl_kernel.blur(torch.zeros(2, 30))
+    with pytest.raises(ValueError, match="m >= 3, n >= 3"):
+        bl_kernel.blur(torch.zeros(30))
+    with pytest.raises(ValueError, match="m >= 1, n >= 3"):
+        bl_kernel.blur_h(torch.zeros(30, 2))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bl_kernel.blur(p.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bl_kernel.blur(torch.zeros(30, 40).t(), separable=True)
+    with pytest.raises(ValueError, match="index range"):
+        bl_kernel.blur_v(torch.empty(16 * 65535 + 3, 3), bm=16, bn=16)
+    # the 128 tile's fp32 window, above 48 KB, is within what a block may
+    # opt in to
+    assert bl_kernel.smem_bytes(128, 128, (3, 3)) == 4 * 130 * 130
+    assert bl_kernel.smem_bytes(128, 128, (1, 3)) == 4 * 128 * 130
+    assert bl_kernel.smem_bytes(128, 128, (3, 3)) <= bl_kernel.SMEM_LIMIT
     assert torch.equal(mp_ops.maxpool(torch.zeros(30, 40).t(), r=2, s=2),
                        torch.zeros(20, 15))
 
@@ -492,7 +576,7 @@ def test_build_is_content_keyed_and_failures_raise(monkeypatch, tmp_path):
     assert build.library_path("matmul").name.startswith("libmatmul-")
     assert build.library_path("matmul") != build.library_path("matvec")
     assert set(build.SOURCES) == {"matmul", "matvec", "conv2d", "maxpool",
-                                  "flash_attention"}
+                                  "blur", "flash_attention"}
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
@@ -614,3 +698,29 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
     n = len(cases)
     assert {e: fa_kernel.LAUNCHES[e] - before[e] for e in before} == \
         {e: n for e in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_blur_kernels_match_plain(dtype):
+    """On a card: the blur kernels, both tiles, fused and separable, equal
+    their plain version bit for bit at the JAX tests' shapes and the
+    workloads' planes, counting each entry point's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    td = DTYPES[dtype][1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = dict(bl_kernel.LAUNCHES)
+    shapes = [(66, 66), (128, 100), (51, 200), (1024, 1024), (384, 384)]
+    for m, n in shapes:
+        a = torch.randn(m, n, generator=gen, device="cuda").to(td)
+        for separable in (False, True):
+            for bm, bn in bl_kernel.SCHEDULES:
+                got = bl_kernel.blur(a, bm=bm, bn=bn, separable=separable)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, bl_kernel.plain(a, separable=separable), rtol=0,
+                    atol=0)
+    n = len(shapes) * len(bl_kernel.SCHEDULES)
+    assert {e: bl_kernel.LAUNCHES[e] - before[e] for e in before} == \
+        {"blur_direct": n, "blur_h": n, "blur_v": n}
