@@ -17,7 +17,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    PyTorch version on the card, over the ragged shape grid of the JAX
    package's kernel tests and the workloads' shapes: matmul and matvec at
    1e-4 (fp32) and 2e-2 (bf16), relative to the output's largest magnitude
-   above 1 for ``mixed_dag``'s chained products; conv2d and maxpool
+   above 1 for ``mixed_dag``'s chained products; the matmul also at shapes
+   that take every cluster size along k (1, 2, 4, 8, checked per tile),
+   with k not a multiple of s·bk and below it, and on the narrow copy path
+   (k or n off 16 bytes, a base pointer off 16 bytes), with the cluster
+   size ``split_k`` gives each main-path product printed; each matvec
+   launched twice and held equal bit for bit; conv2d and maxpool
    exactly (a maxpool NaN case included); the blur kernels (fused and
    separable, both tiles) at the workloads' planes and the JAX tests'
    ragged shapes, against their plain version exactly and the plain blur
@@ -62,8 +67,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
-   card's data sheet; the blur kernels (the fused one and each separable
-   pass, both tiles) beside ``F.avg_pool2d``, with the host schedules'
+   card's data sheet; the matmul at all five main-path products, one record
+   each for its faster schedule with both schedules' times; the blur
+   kernels (the fused one and each separable pass, both tiles) beside
+   ``F.avg_pool2d``, with the host schedules'
    times for information; the flash-attention kernels at the three attention shapes, forward and
    backward, beside ``scaled_dot_product_attention`` forward and
    forward+backward.
@@ -125,6 +132,16 @@ WORK_MM_ATT = [(512, 1024, 512), (512, 512, 1024)]
 # attention variants x 4 shapes exceed min_rows_to_fit; (b, s, h, d) past
 # s = 512 make the chunked schedules differ from the full one
 WARM_MM_ATT = WORK_MM_ATT + [(128, 512, 512), (32, 64, 128)]
+# the matmul's cluster split along k (kernels/matmul/matmul.py: split_k): on
+# an H100 the 128 tile takes s = 8, 4, 2, 1 at the first four shapes (k =
+# 1000 does not divide by 8 * 32), and s = 8 at (64, 96, 120), where k is
+# below s * bk; the 32 tile takes s = 8 at the first, and 2 and 4 at the
+# ragged (33, 257, 65) and (100, 70, 130).  (96, 36, 264) takes the narrow
+# copy path in bf16 only (n a multiple of 4 but not of 8), the ragged shapes
+# in both types; MM_MISALIGNED's a starts 4 or 2 bytes off 16.
+CLUSTER_MM = [(128, 256, 1000), (384, 1280, 520), (512, 1536, 200),
+              (1024, 1280, 64), (64, 96, 120), (96, 36, 264)]
+MM_MISALIGNED = (256, 512, 300)
 WARM_ATT = [(4, 512, 8, 32), (2, 1024, 8, 32), (1, 2048, 4, 64),
             (2, 768, 8, 32)]
 FA_BF16_TOL = 3e-2    # the JAX flash-attention tests' bf16 tolerance
@@ -253,12 +270,38 @@ def _dag_products(plain, device, gen) -> list:
     return pairs
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one element past a
+    16-byte boundary."""
+    return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
+
+
+def _print_splits(mm) -> None:
+    """The cluster size split_k gives each main-path product on this card,
+    fp32, per tile, beside the blocks the card runs at once per size."""
+    for bm, _, _ in mm.SCHEDULES:
+        print(f"kernels: matmul tile {bm} fp32 blocks at once by cluster "
+              f"size: {mm.cluster_slots(0, torch.float32, bm)}")
+    print("kernels: matmul split_k at the main path's shapes (tile -> s): "
+          + json.dumps({str(shape): {
+              bm: mm._split(0, torch.float32, *shape, bm, bn, bk)
+              for bm, bn, bk in mm.SCHEDULES}
+              for shape in WORK_MM + WORK_MM_DAG + WORK_MM_ATT}))
+
+
 def _check_mm_mv(mm, mv, device, gen, report, worst) -> None:
+    _print_splits(mm)
+    work = WORK_MM + WORK_MM_ATT
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).removeprefix("torch.")
-        for m, n, k in RAGGED_MM + WORK_MM:
+        splits = {bm: set() for bm, _, _ in mm.SCHEDULES}
+        for m, n, k in RAGGED_MM + CLUSTER_MM + work + [MM_MISALIGNED]:
+            # the cluster shapes reach k = 1000: drawn as the workloads
+            # draw, like the workloads' own shapes (see _operands)
             a, b = (t.to(dtype) for t in _operands(
-                [(m, k), (k, n)], (m, n, k) in WORK_MM, device, gen))
+                [(m, k), (k, n)], (m, n, k) not in RAGGED_MM, device, gen))
+            if (m, n, k) == MM_MISALIGNED:
+                a = _misaligned(a)
             want = mm.plain(a, b).float()
             for bm, bn, bk in mm.SCHEDULES:
                 got = mm.matmul(a, b, bm=bm, bn=bn, bk=bk)
@@ -269,8 +312,19 @@ def _check_mm_mv(mm, mv, device, gen, report, worst) -> None:
                     msg=lambda s: f"matmul tile {bm} {dtype} {(m, n, k)}: {s}")
                 key = (f"matmul_t{bm}", dname)
                 report[key] = max(report.get(key, 0.0), err)
-                if dtype == torch.float32 and (m, n, k) in WORK_MM:
+                splits[bm].add(mm._split(0, dtype, m, n, k, bm, bn, bk))
+                if dtype == torch.float32 and (m, n, k) in work:
                     worst["matmul"] = max(worst["matmul"], err)
+        print(f"kernels: matmul {dname} cluster sizes exercised (tile -> "
+              f"s): " + json.dumps({bm: sorted(v) for bm, v in
+                                    splits.items()}))
+        if dtype == torch.float32:
+            for bm, got in splits.items():
+                if set(mm.SPLITS) - got:
+                    raise RuntimeError(
+                        f"matmul tile {bm}: the checked shapes exercise "
+                        f"cluster sizes {sorted(got)}, not all of "
+                        f"{mm.SPLITS}")
         for m, k in RAGGED_MV + WORK_MV:
             # y = A x with A the contraction operand: x first, A scaled
             x, a_t = _operands([(k,), (k, m)], (m, k) in WORK_MV, device,
@@ -278,8 +332,11 @@ def _check_mm_mv(mm, mv, device, gen, report, worst) -> None:
             a = a_t.t().contiguous().to(dtype)
             x = x.to(dtype)
             want = mv.plain(a, x).float()
-            got = mv.matvec(a, x)
+            got, again = mv.matvec(a, x), mv.matvec(a, x)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"matvec {dtype} {(m, k)}: two launches "
+                                   "on the same operands differ")
             err = (got.float() - want).abs().max().item()
             torch.testing.assert_close(
                 got.float(), want, rtol=tol, atol=tol,
@@ -1061,8 +1118,11 @@ def _record(name, schedule, shape, res, worst, by_path) -> dict:
 
 
 def _times_mm_mv(mm, mv, device, gen, card, worst, by_path) -> list:
+    """One matmul record per main-path product shape, for the faster hand
+    schedule there, with both schedules' times beside it; one matvec
+    record."""
     records = []
-    for idx, (m, n, k) in enumerate(WORK_MM + WORK_MM_DAG):
+    for m, n, k in WORK_MM + WORK_MM_DAG + WORK_MM_ATT:
         nbytes = 4 * (m * k + k * n + m * n)
         fns = {f"pallas_{bm}": (lambda a, b, _s=(bm, bn, bk):
                                 mm.matmul(a, b, bm=_s[0], bn=_s[1], bk=_s[2]))
@@ -1071,11 +1131,13 @@ def _times_mm_mv(mm, mv, device, gen, card, worst, by_path) -> list:
         res = _measure(f"matmul fp32 [{m},{k}]x[{k},{n}]", fns,
                        _operand_sets([(m, k), (k, n)], nbytes, device, gen),
                        2.0 * m * n * k, nbytes, card)
-        if idx == 0:
-            best = min((v for v in fns if v.startswith("pallas")),
-                       key=res["ms"].get)
-            records.append(_record("matmul", best, (m, n, k), res, worst,
-                                   by_path))
+        hand = [v for v in fns if v.startswith("pallas")]
+        rec = _record("matmul", min(hand, key=res["ms"].get), (m, n, k), res,
+                      worst, by_path)
+        rec["schedules"] = {v: {"ms": res["ms"][v],
+                                "device_ms": res["device_ms"][v]}
+                            for v in hand}
+        records.append(rec)
     for m, k in WORK_MV:
         nbytes = 4 * (m * k + k + m)
         res = _measure(f"matvec fp32 [{m},{k}]x[{k}]",

@@ -1,8 +1,10 @@
 // Shared pieces of the port's hand-written CUDA kernels: the dtype codes the
 // ctypes wrappers pass, element conversion to and from the fp32 accumulator
-// (only through the conversion intrinsics), and the skeleton of the window
-// kernels (conv2d, maxpool): a block per output tile that stages its input
-// window in shared memory, and the dispatch on the compiled tiles.
+// (only through the conversion intrinsics), the device guard of the entry
+// points that take a device index (matmul, matvec), and the skeleton of
+// the window kernels (conv2d, maxpool): a block per output tile that stages
+// its input window in shared memory, and the dispatch on the compiled
+// tiles.
 #pragma once
 
 #include <cstddef>
@@ -60,6 +62,27 @@ __device__ __forceinline__ void stage_window(const T* __restrict__ a,
                  : fill;
   }
 }
+
+// Makes `device` current for a launch and restores the caller's device when
+// it leaves scope.  One cudaGetDevice when the device is current already
+// (the common case), so a wrapper needs no device context of its own.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t error = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    int cur = 0;
+    error = cudaGetDevice(&cur);
+    if (error == cudaSuccess && cur != device) {
+      error = cudaSetDevice(device);
+      if (error == cudaSuccess) prev = cur;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+};
 
 // A compiled BM x BN output tile, as a tag for with_tile.
 template <int M, int N>

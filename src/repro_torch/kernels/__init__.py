@@ -10,10 +10,13 @@ rather than dropping to the plain version.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import build
 
 
 class Aval(NamedTuple):
@@ -39,6 +42,48 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"no kernel for device {device}: operands must lie on "
                      "a CUDA device or on the CPU")
+
+
+def cuda_index(a: torch.Tensor, b: torch.Tensor) -> int:
+    """``on_cuda`` for a pair of operands, as the lean launch path needs
+    it: the index of the CUDA device both lie on, or -1 when both lie on
+    the CPU; anything else raises as ``on_cuda`` does.  The common case
+    reads two flags and two indices and builds no set."""
+    if a.is_cuda and b.is_cuda:
+        index = a.get_device()
+        if b.get_device() == index:
+            return index
+    return a.get_device() if on_cuda(a, b) else -1
+
+
+class Entry:
+    """One C entry point of a kernel library, bound at its first call and
+    kept: a launch pays no library lookup and no signature set-up.  The
+    entry takes the device index and does its own device guard (one
+    ``cudaGetDevice`` when the device is current already), so the caller
+    enters no context manager.  A caller calls ``fn`` itself (``entry.fn
+    or entry.bind()``: no Python call of its own on a launch) and passes a
+    non-zero return to ``fail``, which raises."""
+
+    def __init__(self, library: str, name: str, argtypes: list,
+                 what: str) -> None:
+        self.library, self.name, self.what = library, name, what
+        self.argtypes = argtypes
+        self.fn = None
+
+    def bind(self):
+        # set here too: a library loaded for another entry point has not
+        # had this one's signature set
+        fn = getattr(self._lib(), self.name)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        self.fn = fn
+        return fn
+
+    def fail(self, code: int) -> None:
+        build.check(self._lib(), code, self.what)
+
+    def _lib(self):
+        return build.load(self.library, {self.name: self.argtypes})
 
 
 def device_guard(tensor: torch.Tensor):

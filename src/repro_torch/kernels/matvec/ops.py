@@ -1,8 +1,9 @@
 """Public matvec op: shape hooks, and the kernel or the plain path.
 
 The CUDA kernel handles ragged rows and tails itself, so unlike the JAX
-package's ops.py nothing is padded.  It has one schedule (a warp per row),
-so the block sizes of the Pallas signature have no counterpart here.
+package's ops.py nothing is padded.  It has one schedule (1, 2 or 4 warps
+a row, chosen by the kernel from the shape), so the block sizes of the
+Pallas signature have no counterpart here.
 """
 from __future__ import annotations
 
@@ -34,4 +35,7 @@ def matvec(a: torch.Tensor, x: torch.Tensor, *,
     abstract_params(a, x)
     if not use_kernel:
         return _ref.matvec(a, x)
-    return _kernel.matvec(a.contiguous(), x.to(a.dtype).contiguous())
+    # no copy, and no no-op conversion call, for operands that are ready
+    if x.dtype != a.dtype:
+        x = x.to(a.dtype)
+    return _kernel.matvec(a.contiguous(), x.contiguous())

@@ -136,7 +136,8 @@ def _matmul() -> RegisteredKernel:
                         lambda args, p: ops.matmul(*args, use_kernel=False),
                         feat(0.0, 0.0), flops)]
     for blk in (32, 128):
-        # the hand kernel's output tile is blk x blk; k is staged 32 deep
+        # the hand kernel's output tile is blk x blk; bk=32 names the
+        # schedule (matmul.SCHEDULES)
         variants.append(Variant(
             "matmul", f"pallas_{blk}",
             lambda args, p, _b=blk: ops.matmul(*args, bm=_b, bn=_b, bk=32),
@@ -156,7 +157,8 @@ def _matvec() -> RegisteredKernel:
     def feat(block, pallas):
         return lambda p: [p["m"], p["k"], block, pallas]
 
-    # the port has one hand matvec schedule (a warp per row); it keeps the
+    # the port has one hand matvec schedule (1 or 2 warps a row, chosen by
+    # the kernel from the shape); it keeps the
     # JAX package's variant name and its block feature of 128, the Pallas
     # variant's bm=bk=128, so fitted states carry over
     return RegisteredKernel(

@@ -6,6 +6,7 @@ which jax 0.9.0 lacks; the blur kernels' arithmetic is also held to a jnp
 restatement of the Pallas bodies), on the same numpy-drawn inputs; the
 backend rule; the build's failure modes; and, on a card, the CUDA kernels
 against their plain versions."""
+import ctypes
 import threading
 import time
 
@@ -22,8 +23,8 @@ from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.matmul import ops as jmm_ops, ref as jmm_ref
 from repro.kernels.matvec import ops as jmv_ops, ref as jmv_ref
 from repro.kernels.maxpool import ops as jmp_ops, ref as jmp_ref
-from repro_torch.kernels import Aval, build, cudnn_fp32, on_cuda, \
-    resolve_device
+from repro_torch.kernels import Aval, build, cuda_index, cudnn_fp32, \
+    on_cuda, resolve_device
 from repro_torch.kernels.blur import blur as bl_kernel
 from repro_torch.kernels.blur import ops as bl_ops, ref as bl_ref
 from repro_torch.kernels.conv2d import conv2d as mc_kernel, ops as mc_ops
@@ -571,6 +572,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                        torch.zeros(20, 15))
 
 
+# the main path's products (m, n, k) -> (s, blocks) of the 128 tile on 132
+# SMs with one block an SM: 32, 16 and 9 output tiles filled out along k
+MAIN_SPLITS = {(256, 2048, 1024): (4, 128), (256, 1024, 2048): (8, 128),
+               (384, 384, 384): (8, 72), (512, 1024, 512): (4, 128),
+               (512, 512, 1024): (8, 128)}
+
+
+@pytest.mark.parametrize("shape", list(MAIN_SPLITS))
+def test_split_k_fills_the_card_at_the_main_path_shapes(shape):
+    m, n, k = shape
+    s, blocks = MAIN_SPLITS[shape]
+    assert mm_kernel.split_k(m, n, k, 128, 128, 32, 132) == s
+    assert -(-m // 128) * -(-n // 128) * s == blocks
+    # the 32 tile has at least 144 tiles there: it fills the card by count
+    assert mm_kernel.split_k(m, n, k, 32, 32, 32, 132) == 1
+
+
+def _k_ranges(k, s):
+    chunk = mm_kernel.k_chunk(k, s)
+    return [(r * chunk, min(k, (r + 1) * chunk)) for r in range(s)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_split_k_keeps_every_k_range_and_one_wave(sms):
+    rng = np.random.RandomState(sms)
+    shapes = [(1, 1, 1), (64, 96, 120), (100, 70, 130), (33, 257, 65),
+              (128, 128, 40), (128, 128, 33), (4096, 4096, 64)]
+    shapes += [tuple(int(v) for v in rng.randint(1, 3000, size=3))
+               for _ in range(200)]
+    for m, n, k in shapes:
+        for bm, bn, bk in mm_kernel.SCHEDULES:
+            s = mm_kernel.split_k(m, n, k, bm, bn, bk, sms)
+            assert s in mm_kernel.SPLITS
+            tiles = -(-m // bm) * -(-n // bn)
+            if tiles >= sms or k <= bk:
+                assert s == 1
+            ranges = _k_ranges(k, s)
+            # every block has k to sum, the ranges tile [0, k) in order,
+            # and each starts on the kernel's 16-byte A alignment
+            assert all(lo < hi for lo, hi in ranges), (m, n, k, s)
+            assert ranges[0][0] == 0 and ranges[-1][1] == k
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(lo % mm_kernel.SPLIT_ALIGN == 0 for lo, _ in ranges)
+            assert s == 1 or tiles * s <= sms
+
+
+def test_split_k_reads_the_cards_cluster_slots():
+    # an H100's occupancy for the 128 tile: clusters of 4 or 8 blocks sit
+    # in one GPC each and reach 120 of its 132 SMs
+    slots = {1: 132, 2: 132, 4: 120, 8: 120}
+    got = {shape: mm_kernel.split_k(*shape, 128, 128, 32, 132, slots)
+           for shape in MAIN_SPLITS}
+    assert got == {(256, 2048, 1024): 2, (256, 1024, 2048): 4,
+                   (384, 384, 384): 8, (512, 1024, 512): 2,
+                   (512, 512, 1024): 4}
+    # three blocks of the 32 tile share an SM, but a grid of at least as
+    # many tiles as SMs is not split; fewer tiles are
+    slots32 = {1: 396, 2: 396, 4: 372, 8: 360}
+    assert mm_kernel.split_k(256, 1024, 2048, 32, 32, 32, 132, slots32) == 1
+    assert mm_kernel.split_k(128, 512, 512, 32, 32, 32, 132, slots32) == 4
+
+
+def test_schedules_and_signatures_agree_with_the_registry(monkeypatch):
+    from repro_torch.runtime import default_registry
+
+    seen = []
+
+    def spy(a, b, *, bm, bn, bk):
+        seen.append((bm, bn, bk))
+        return mm_kernel.plain(a, b)
+
+    monkeypatch.setattr(mm_kernel, "matmul", spy)
+    a, b = torch.ones(4, 3), torch.ones(3, 5)
+    rk = default_registry(include=["matmul"]).get("matmul")
+    for v in rk.variants:
+        v.call((a, b), {"m": 4, "n": 5, "k": 3})
+    hand = [v.name for v in rk.variants if v.name.startswith("pallas_")]
+    assert hand == [f"pallas_{bm}" for bm, _, _ in mm_kernel.SCHEDULES]
+    assert seen == list(mm_kernel.SCHEDULES)
+    # repro_matmul(a, b, c, m | n << 32, k, dtype | tile << 8 | split << 16
+    # | device << 24, stream) and repro_matvec(a, x, y, m | k << 32, dtype |
+    # device << 8, stream): pointers and the stream as c_void_p, the packed
+    # counts as 64 and 32 bits
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert mm_kernel._SIGNATURES == {
+        "repro_matmul": [ptr] * 3 + [i64, i32, i32, ptr]}
+    assert mv_kernel._SIGNATURES == {
+        "repro_matvec": [ptr] * 3 + [i64, i32, ptr]}
+    assert mm_kernel._ENTRY.argtypes == mm_kernel._SIGNATURES["repro_matmul"]
+    assert mv_kernel._ENTRY.argtypes == mv_kernel._SIGNATURES["repro_matvec"]
+
+
+def test_lean_launch_path_takes_the_plain_version_on_the_cpu():
+    rng = np.random.RandomState(3)
+    a = torch.from_numpy(rng.randn(40, 24).astype(np.float32))
+    x = torch.from_numpy(rng.randn(24).astype(np.float32))
+    b = torch.from_numpy(rng.randn(24, 16).astype(np.float32))
+    before = (mv_kernel.LAUNCHES, mm_kernel.LAUNCHES,
+              mv_kernel._ENTRY.fn, mm_kernel._ENTRY.fn)
+    assert torch.equal(mv_kernel.matvec(a, x), mv_kernel.plain(a, x))
+    for bm, bn, bk in mm_kernel.SCHEDULES:
+        assert torch.equal(mm_kernel.matmul(a, b, bm=bm, bn=bn, bk=bk),
+                           mm_kernel.plain(a, b))
+    # nothing launched, nothing built or bound for CPU tensors
+    assert (mv_kernel.LAUNCHES, mm_kernel.LAUNCHES, mv_kernel._ENTRY.fn,
+            mm_kernel._ENTRY.fn) == before
+    assert cuda_index(a, x) == -1
+    meta = torch.zeros(24, device="meta")
+    with pytest.raises(ValueError, match="different devices"):
+        mv_kernel.matvec(a, meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        mm_kernel.matmul(torch.zeros(4, 3, device="meta"),
+                         torch.zeros(3, 2, device="meta"), bm=32, bn=32,
+                         bk=32)
+    with pytest.raises(ValueError, match="index range"):
+        mv_kernel._check(torch.empty(2 ** 31, 0), torch.empty(0))
+
+
+def test_ops_matvec_passes_ready_operands_without_a_copy(monkeypatch):
+    seen = []
+    monkeypatch.setattr(mv_kernel, "matvec",
+                        lambda a, x: seen.append((a, x)) or mv_kernel.plain(
+                            a, x))
+    a, x = torch.randn(6, 5), torch.randn(5)
+    mv_ops.matvec(a, x)
+    assert seen[-1][0] is a and seen[-1][1] is x
+    # a mistyped x is cast once, a strided a made contiguous
+    mv_ops.matvec(a.bfloat16(), x)
+    assert seen[-1][1].dtype == torch.bfloat16
+    at = torch.randn(5, 6).t()
+    mv_ops.matvec(at, x)
+    assert seen[-1][0].is_contiguous() and seen[-1][1] is x
+
+
 def test_build_is_content_keyed_and_failures_raise(monkeypatch, tmp_path):
     assert build.library_path("matmul") == build.library_path("matmul")
     assert build.library_path("matmul").name.startswith("libmatmul-")
@@ -605,7 +740,27 @@ def test_cuda_kernels_match_plain_versions(dtype):
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), mm_kernel.plain(a, b).float(),
                                        rtol=tol, atol=tol)
-    assert mm_kernel.LAUNCHES == before + 3 * len(mm_kernel.SCHEDULES)
+    # the cluster split along k: on an H100 these take cluster sizes 8, 4,
+    # 2 and 1 at the 128 tile, k below s * bk at (64, 96, 120), and the
+    # narrow copy path at n = 36 in bf16 and at an a off 16 bytes; drawn as
+    # the workloads draw (uniform, the contraction operand over sqrt(k)),
+    # which keeps fp32 order differences at k = 1000 inside 1e-4
+    cluster = [(128, 256, 1000), (384, 1280, 520), (512, 1536, 200),
+               (1024, 1280, 64), (64, 96, 120), (96, 36, 264),
+               (256, 512, 300)]
+    for m, n, k in cluster:
+        a = torch.rand(m, k, generator=gen, device="cuda") - 0.5
+        b = (torch.rand(k, n, generator=gen, device="cuda") - 0.5) / k ** 0.5
+        a, b = a.to(td), b.to(td)
+        if (m, n, k) == (256, 512, 300):
+            a = a.new_empty(m * k + 1)[1:].view(m, k).copy_(a)
+        want = mm_kernel.plain(a, b).float()
+        for bm, bn, bk in mm_kernel.SCHEDULES:
+            got = mm_kernel.matmul(a, b, bm=bm, bn=bn, bk=bk)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert mm_kernel.LAUNCHES == before + (3 + len(cluster)) * len(
+        mm_kernel.SCHEDULES)
     # mixed_dag's products at large, drawn and chained as the workload does:
     # held relative to the output's magnitude, which the join takes to 1e5
     n = 384
@@ -633,7 +788,9 @@ def test_cuda_kernels_match_plain_versions(dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), mv_kernel.plain(a, x).float(),
                                    rtol=tol, atol=tol)
-    assert mv_kernel.LAUNCHES == before + 3
+        # a fixed order of sums: a second launch equals the first
+        assert torch.equal(mv_kernel.matvec(a, x), got)
+    assert mv_kernel.LAUNCHES == before + 6
     before = mc_kernel.LAUNCHES
     for m, n, r in [(100, 90, 5), (41, 77, 7), (1022, 1022, 3)]:
         a = torch.randn(m, n, generator=gen, device="cuda").to(td)
