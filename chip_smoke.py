@@ -29,10 +29,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    within 1e-5 (fp32) and 2e-2 (bf16), and the five blur host schedules
    against the plain blur at 1e-5; the four flash-attention kernels over
    the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
-   window) and at full width: ``attention_block``'s q/k/v and one
-   attention layer each of yi-9b and gemma3-1b at 4096 tokens (B = 1 of the
-   train_4k shape's global batch of 256), at 1e-4 (fp32) and 3e-2 (bf16),
-   gradients relative to their largest magnitude above 1.
+   window), at full width (``attention_block``'s q/k/v and one attention
+   layer each of yi-9b and gemma3-1b at 4096 tokens, B = 1 of the train_4k
+   shape's global batch of 256) and at two shapes whose backward tiles are
+   wholly visible (D = 128) or end in a sk_orig tail (D = 256), at 1e-4
+   (fp32) and 3e-2 (bf16), gradients relative to their largest magnitude
+   above 1, each backward kernel launched twice and held equal bit for
+   bit.
 4. main path — four paths, each over fresh tuning caches (the card's
    fingerprint, and the host's for slice 4) and its own dispatchers over
    the port's registry, the launch counters zeroed just before each and
@@ -47,15 +50,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``attention_block``, then the differentiable flash-attention op on the
    workload's q/k/v: its forward held to the compiled run's attention
    output, the gradients of sum(sin(o)) to autograd through the plain
-   oracle at 1e-4.  Slice 4: a second dispatcher over the host
+   oracle at 1e-4.  Each one-device workload's second run prints its
+   dispatcher's ``stats()`` (decision counts, the steady overhead share).  Slice 4: a second dispatcher over the host
    (``device="cpu"``) beside the card's, both warmed at the slice-2 cold
    shapes; copies ``cpu->cuda:0`` and ``cuda:0->cpu`` measured into a
    ``CommModel``; ``large`` ``image_pipeline`` and ``mixed_dag``, bound on
    the host, compiled over ``{"cuda:0", "cpu"}`` with that model and the
    real-copy hook, and run under the sequential, async and adaptive
    executors (steals and online feedback on): placements, transfers,
-   steals, predicted and measured wall time and the card's busy share are
-   printed, async must equal sequential bit for bit; then the blur kernels
+   steals, predicted and measured wall time, where the last run's time
+   went (decisions, calls to synchronise, the gaps between nodes) and the
+   card's busy share are printed, async must equal sequential bit for bit;
+   one call timed on the calling thread, on a fresh thread and on a lane
+   worker of the programs' kind (``exec.LanePool``); then the blur kernels
    (both tiles, fused and separable) on the plane each workload's blur
    node took, against that node's output, with the counters zeroed just
    before.  Every output is held against its workload's reference
@@ -71,9 +78,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    each for its faster schedule with both schedules' times; the blur
    kernels (the fused one and each separable pass, both tiles) beside
    ``F.avg_pool2d``, with the host schedules'
-   times for information; the flash-attention kernels at the three attention shapes, forward and
-   backward, beside ``scaled_dot_product_attention`` forward and
-   forward+backward.
+   times for information; the flash-attention kernels at the three
+   attention shapes, forward and backward, beside
+   ``scaled_dot_product_attention`` forward, backward (its forward+backward
+   less its forward) and forward+backward, the backward's bounds on the
+   tensor cores (3xTF32) with the fp32 FMA bound beside them.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -156,12 +165,20 @@ FA_GRID = [(h, kv, causal, window) for h, kv in ((8, 2), (4, 4), (6, 1))
 FA_SHAPES = (("attention_block", 4, 8, 8, 512, 32, True, 0),
              ("yi-9b", 1, 32, 4, 4096, 128, True, 0),
              ("gemma3-1b", 1, 4, 1, 4096, 256, True, 512))
+# (label, B, H, KV, S, D, causal, window, sk_orig) the backward tiles meet
+# otherwise: every tile visible (no mask evaluated) at D = 128, and a key
+# tail past sk_orig that ends inside a 16-row tile at D = 256
+FA_EDGES = (("whole-tiles", 1, 8, 2, 512, 128, False, 0, 0),
+            ("sk_orig-tail", 1, 4, 2, 512, 256, True, 0, 437))
 
-# fp32 FLOP/s outside the tensor cores and device-memory bytes/s, from
-# NVIDIA's data sheets, by a fragment of the name nvidia-smi reports
-# (first match wins: the plain "H100" is the SXM part)
-CARD_PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
-              ("H100", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+# fp32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s (half
+# the data sheets' rate with sparsity) and device-memory bytes/s, from
+# NVIDIA's data sheets, by a fragment of the name nvidia-smi reports (first
+# match wins: the plain "H100" is the SXM part)
+CARD_PEAKS = (("H100 PCIe", 51e12, 378e12, 2.0e12),
+              ("H100 NVL", 60e12, 417.5e12, 3.9e12),
+              ("H100", 67e12, 495e12, 3.35e12),
+              ("H200", 67e12, 495e12, 4.8e12))
 L2_BYTES = 50 * 2 ** 20
 
 # the TPU kernel each record's kernel replaces, and its source in the port
@@ -218,9 +235,10 @@ def card_line() -> str:
 
 
 def card_peaks(name: str) -> tuple:
-    for fragment, flops, bandwidth in CARD_PEAKS:
+    """(fp32 FLOP/s, dense TF32 FLOP/s, bytes/s) of the card."""
+    for fragment, fp32, tf32, bandwidth in CARD_PEAKS:
         if fragment in name:
-            return flops, bandwidth
+            return fp32, tf32, bandwidth
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
@@ -508,10 +526,15 @@ def _fa_case(fa, q, k, v, do, kw, tol) -> dict:
                                        fa.plain_bwd_dkv)}
     for name, (kernel, plain) in bwd.items():
         gots = kernel(q, k, v, do, want_lse, delta, **kw)
+        again = kernel(q, k, v, do, want_lse, delta, **kw)
         wants = plain(q, k, v, do, want_lse, delta, **pkw)
         torch.cuda.synchronize()
         gots = gots if isinstance(gots, tuple) else (gots,)
+        again = again if isinstance(again, tuple) else (again,)
         wants = wants if isinstance(wants, tuple) else (wants,)
+        if not all(torch.equal(a, b) for a, b in zip(gots, again)):
+            raise RuntimeError(f"{name}: two launches on the same operands "
+                               "differ")
         err = 0.0
         for got, want in zip(gots, wants):
             scale = max(1.0, want.float().abs().max().item())
@@ -527,7 +550,9 @@ def _fa_case(fa, q, k, v, do, kw, tol) -> dict:
 def _check_flash_attention(fa, device, gen, report, worst) -> None:
     """Each kernel against its plain version over the JAX tests' grid
     (Sq = Sk = 100 padded to 128 as ops.attention pads at bq = bk = 32,
-    sk_orig masking the padded keys) and at FA_SHAPES' full widths."""
+    sk_orig masking the padded keys), at FA_SHAPES' full widths and at
+    FA_EDGES; each backward kernel launched twice and held equal bit for
+    bit."""
     for dtype, tol in ((torch.float32, FP32_TOL),
                        (torch.bfloat16, FA_BF16_TOL)):
         dname = str(dtype).removeprefix("torch.")
@@ -538,9 +563,13 @@ def _check_flash_attention(fa, device, gen, report, worst) -> None:
         cases += [(label, (b, h, kv, s, d),
                    {"causal": c, "window": w, "bq": 256, "bk": 256})
                   for label, b, h, kv, s, d, c, w in FA_SHAPES]
+        cases += [(label, (b, h, kv, s, d),
+                   {"causal": c, "window": w, "bq": 256, "bk": 256,
+                    "sk_orig": sk_orig})
+                  for label, b, h, kv, s, d, c, w, sk_orig in FA_EDGES]
         for label, dims, kw in cases:
             q, k, v, do = _fa_inputs(*dims, dtype, device, gen)
-            if "sk_orig" in kw:           # zero padding, as ops.attention
+            if kw.get("sk_orig"):         # zero padding, as ops.attention
                 for t in (q, k, v, do):
                     t[:, :, kw["sk_orig"]:] = 0
             errs = _fa_case(fa, q, k, v, do, kw, tol)
@@ -706,14 +735,16 @@ def _run_workload(name, disp, device) -> tuple:
     refs = built.reference()
     walls = []
     for _ in range(2):
-        before = len(disp.selections)
+        # the dispatcher's counters cover the last run alone
+        disp.reset_stats()
         t0 = time.perf_counter()
         outs = compiled()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         outs = outs if isinstance(outs, tuple) else (outs,)
         err = _check_outputs(name, outs, refs)
-    sels = list(disp.selections)[before:]
+    sels = list(disp.selections)
+    stats = disp.stats()
     chosen = [f"{t.name}={s.chosen}/{s.mode}/{s.kernel_s * 1e6:.0f}us"
               for t, s in zip(compiled.order, sels)]
     decide = sum(s.overhead_s for s in sels)
@@ -730,6 +761,8 @@ def _run_workload(name, disp, device) -> tuple:
           f"(budget {PARITY_TOL})")
     print(f"main: {name} second run, node=variant/mode/call to synchronise: "
           f"{' '.join(chosen)}")
+    print(f"main: {name} second run, dispatcher stats(): "
+          + json.dumps(stats))
     return built, outs
 
 
@@ -778,9 +811,34 @@ def _exec_mode(name, compiled, mode, outputs, refs) -> dict:
         err = _check_outputs(f"{name} {mode}",
                              tuple(by_name[o].cpu() for o in outputs), refs)
     trace = compiled.last_trace
+    last = {d: list(disp.selections)[sels[d]:]
+            for d, disp in compiled.dispatchers.items()}
     picks = {d: sorted({f"{s.kernel}{list(s.params.values())}={s.chosen}"
-                        for s in list(disp.selections)[sels[d]:]})
-             for d, disp in compiled.dispatchers.items()}
+                        for s in got}) for d, got in last.items()}
+    # where a node's time went: the dispatcher's decision (host Python)
+    # and the variant's call up to the card's synchronise
+    split = {d: f"decisions {sum(s.overhead_s for s in got) * 1e3:.3f} ms, "
+                f"calls to synchronise "
+                f"{sum(s.kernel_s for s in got) * 1e3:.3f} ms"
+             for d, got in last.items()}
+    # and between the nodes: the last run's start to the end of its bind
+    # copies, on to its first node, the gaps between consecutive nodes of
+    # a lane (a handoff through the executor), and its last node's end to
+    # the caller's return
+    comp = sorted((e for e in trace.events if e.kind == "compute"),
+                  key=lambda e: e.begin_s)
+    binds = [e for e in trace.events if e.note == "bind"]
+    bound = max((e.end_s for e in binds), default=t0)
+    gaps = 0.0
+    for lane in {e.device for e in comp}:
+        mine = [e for e in comp if e.device == lane]
+        gaps += sum(max(0.0, b.begin_s - a.end_s)
+                    for a, b in zip(mine, mine[1:]))
+    timeline = (f"binds end {(bound - t0) * 1e3:.3f} ms into the run, first "
+                f"node {(comp[0].begin_s - bound) * 1e6:.0f} us later, gaps "
+                f"between a lane's nodes {gaps * 1e6:.0f} us, caller back "
+                f"{(t0 + walls[-1] - max(e.end_s for e in comp)) * 1e6:.0f} "
+                f"us after the last node")
     nodes = {e.name: f"{e.device}/{e.dur_s * 1e6:.0f}us"
              for e in trace.by_start() if e.kind == "compute"}
     moved = [e for e in trace.events if e.kind == "transfer"]
@@ -800,7 +858,8 @@ def _exec_mode(name, compiled, mode, outputs, refs) -> dict:
           + json.dumps({e.name: f"{e.dur_s * 1e6:.0f}us" for e in moved})
           + f"; steals {[e.note for e in trace.steals()]}; busy per lane "
           + json.dumps({d: f"{trace.busy_s(d) * 1e3:.3f}ms"
-                        for d in trace.devices()}))
+                        for d in trace.devices()})
+          + f"; per dispatcher {json.dumps(split)}; {timeline}")
     return by_name
 
 
@@ -826,13 +885,17 @@ def _card_picks(disp, start: int) -> dict:
 
 def _thread_cost(device) -> None:
     """Microseconds of one call, best of five, on the calling thread and
-    on a thread started for the call (as each executor run starts its
-    lane workers), for a cuDNN convolution, a cuBLAS product and a hand
-    kernel at the workloads' shapes."""
+    on a thread started for the call (as an executor run without a lane
+    pool starts its workers), for a cuDNN convolution, a cuBLAS product and
+    a hand kernel at the workloads' shapes; then each call once on a
+    compiled program's kind of lane worker (``exec.LanePool``, the card
+    bound at its start) in the pool's first run and in its second."""
     import threading
 
     import torch.nn.functional as F
 
+    from repro_torch.api.compile_ import _bind_lane_device
+    from repro_torch.exec import LanePool
     from repro_torch.kernels import cudnn_fp32
     from repro_torch.kernels.conv2d import conv2d as mc
 
@@ -870,6 +933,33 @@ def _thread_cost(device) -> None:
         out[label] = f"{here * 1e6:.1f} / {min(fresh) * 1e6:.1f}"
     print("main: slice 4 one call, us on the calling thread / on a fresh "
           "thread: " + json.dumps(out))
+    def loop():                 # host Python alone, no library call
+        total = 0
+        for i in range(20000):
+            total += i
+        return total
+
+    calls["python loop of 20000 adds"] = loop
+    here = min(timed(loop) for _ in range(5))
+    pooled = {}
+    for label, fn in calls.items():
+        pool = LanePool(init=_bind_lane_device)
+        lane = str(device)
+        pool.reserve([(lane, 0)])
+        runs = []
+        for reps in (1, 5):     # the pool's first run, then its second
+            box = []
+            job = pool.submit((lane, 0), lambda: box.extend(
+                timed(fn) for _ in range(reps)))
+            job.done.wait()
+            if job.error is not None:
+                raise job.error
+            runs.append(min(box))
+        pool.close()
+        pooled[label] = f"{runs[0] * 1e6:.1f} / {runs[1] * 1e6:.1f}"
+    print("main: slice 4 one call, us on a lane-pool worker in its first "
+          "run / in its second run (best of five): " + json.dumps(pooled)
+          + f"; the python loop on the calling thread {here * 1e6:.1f} us")
 
 
 def _slice4(K, device, root, fp) -> tuple:
@@ -948,6 +1038,8 @@ def _slice4(K, device, root, fp) -> tuple:
         src = node.deps[0]
         plane = built.bindings[src] if src in built.bindings else seq[src]
         planes[name] = (plane.to(device), seq[node.name].to(device))
+    for _, compiled, _ in work.values():
+        compiled.close()
     zero_counts(K)
     for name, (plane, want) in planes.items():
         errs = {}
@@ -1077,29 +1169,33 @@ def _fmt_us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
 
 
-def _bound(flops, nbytes, card) -> tuple:
+def _bound(flops, nbytes, card, route: str = "fp32") -> tuple:
     """(ms, "operations" or "bytes"): the least time the card could take
-    for ``flops`` fp32 operations on ``nbytes`` of device memory traffic."""
-    flops_peak, bandwidth = card_peaks(card)
-    bound_by = "operations" if flops / flops_peak >= nbytes / bandwidth \
-        else "bytes"
-    return max(flops / flops_peak, nbytes / bandwidth) * 1e3, bound_by
+    for ``flops`` operations on ``nbytes`` of device memory traffic, the
+    operations at the peak of their route: fp32 FMAs outside the tensor
+    cores, or "3xtf32", three TF32 tensor-core products for each fp32-grade
+    one."""
+    fp32, tf32, bandwidth = card_peaks(card)
+    ops_s = flops / fp32 if route == "fp32" else 3 * flops / tf32
+    bound_by = "operations" if ops_s >= nbytes / bandwidth else "bytes"
+    return max(ops_s, nbytes / bandwidth) * 1e3, bound_by
 
 
-def _measure(label, fns, sets, flops, nbytes, card) -> dict:
+def _measure(label, fns, sets, flops, nbytes, card,
+             route: str = "fp32") -> dict:
     """Time each function (events and device time) and print one line
-    with the bound of the work: the larger of operations over the fp32
-    peak and bytes (each input read once, the output written once) over
-    the memory rate."""
+    with the bound of the work: the larger of operations over the peak of
+    their route (``_bound``) and bytes (each input read once, the output
+    written once) over the memory rate."""
     t = _best(fns, sets)
     dev = {name: _device_ms(fn, sets) for name, fn in fns.items()}
-    bound, bound_by = _bound(flops, nbytes, card)
+    bound, bound_by = _bound(flops, nbytes, card, route)
     print(f"times: {label}: " + ", ".join(
         f"{v} {ms * 1e3:.1f} us (device {_fmt_us(dev[v])})"
         for v, ms in t.items())
-        + f"; bound {bound * 1e3:.2f} us ({bound_by}); {card}")
+        + f"; bound {bound * 1e3:.2f} us ({bound_by}, {route}); {card}")
     return {"ms": t, "device_ms": dev, "bound_ms": bound,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "nbytes": nbytes}
 
 
 def _record(name, schedule, shape, res, worst, by_path) -> dict:
@@ -1323,28 +1419,46 @@ def _times_flash_attention(fa, device, gen, card, worst, by_path) -> list:
         bound, bound_by = _bound(4 * work, 2 * q_bytes + 2 * kv_bytes
                                  + row_bytes, card)
         fwd_lse = dict(fwd, bound_ms=bound, bound_by=bound_by)
+        # the backward kernels run their products 3xTF32 on the tensor
+        # cores: their bound is that route's, the fp32 FMA bound beside it
         bwd_in = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
         dq = _measure(
             f"flash attention backward dq {tag}",
             {"flash_attention_bwd_dq": lambda *a: fa.flash_attention_bwd_dq(
                 *a, **kw),
              "plain": lambda *a: fa.plain_bwd_dq(*a, **pkw)},
-            bwd_sets, 6 * work, bwd_in + q_bytes, card)
+            bwd_sets, 6 * work, bwd_in + q_bytes, card, route="3xtf32")
         dkv = _measure(
             f"flash attention backward dk/dv {tag}",
             {"flash_attention_bwd_dkv":
                 lambda *a: fa.flash_attention_bwd_dkv(*a, **kw),
              "plain": lambda *a: fa.plain_bwd_dkv(*a, **pkw)},
-            bwd_sets, 8 * work, bwd_in + 2 * q_bytes, card)
+            bwd_sets, 8 * work, bwd_in + 2 * q_bytes, card, route="3xtf32")
 
         def op_fwd_bwd(q, k, v, do):
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             return torch.autograd.grad(fa_ops.attention(*leaves, **kw),
                                        leaves, do)
 
-        _measure(f"flash attention op forward+backward {tag}",
-                 {"op": op_fwd_bwd, "library": sdpa_fwd_bwd}, fb_sets,
-                 18 * work, 3 * q_bytes + 4 * kv_bytes, card)
+        both = _measure(f"flash attention op forward+backward {tag}",
+                        {"op": op_fwd_bwd, "library": sdpa_fwd_bwd},
+                        fb_sets, 18 * work, 3 * q_bytes + 4 * kv_bytes, card)
+        # SDPA's backward: its forward+backward less its forward, by
+        # events and by the device time of the kernels each launches
+        dev_fb, dev_f = both["device_ms"]["library"], \
+            fwd["device_ms"]["library"]
+        sdpa_bwd = {"sdpa_bwd_ms": both["ms"]["library"]
+                    - fwd["ms"]["library"],
+                    "sdpa_bwd_device_ms": None if dev_fb is None
+                    or dev_f is None else dev_fb - dev_f,
+                    "op_fwd_bwd_ms": both["ms"]["op"],
+                    "sdpa_fwd_bwd_ms": both["ms"]["library"]}
+        print(f"times: SDPA backward {tag}: "
+              f"{sdpa_bwd['sdpa_bwd_ms'] * 1e3:.1f} us by events (device "
+              f"{_fmt_us(sdpa_bwd['sdpa_bwd_device_ms'])}); {card}")
+        for res, flops in ((dq, 6 * work), (dkv, 8 * work)):
+            res.update(sdpa_bwd, route="3xtf32", bound_fp32_ms=_bound(
+                flops, res["nbytes"], card)[0])
         per_shape[label] = {"flash_attention": fwd,
                             "flash_attention_fwd": fwd_lse,
                             "flash_attention_bwd_dq": dq,
@@ -1363,7 +1477,14 @@ def _times_flash_attention(fa, device, gen, card, worst, by_path) -> list:
                 "ms": res["ms"][name], "device_ms": res["device_ms"][name],
                 "plain_ms": res["ms"]["plain"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
-                "library_ms": res["ms"].get("library")}
+                "library_ms": res["ms"].get("library"),
+                **{key: res[key] for key in (
+                    "route", "bound_fp32_ms", "sdpa_bwd_ms",
+                    "sdpa_bwd_device_ms", "op_fwd_bwd_ms", "sdpa_fwd_bwd_ms")
+                   if key in res}}
+        if "route" in per_shape[main_label][name]:
+            rec["route_note"] = "3xTF32 on mma.sync tensor cores"
+            rec["bound_fp32_ms"] = per_shape[main_label][name]["bound_fp32_ms"]
         records.append(rec)
     return records
 

@@ -18,8 +18,13 @@ Execution has three interchangeable back ends over the same schedule:
 - ``executor="async"`` — ``repro_torch.exec.AsyncExecutor``: one worker
   per device plus one per link lane; nodes fire when their deps resolve,
   so independent branches genuinely overlap and transfers run
-  concurrently with compute.  Every back end records an
-  ``ExecutionTrace`` (``last_trace``).
+  concurrently with compute.  The workers are the compiled program's own
+  ``exec.LanePool``: threads that live across calls (a ``cuda:<i>`` lane's
+  worker makes card i current once, when it starts), one call at a time
+  (a concurrent caller waits for the running call; a node must not call
+  its own program asynchronously), stopped by ``close()`` or when the
+  program is collected.  Every back end records an ``ExecutionTrace``
+  (``last_trace``).
 - ``executor="adaptive"`` — the async executor with runtime re-dispatch:
   when a node becomes ready and its planned device is loaded, the
   executor asks the *live* predictors whether moving the inputs and
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -70,7 +76,8 @@ from repro_torch.core.scheduler import (Assignment, execution_order, makespan,
                                         predictor_from_runtime, schedule)
 from repro_torch.exec.buffers import (BufferTable, Transfer, lane_device,
                                       on_device, plan_buffers, value_nbytes)
-from repro_torch.exec.executor import AsyncExecutor, ExecTask, StealPolicy
+from repro_torch.exec.executor import (AsyncExecutor, ExecTask, LanePool,
+                                       StealPolicy)
 from repro_torch.exec.trace import ExecutionTrace
 from repro_torch.kernels import Aval
 from repro_torch.runtime.cache import shape_bucket, shape_class
@@ -186,6 +193,15 @@ def _check_on_lane(name: str, values, lane: str) -> None:
         if isinstance(v, torch.Tensor) and not on_device(v, device):
             raise ValueError(f"{name}: an operand lies on {v.device}, but "
                              f"the task runs on lane {lane!r}")
+
+
+def _bind_lane_device(lane: str) -> None:
+    """A lane worker's one-time set-up: the worker of a ``cuda:<i>`` lane
+    makes card i its current device, so that the card's libraries set up
+    their per-thread state once, on this long-lived thread."""
+    device = lane_device(lane)
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)
 
 
 @dataclasses.dataclass
@@ -551,9 +567,26 @@ class CompiledProgram:
                                   meta=metas.get(node.name), **extra))
         return tasks
 
+    def lane_pool(self) -> LanePool:
+        """The program's lane workers, made at its first async or adaptive
+        call and stopped when the program is collected."""
+        pool = getattr(self, "_pool", None)
+        if pool is None:
+            pool = self._pool = LanePool(init=_bind_lane_device)
+            weakref.finalize(self, pool.close)
+        return pool
+
+    def close(self) -> None:
+        """Stop and join the lane workers; a later async or adaptive call
+        starts new ones."""
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.close()
+
     def _run_async(self, env, tracer: ExecutionTrace) -> None:
         results = AsyncExecutor(tracer=tracer).run(
-            self._exec_tasks(env), lane_width=self._lane_widths())
+            self._exec_tasks(env), lane_width=self._lane_widths(),
+            pool=self.lane_pool())
         for node in self.program.nodes:
             env[node.name] = results[node.name]
 
@@ -563,7 +596,8 @@ class CompiledProgram:
                                  comm=self.comm,
                                  observe=self._observe_hook())
         results = executor.run(self._exec_tasks(env, adaptive=True),
-                               lane_width=self._lane_widths())
+                               lane_width=self._lane_widths(),
+                               pool=self.lane_pool())
         for node in self.program.nodes:
             env[node.name] = results[node.name]
 

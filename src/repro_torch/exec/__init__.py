@@ -18,5 +18,6 @@ from repro_torch.exec.buffers import (BufferTable, Transfer, plan_buffers,
 from repro_torch.exec.comm import (DEFAULT_SIZES, TRANSFER_FEATURES, Bus,
                                    CommModel, Topology, copy_to_dst,
                                    measure_copies, transfer_kernel)
-from repro_torch.exec.executor import AsyncExecutor, ExecTask, StealPolicy
+from repro_torch.exec.executor import (AsyncExecutor, ExecTask, LanePool,
+                                       StealPolicy)
 from repro_torch.exec.trace import ExecutionTrace, TraceEvent

@@ -40,9 +40,16 @@ compute nodes on their assigned devices plus the ``buffers.plan_buffers``
 transfer tasks on their bus/link lanes — into this form; tests drive it
 directly with hand-built graphs.  Worker threads run PyTorch calls, which
 release the interpreter lock while a kernel or a copy runs, so lanes on
-the CPU and on a card overlap.  The run-scoped telemetry of the JAX
-executor (queue depths, waits, steal instants) comes with the port's obs
-slice.
+the CPU and on a card overlap.
+
+**Lane workers that outlive a run** (``LanePool``): a run hands each
+lane slot's loop to that slot's thread in a pool.  On a card a thread's
+first library call sets up per-thread state (a cuDNN or cuBLAS handle,
+the current device) that costs milliseconds; a pool that lives across
+runs (each compiled program keeps one) pays it once, not once per run.  A
+run given no pool makes one of its own and closes it at its end.  The
+run-scoped telemetry of the JAX executor (queue depths, waits, steal
+instants) comes with the port's obs slice.
 """
 from __future__ import annotations
 
@@ -112,6 +119,113 @@ class _Env:
 
 
 _SENTINEL_PRIORITY = float("inf")
+
+
+class _Job:
+    """One run's loop for one lane slot, handed to a pool thread."""
+
+    def __init__(self, fn: Callable[[], None]):
+        self.fn: Optional[Callable[[], None]] = fn
+        self.error: Optional[BaseException] = None
+        self.done = threading.Event()
+
+
+class LanePool:
+    """Long-lived worker threads for ``AsyncExecutor.run``, one per lane
+    slot ``(lane, i)`` (a lane with width k has slots 0..k-1), started on
+    first use and kept until ``close``.
+
+    Each thread calls ``init(lane)`` once, when it starts (a real lane's
+    device binding), then serves one run's loop at a time.  One run uses
+    the pool at a time: ``run`` holds ``lock`` from the first enqueue until
+    every slot's loop has returned, so a second caller waits for the first
+    run to end and a task must not start a run on the pool it runs on.  A
+    run that fails still posts every slot's sentinel and waits for its
+    loops, so no thread is left on a dead run's queue.  ``close`` waits for
+    a running run, then stops and joins the threads; a later run starts
+    new ones.  Threads are daemons and hold no reference to what owns the
+    pool."""
+
+    def __init__(self, init: Optional[Callable[[str], None]] = None):
+        self.init = init
+        self.lock = threading.Lock()
+        self._guard = threading.Lock()
+        self._slots: dict = {}          # (lane, i) -> (thread, inbox)
+
+    @property
+    def threads(self) -> dict:
+        """(lane, i) -> the live thread serving that slot."""
+        with self._guard:
+            return {slot: th for slot, (th, _) in self._slots.items()}
+
+    def _serve(self, lane: str, inbox: queue.SimpleQueue,
+               ready: threading.Event, failed: list) -> None:
+        if self.init is not None:
+            try:
+                self.init(lane)
+            except BaseException as exc:  # noqa: BLE001 — raised in reserve
+                failed.append(exc)
+                ready.set()
+                return
+        ready.set()
+        while True:
+            job = inbox.get()
+            if job is None:
+                return
+            try:
+                job.fn()
+            except BaseException as exc:  # noqa: BLE001 — raised in run()
+                job.error = exc
+            finally:
+                job.fn = None           # drop the run's closures
+                job.done.set()
+                job = None
+
+    def reserve(self, slots) -> None:
+        """Start (and initialise) a thread for every slot that has none;
+        raises the first ``init`` failure, leaving that slot empty."""
+        started = []
+        with self._guard:
+            for lane, i in slots:
+                if (lane, i) in self._slots:
+                    continue
+                inbox, ready, failed = queue.SimpleQueue(), \
+                    threading.Event(), []
+                th = threading.Thread(target=self._serve,
+                                      args=(lane, inbox, ready, failed),
+                                      name=f"exec-{lane}-{i}", daemon=True)
+                th.start()
+                self._slots[(lane, i)] = (th, inbox)
+                started.append(((lane, i), th, ready, failed))
+        error = None
+        for slot, th, ready, failed in started:
+            ready.wait()
+            if failed:
+                th.join()
+                with self._guard:
+                    self._slots.pop(slot, None)
+                error = error or failed[0]
+        if error is not None:
+            raise error
+
+    def submit(self, slot, fn: Callable[[], None]) -> _Job:
+        """Run ``fn`` on the thread of ``slot`` (reserved); the returned
+        job's ``done`` is set when it returns."""
+        job = _Job(fn)
+        with self._guard:
+            self._slots[slot][1].put(job)
+        return job
+
+    def close(self) -> None:
+        """Stop and join every thread, after the running run if there is
+        one (idempotent)."""
+        with self.lock, self._guard:
+            slots, self._slots = self._slots, {}
+        for _, inbox in slots.values():
+            inbox.put(None)
+        for th, _ in slots.values():
+            if th is not threading.current_thread():
+                th.join()
 
 
 class AsyncExecutor:
@@ -230,16 +344,31 @@ class AsyncExecutor:
 
     # -- execution -----------------------------------------------------------
     def run(self, tasks: Sequence[ExecTask],
-            lane_width: Optional[Mapping[str, int]] = None) -> dict:
+            lane_width: Optional[Mapping[str, int]] = None,
+            pool: Optional[LanePool] = None) -> dict:
         """Execute the graph; returns name -> output.  ``lane_width`` maps
         lane -> concurrent worker count (default 1 — buses with capacity k
-        pass k).  The first task exception aborts the run: not-yet-started
-        tasks are skipped and their futures *cancelled* (so nothing ever
-        blocks on them) and the original error re-raises in the caller."""
+        pass k).  With ``pool`` the lane loops run on the pool's long-lived
+        threads (one run at a time); without, on a pool of this run's own,
+        closed when it ends.  The first task exception aborts the run:
+        not-yet-started tasks are skipped and their futures *cancelled* (so
+        nothing ever blocks on them) and the original error re-raises in
+        the caller."""
         tasks = list(tasks)
         if not tasks:
             return {}
         self._validate(tasks)
+        own = pool is None
+        pool = LanePool() if own else pool
+        try:
+            with pool.lock:
+                return self._run(tasks, lane_width, pool)
+        finally:
+            if own:
+                pool.close()
+
+    def _run(self, tasks: list, lane_width: Optional[Mapping[str, int]],
+             pool: LanePool) -> dict:
         # one run epoch, captured before any work: the Chrome trace and the
         # Gantt CSV normalize against this single clock value
         if self.tracer is not None:
@@ -397,24 +526,27 @@ class AsyncExecutor:
                 complete(task, value)
 
         widths = dict(lane_width or {})
-        workers = [(lane, threading.Thread(target=worker, args=(lane,),
-                                           name=f"exec-{lane}-{i}",
-                                           daemon=True))
-                   for lane in lanes
-                   for i in range(max(1, int(widths.get(lane, 1))))]
-        for _, w in workers:
-            w.start()
+        slots = [(lane, i) for lane in lanes
+                 for i in range(max(1, int(widths.get(lane, 1))))]
+        pool.reserve(slots)
+        jobs = [pool.submit(slot, lambda lane=slot[0]: worker(lane))
+                for slot in slots]
         try:
-            for t in sorted(tasks, key=lambda t: t.priority):
-                if not t.deps:
-                    enqueue(t)
-        except BaseException as exc:  # noqa: BLE001 — re-raised below
-            fail(t, exc)
-        done.wait()
-        for lane, _ in workers:         # one sentinel per worker thread
-            queues[lane].put((_SENTINEL_PRIORITY, 0, None))
-        for _, w in workers:
-            w.join()
+            try:
+                for t in sorted(tasks, key=lambda t: t.priority):
+                    if not t.deps:
+                        enqueue(t)
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                fail(t, exc)
+            done.wait()
+        finally:
+            for lane, _ in slots:       # one sentinel per worker loop
+                queues[lane].put((_SENTINEL_PRIORITY, 0, None))
+            for job in jobs:
+                job.done.wait()
+        if state["error"] is None:
+            # a lane loop that died outside a task (an executor fault)
+            state["error"] = next((j.error for j in jobs if j.error), None)
         if state["error"] is not None:
             # cancel every future the abort left unresolved: a dependent
             # (or CompiledProgram.__call__) blocked on one would hang

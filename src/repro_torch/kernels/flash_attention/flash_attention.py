@@ -40,16 +40,39 @@ _SIGNATURES = {
 }
 
 
-def smem_bytes(kernel: str, d: int) -> int:
+# The backward sweeps' tiles by head dim, as csrc/flash_attention.cu's
+# BwdCfg compiles them: (warps a block, warps sharing 16 own rows, streamed
+# rows a step).  A block owns 16 * warps / split rows (queries for dq, keys
+# for dk/dv).
+BWD_TILES = {32: {"dq": (4, 1, 64), "dkv": (4, 1, 32)},
+             64: {"dq": (8, 1, 32), "dkv": (8, 1, 32)},
+             128: {"dq": (8, 1, 32), "dkv": (8, 1, 32)},
+             256: {"dq": (8, 2, 16), "dkv": (8, 2, 16)}}
+
+
+def bwd_tiles(kernel: str, d: int) -> dict:
+    """The compiled tile of backward ``kernel`` ("dq" or "dkv") at head dim
+    ``d``: warps and threads a block, own and streamed rows."""
+    warps, split, stream = BWD_TILES[d][kernel]
+    return {"warps": warps, "threads": 32 * warps, "split": split,
+            "own": 16 * warps // split, "stream": stream}
+
+
+def smem_bytes(kernel: str, d: int, itemsize: int = 4) -> int:
     """Shared memory a block of ``kernel`` ("fwd", "dq", "dkv") stages at
-    head dim ``d``: fp32 operand tiles with row stride d+1, score tiles
-    with row stride t+16, and for dk/dv the tile's lse and delta.  The
-    compiled square tile edge t is 64, or 32 for the backward at d > 128."""
-    t = 64 if kernel == "fwd" or d <= 128 else 32
-    rows, scores = {"fwd": (3 * t, 1), "dq": (4 * t, 1),
-                    "dkv": (4 * t, 2)}[kernel]
-    extra = 2 * t if kernel == "dkv" else 0
-    return 4 * (rows * (d + 1) + scores * t * (t + 16) + extra)
+    head dim ``d`` for operands of ``itemsize`` bytes.  The forward: fp32
+    operand tiles with row stride d+1 and a score tile with row stride
+    t+16 at its 64 x 64 tile.  The backward: its own rows and two stages of
+    two streamed tiles in the operands' type, rows of d + 16/itemsize
+    elements, and for dk/dv two stages of the streamed rows' lse and
+    delta."""
+    if kernel == "fwd":
+        t = 64
+        return 4 * (3 * t * (d + 1) + t * (t + 16))
+    tile = bwd_tiles(kernel, d)
+    tiles = itemsize * (d + 16 // itemsize) * (2 * tile["own"]
+                                                + 4 * tile["stream"])
+    return tiles + (4 * 2 * 2 * tile["stream"] if kernel == "dkv" else 0)
 
 
 def _check(q, k, v, bq, bk, sk_orig, window):
@@ -77,9 +100,10 @@ def _check(q, k, v, bq, bk, sk_orig, window):
                          f"{v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash attention operands must be contiguous")
-    if b * h > 65535 or max(sq, sk) >= 2 ** 31:
+    if b * h > 65535 or max(sq, sk) > 65535 * 64:
         raise ValueError(f"flash attention shape {tuple(q.shape)} exceeds "
-                         "the kernels' grid (B*H <= 65535)")
+                         "the kernels' grid (B*H <= 65535, Sq and Sk <= "
+                         "65535*64)")
 
 
 def _check_kernel(q):
@@ -90,10 +114,17 @@ def _check_kernel(q):
         raise ValueError(f"no flash-attention kernel for head dim {d}; "
                          f"compiled: {HEAD_DIMS}")
     for kernel in ("fwd", "dq", "dkv"):
-        if smem_bytes(kernel, d) > SMEM_LIMIT:
+        need = smem_bytes(kernel, d, q.element_size())
+        if need > SMEM_LIMIT:
             raise ValueError(f"flash-attention {kernel} tiles at head dim "
-                             f"{d} stage {smem_bytes(kernel, d)} bytes of "
-                             f"shared memory, above the card's {SMEM_LIMIT}")
+                             f"{d} stage {need} bytes of shared memory, "
+                             f"above the card's {SMEM_LIMIT}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its storage does not start on 16 bytes:
+    the backward kernels copy rows by 16-byte cp.async."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_bwd(q, do, lse, delta):
@@ -167,7 +198,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=0,
                             window=window, sk_orig=sk_orig)
     _check_kernel(q)
     dq = torch.empty_like(q)
-    _launch("repro_flash_attention_bwd_dq", q, (q, k, v, do, lse, delta, dq),
+    _launch("repro_flash_attention_bwd_dq", q,
+            (*map(_aligned, (q, k, v, do)), lse, delta, dq),
             _dims(q, k, sk_orig, causal, window))
     return dq
 
@@ -186,7 +218,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     dk = torch.empty((b, h, k.shape[2], d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch("repro_flash_attention_bwd_dkv", q,
-            (q, k, v, do, lse, delta, dk, dv),
+            (*map(_aligned, (q, k, v, do)), lse, delta, dk, dv),
             _dims(q, k, sk_orig, causal, window))
     return dk, dv
 

@@ -57,18 +57,24 @@ class _Attention(torch.autograd.Function):
         qp, kp, vp, out, lse = ctx.saved_tensors
         causal, window, bq, bk, sq, sk = ctx.args
         h, kv = qp.shape[1], kp.shape[1]
-        dop = F.pad(dout.to(out.dtype), (0, 0, 0, qp.shape[2] - sq))
+        # no copy where none is needed: a cast to the same type, a pad by
+        # nothing, a group sum over groups of one change no bit
+        dop = dout if dout.dtype == out.dtype else dout.to(out.dtype)
+        if qp.shape[2] != sq:
+            dop = F.pad(dop, (0, 0, 0, qp.shape[2] - sq))
+        dop = dop.contiguous()
         # delta_i = rowsum(do * o), fp32, outside the kernels as in JAX
         delta = (dop.float() * out.float()).sum(dim=-1)
-        dq, dkh, dvh = _kernel.flash_attention_bwd(
-            qp, kp, vp, dop.contiguous(), lse, delta, causal=causal,
-            window=window, bq=bq, bk=bk, sk_orig=sk)
-        # GQA: sum the per-q-head dk/dv over each group
-        b, _, skp, d = dkh.shape
-        g = h // kv
-        dk = dkh.reshape(b, kv, g, skp, d).sum(dim=2).to(kp.dtype)
-        dv = dvh.reshape(b, kv, g, skp, d).sum(dim=2).to(vp.dtype)
-        return (dq[:, :, :sq].to(qp.dtype), dk[:, :, :sk], dv[:, :, :sk],
+        # the kernels return q's type, which k and v share
+        dq, dk, dv = _kernel.flash_attention_bwd(
+            qp, kp, vp, dop, lse, delta, causal=causal, window=window, bq=bq,
+            bk=bk, sk_orig=sk)
+        if h != kv:
+            # GQA: sum the per-q-head dk/dv over each group
+            b, _, skp, d = dk.shape
+            dk = dk.reshape(b, kv, h // kv, skp, d).sum(dim=2)
+            dv = dv.reshape(b, kv, h // kv, skp, d).sum(dim=2)
+        return (dq[:, :, :sq], dk[:, :, :sk], dv[:, :, :sk],
                 None, None, None, None)
 
 

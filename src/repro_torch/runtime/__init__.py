@@ -11,7 +11,8 @@ from repro_torch.runtime.cache import (CacheEntry, TuningCache, bucket_dim,
                                        shape_bucket, shape_class,
                                        TRAIN_BUDGET_ROWS)
 from repro_torch.runtime.dispatch import (DispatchPolicy, Dispatcher,
-                                          Selection, default_dispatcher)
+                                          Selection, default_dispatcher,
+                                          dispatch)
 from repro_torch.runtime.fingerprint import Fingerprint, current_fingerprint
 from repro_torch.runtime.online import OnlineConfig, OnlineRefiner
 from repro_torch.runtime.registry import (ATTENTION_SCHEDULE_GRID,
@@ -22,7 +23,7 @@ from repro_torch.runtime.seeding import seed_from_programs, variant_skews
 
 __all__ = ["CacheEntry", "TuningCache", "bucket_dim", "shape_bucket",
            "shape_class", "TRAIN_BUDGET_ROWS", "DispatchPolicy", "Dispatcher",
-           "Selection", "default_dispatcher", "Fingerprint",
+           "Selection", "default_dispatcher", "dispatch", "Fingerprint",
            "current_fingerprint", "OnlineConfig", "OnlineRefiner",
            "ATTENTION_SCHEDULE_GRID", "ATTENTION_SCHEDULES", "KernelRegistry",
            "RegisteredKernel", "Variant", "attention_flops",

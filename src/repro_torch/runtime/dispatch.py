@@ -100,6 +100,8 @@ class Dispatcher:
         # a dict hit, not a model forward.  Entries carry the cache entry's
         # fit version and die on refit.
         self._decisions: dict[tuple, tuple] = {}
+        self._predictions: dict[tuple, tuple] = {}  # the same, for
+        #   predict_times: (fit version, variant -> seconds)
         self._entries: dict[str, object] = {}
 
     # -- helpers -------------------------------------------------------------
@@ -114,16 +116,33 @@ class Dispatcher:
         return e
 
     def predict_times(self, kernel: str, params: dict) -> dict:
-        """variant name -> predicted seconds (requires a fitted model)."""
+        """variant name -> predicted seconds (requires a fitted model).
+        Kept per exact shape until the entry's next refit: the adaptive
+        executor prices every ready task's devices and every queued task's
+        backlog through here, so a repeat is a dict hit, not a model
+        forward."""
         entry = self._entry(kernel)
+        version = entry.version         # read first: a racing refit only
+        key = (kernel, tuple(sorted(params.items())))   # makes this stale
+        hit = self._predictions.get(key)
+        if hit is not None and hit[0] == version:
+            return dict(hit[1])
         rows = self.registry.feature_rows(kernel, params)
         pred = entry.predict(rows)
-        return dict(zip(self.registry.variant_names(kernel), pred.tolist()))
+        out = dict(zip(self.registry.variant_names(kernel), pred.tolist()))
+        self._predictions[key] = (version, out)
+        return dict(out)
 
     def predict_time(self, kernel: str, params: dict) -> float:
         """Predicted runtime of the best variant — the scheduler's
         per-device time callable (core.scheduler.predictor_from_runtime)."""
         return min(self.predict_times(kernel, params).values())
+
+    def fit(self, kernel: str, **kw) -> None:
+        """Explicit (re)fit + persist, e.g. at the end of a warm-up sweep."""
+        entry = self._entry(kernel)
+        entry.fit(epochs=kw.pop("epochs", self.policy.fit_epochs), **kw)
+        self.cache.save(kernel)
 
     # -- the dispatch path ---------------------------------------------------
     def dispatch(self, kernel: str, *args, **kwargs):
@@ -248,6 +267,36 @@ class Dispatcher:
         measured = {rk.variants[i].name: t for i, t in zip(candidates, times)}
         return candidates[int(np.argmin(times))], measured
 
+    # -- stats ---------------------------------------------------------------
+    def reset_stats(self) -> None:
+        """Clear counters/selection log (cache and decision memo survive) —
+        call between phases so steady-state numbers aren't polluted by
+        warm-up."""
+        self.n_predicted = self.n_measured = self.n_gated = 0
+        self.n_default = 0
+        self.selections = deque(maxlen=self.policy.selection_log)
+
+    def stats(self) -> dict:
+        sel = list(self.selections)
+        warm = [s for s in sel if s.mode == "predicted"]
+        out = {"dispatches": len(sel), "predicted": self.n_predicted,
+               "measured": self.n_measured, "gated": self.n_gated,
+               "default": self.n_default}
+        if warm:
+            oh = float(np.sum([s.overhead_s for s in warm]))
+            kt = float(np.sum([s.kernel_s for s in warm]))
+            out["steady_overhead_s"] = oh / len(warm)
+            # time-weighted: decision cost as a share of total wall time
+            # spent in predicted dispatches (the <5% acceptance target)
+            out["steady_overhead_pct"] = 100.0 * oh / max(oh + kt, 1e-12)
+            out["steady_overhead_pct_per_call"] = 100.0 * float(
+                np.mean([s.overhead_s / max(s.kernel_s + s.overhead_s, 1e-12)
+                         for s in warm]))
+        if self.refiner is not None:
+            out["rolling_mape"] = {k: self.refiner.rolling_mape(k)
+                                   for k in self.refiner.observed_kernels()}
+        return out
+
 
 # --------------------------------------------------------------------------
 # Module-level convenience: one shared dispatcher per process
@@ -258,10 +307,18 @@ _DEFAULT: Optional[Dispatcher] = None
 
 def default_dispatcher(policy: Optional[DispatchPolicy] = None) -> Dispatcher:
     """The process-wide dispatcher (its cache keyed by the card's
-    fingerprint).  Rebuilt only when ``policy`` actually changes."""
+    fingerprint).  Rebuilt only when ``policy`` actually changes — passing
+    the same policy on every call keeps the live dispatcher (and its
+    decision memo, stats, and online-refit counters)."""
     global _DEFAULT
     if _DEFAULT is None or (policy is not None
                             and policy != _DEFAULT.policy):
         _DEFAULT = Dispatcher(policy=policy)
     return _DEFAULT
 
+
+def dispatch(kernel: str, *args,
+             policy: Optional[DispatchPolicy] = None, **kwargs):
+    """``dispatch("matmul", a, b)`` — predict-best execution through the
+    process-wide dispatcher (created on first use)."""
+    return default_dispatcher(policy).dispatch(kernel, *args, **kwargs)

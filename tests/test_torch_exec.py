@@ -513,6 +513,154 @@ def test_compiled_runs_ignore_another_threads_use_dispatcher(tmp_path):
 
 
 # --------------------------------------------------------------------------
+# lane workers that live across runs (the compiled program's LanePool)
+# --------------------------------------------------------------------------
+
+def _pooled(tmp_path):
+    """The width-4 diamond over two simulated devices and a link, compiled
+    for the async executor; each dispatcher records the thread of every
+    call, and one can be told to fail its next call."""
+    reg, devices = _devices(tmp_path)
+    link = SimLink(latency_s=1e-4, bytes_per_s=2e9)
+    prog, bindings = _diamond(reg, width=4)
+    compiled = prog.compile(devices=devices, bindings=bindings,
+                            executor="async", comm=_comm(tmp_path, link),
+                            transfer=link.transfer)
+    seen, fail_next = [], []
+    for disp in compiled.dispatchers.values():
+        def spy(kernel, *args, _call=disp.dispatch, **kw):
+            seen.append(threading.current_thread())
+            if fail_next:
+                fail_next.pop()
+                raise RuntimeError("lane fault")
+            return _call(kernel, *args, **kw)
+        disp.dispatch = spy
+    return compiled, seen, fail_next
+
+
+def test_lane_threads_persist_across_runs(tmp_path):
+    """Three async runs of one compiled program run their nodes on the same
+    long-lived lane threads, which the program's pool holds."""
+    compiled, seen, _ = _pooled(tmp_path)
+    ref = compiled(_executor="sequential")
+    runs = []
+    for _ in range(3):
+        seen.clear()
+        for a, b in zip(compiled(), ref):
+            assert torch.equal(a, b)
+        runs.append(set(seen))
+    threads = compiled.lane_pool().threads
+    assert runs[0] == runs[1] == runs[2]
+    assert runs[0] <= set(threads.values())
+    assert {lane for lane, _ in threads} >= {"d0", "d1"}
+    assert all(th.is_alive() and th.daemon for th in threads.values())
+    assert threading.current_thread() not in runs[0]
+    compiled.close()
+
+
+@pytest.mark.parametrize("mode", ["async", "adaptive"])
+def test_pooled_runs_equal_sequential_bit_for_bit(tmp_path, mode):
+    compiled, _, _ = _pooled(tmp_path)
+    ref = compiled(_executor="sequential")
+    for _ in range(3):
+        for a, b in zip(compiled(_executor=mode), ref):
+            assert torch.equal(a, b)
+    compiled.close()
+
+
+def test_failed_run_leaves_the_pool_usable(tmp_path):
+    """A node that raises fails its run with the node's error; the pool's
+    threads are back on their inboxes, and the next run is right."""
+    compiled, seen, fail_next = _pooled(tmp_path)
+    ref = compiled(_executor="sequential")
+    compiled()
+    threads = compiled.lane_pool().threads
+    fail_next.append(True)
+    with pytest.raises(RuntimeError, match="lane fault"):
+        compiled()
+    assert compiled.lane_pool().threads == threads
+    assert not compiled.lane_pool().lock.locked()
+    for mode in ("async", "adaptive"):
+        for a, b in zip(compiled(_executor=mode), ref):
+            assert torch.equal(a, b)
+    assert compiled.lane_pool().threads == threads
+    compiled.close()
+
+
+def test_concurrent_callers_take_turns_on_the_pool(tmp_path):
+    compiled, _, _ = _pooled(tmp_path)
+    ref = compiled(_executor="sequential")
+    results, errors = [], []
+
+    def call():
+        try:
+            results.append(compiled())
+        except BaseException as exc:  # noqa: BLE001 — asserted below
+            errors.append(exc)
+
+    callers = [threading.Thread(target=call) for _ in range(3)]
+    for c in callers:
+        c.start()
+    for c in callers:
+        c.join()
+    assert not errors and len(results) == 3
+    for outs in results:
+        for a, b in zip(outs, ref):
+            assert torch.equal(a, b)
+    compiled.close()
+
+
+def test_close_and_collection_release_the_lane_threads(tmp_path):
+    """After close() the thread count is back to its value before compile,
+    and a program dropped without close() releases its threads when it is
+    collected."""
+    import gc
+
+    before = threading.active_count()
+    compiled, _, _ = _pooled(tmp_path)
+    compiled()
+    assert threading.active_count() > before
+    compiled.close()
+    assert threading.active_count() == before
+    compiled(_executor="adaptive")              # a later run starts anew
+    assert threading.active_count() > before
+    del compiled
+    gc.collect()
+    deadline = time.time() + 5.0
+    while threading.active_count() > before and time.time() < deadline:
+        time.sleep(0.01)
+    assert threading.active_count() == before
+
+
+def test_executor_pool_initialises_each_slot_once():
+    """The pool calls init(lane) once per thread; an init that fails raises
+    from the run and leaves that slot to be started again."""
+    from repro_torch.exec import LanePool
+
+    calls, broken = [], ["d1"]
+
+    def init(lane):
+        calls.append((lane, threading.current_thread()))
+        if lane in broken:
+            broken.remove(lane)
+            raise RuntimeError("no such card")
+
+    pool = LanePool(init=init)
+    tasks = [ExecTask("a", "d0", lambda env: 1),
+             ExecTask("b", "d1", lambda env: env["a"] + 1, deps=("a",))]
+    with pytest.raises(RuntimeError, match="no such card"):
+        AsyncExecutor().run(tasks, pool=pool)
+    assert set(pool.threads) == {("d0", 0)}
+    for _ in range(2):
+        assert AsyncExecutor().run(tasks, pool=pool) == {"a": 1, "b": 2}
+    assert sorted(lane for lane, _ in calls[:2]) == ["d0", "d1"]
+    assert len(calls) == 3 and calls[2][0] == "d1"
+    assert calls[2][1] is pool.threads[("d1", 0)]
+    pool.close()
+    assert pool.threads == {}
+
+
+# --------------------------------------------------------------------------
 # real devices: transfers need a hook, operands must lie on their lane
 # --------------------------------------------------------------------------
 

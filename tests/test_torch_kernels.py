@@ -374,6 +374,120 @@ def test_flash_attention_wrappers_match_pallas_kernels(h, kv, causal, window):
         _grad_close(got, want)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to the nearest
+    of 10 mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The integer add-and-mask rounding that the backward kernels (and
+    ``_tf32`` here) use gives ``cvt.rna.tf32.f32``'s result: the nearest
+    value with 10 mantissa bits, ties away from zero, for normal and
+    subnormal x, ties and both signs included."""
+    rng = np.random.RandomState(5)
+    x = np.concatenate([
+        rng.randn(4000) * 10.0 ** rng.uniform(-30, 30, 4000),
+        rng.randn(200) * 1e-40,                         # subnormal
+        np.float32([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                    0.0, -0.0])]).astype(np.float32)    # ties
+    got = _tf32(torch.from_numpy(x)).numpy().astype(np.float64)
+    xd = x.astype(np.float64)
+    tiny = np.float64(2.0 ** -126)
+    exp = np.floor(np.log2(np.maximum(np.abs(xd), tiny)))
+    ulp = 2.0 ** (np.maximum(exp, -126) - 10)
+    scaled = np.abs(xd) / ulp
+    want = np.sign(xd) * np.floor(scaled + 0.5) * ulp
+    np.testing.assert_array_equal(got, want)
+    assert got[-5] == 1 + 2 ** -10 and got[-4] == 1 + 2 ** -9
+    assert got[-3] == -(1 + 2 ** -10)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b from tf32 products on fp32 sums: the 3xTF32 split (lo·hi +
+    hi·lo + hi·hi) the backward kernels run, or one hi·hi product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _bwd_tf32(q, k, v, do, lse, delta, causal, window, sk_orig, terms):
+    """The five backward products (S, dP, dQ, dK, dV) on emulated tf32."""
+    h, d = q.shape[1], q.shape[-1]
+    k, v = fa_ref._expand(k, h), fa_ref._expand(v, h)
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    s = _mm_tf32(q, k.transpose(-1, -2), terms) * scale
+    ok = fa_ref.visible(q.shape[2], k.shape[2], causal=causal, window=window,
+                        sk_orig=sk_orig, device=q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (_mm_tf32(do, v.transpose(-1, -2), terms) - delta[..., None])
+    return (_mm_tf32(ds, k, terms) * scale,
+            _mm_tf32(ds.transpose(-1, -2), q, terms) * scale,
+            _mm_tf32(p.transpose(-1, -2), do, terms))
+
+
+@pytest.mark.parametrize("h,kv", FA_HEADS)
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_3xtf32_backward_holds_the_fp32_tolerance(h, kv, causal, window):
+    """The tolerance argument of the tensor-core backward, on the CPU: the
+    backward with all five products split 3xTF32 stays within 1e-4 of the
+    fp32 backward (relative to the largest gradient above 1) at the JAX
+    tests' grid (Sq = Sk = 100 padded to 128, sk_orig masking the pad),
+    while one tf32 product (1xTF32) leaves it."""
+    rng = np.random.RandomState(h + kv + window)
+    q, k = (torch.from_numpy((rng.randn(2, n, 128, 32) * 0.5)
+                             .astype(np.float32)) for n in (h, kv))
+    v, do = (torch.from_numpy(rng.randn(2, n, 128, 32).astype(np.float32))
+             for n in (kv, h))
+    for t in (q, k, v, do):
+        t[:, :, 100:] = 0
+    kw = {"causal": causal, "window": window, "sk_orig": 100}
+    o, lse = fa_ref.flash_attention_fwd(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    wants = fa_ref.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
+
+    def worst(terms):
+        gots = _bwd_tf32(q, k, v, do, lse, delta, causal, window, 100, terms)
+        return max(((g - w).abs().max() / max(1.0, w.abs().max().item()))
+                   .item() for g, w in zip(gots, wants))
+
+    assert worst(3) < 1e-4 / 20
+    assert worst(1) > 1e-4
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("sq", [128, 100])
+def test_attention_backward_makes_no_copy_it_does_not_need(h, kv, sq):
+    """The op's backward skips the pad of an unpadded dO, the group sum
+    over groups of one and same-type casts: its gradients equal, bit for
+    bit, those of the full host path (pad, cast, group sum) around the same
+    kernels' plain versions."""
+    rng = np.random.RandomState(h + kv + sq)
+    q, k, v = (torch.from_numpy((rng.randn(1, n, sq, 32) * 0.5)
+                                .astype(np.float32)) for n in (h, kv, kv))
+    dout = torch.from_numpy(rng.randn(1, h, sq, 32).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.attention(*leaves, bq=32, bk=32)
+    out.backward(dout)
+    qp, kp, vp, _, _ = fa_ops._pad(q, k, v, 32, 32)
+    op, lse = fa_kernel.flash_attention_fwd(qp, kp, vp, bq=32, bk=32,
+                                            sk_orig=sq)
+    dop = torch.nn.functional.pad(dout.to(op.dtype),
+                                  (0, 0, 0, qp.shape[2] - sq)).contiguous()
+    delta = (dop.float() * op.float()).sum(dim=-1)
+    dq, dkh, dvh = fa_kernel.flash_attention_bwd(qp, kp, vp, dop, lse, delta,
+                                                 bq=32, bk=32, sk_orig=sq)
+    g, skp = h // kv, kp.shape[2]
+    want = (dq[:, :, :sq].to(qp.dtype),
+            dkh.reshape(1, kv, g, skp, 32).sum(dim=2).to(kp.dtype)[:, :, :sq],
+            dvh.reshape(1, kv, g, skp, 32).sum(dim=2).to(vp.dtype)[:, :, :sq])
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
 def test_flash_attention_wrapper_refuses_what_the_kernels_do_not_take():
     q, k = torch.zeros(1, 4, 64, 32), torch.zeros(1, 2, 64, 32)
     with pytest.raises(ValueError, match=r"q \[B,H,Sq,D\]"):
@@ -406,8 +520,11 @@ def test_flash_attention_wrapper_refuses_what_the_kernels_do_not_take():
     # gemma3-1b's head dim opts in to more than 48 KB and fits the card
     assert fa_kernel.smem_bytes("fwd", 256) == 4 * (192 * 257 + 64 * 80)
     assert 48 * 1024 < fa_kernel.smem_bytes("fwd", 256) <= fa_kernel.SMEM_LIMIT
+    # the backward at D = 256: 64 own rows and two stages of 16 streamed
+    # rows, rows of 260 floats, and for dk/dv two stages of lse and delta
     assert fa_kernel.smem_bytes("dkv", 256) == \
-        4 * (128 * 257 + 2 * 32 * 48 + 64)
+        4 * 260 * (2 * 64 + 4 * 16) + 4 * 2 * 2 * 16
+    assert fa_kernel.smem_bytes("dq", 256, 2) == 2 * 264 * (2 * 64 + 4 * 16)
     # the op pads, so a ragged Sq and Sk at any bq, bk reach the wrapper
     # aligned; the JAX bq rule keeps bq = Sq when Sq divides evenly
     out = fa_ops.attention(torch.ones(1, 4, 40, 32), torch.ones(1, 2, 40, 32),
@@ -664,6 +781,48 @@ def test_schedules_and_signatures_agree_with_the_registry(monkeypatch):
     assert mv_kernel._ENTRY.argtypes == mv_kernel._SIGNATURES["repro_matvec"]
 
 
+def test_backward_operands_reach_the_kernels_on_16_bytes():
+    """The backward kernels copy rows by 16-byte cp.async: an operand whose
+    storage starts off 16 bytes goes to them as an aligned copy, an
+    aligned one as it is."""
+    x = torch.arange(64.0).view(1, 1, 2, 32)
+    assert fa_kernel._aligned(x) is x
+    off = x.new_empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    moved = fa_kernel._aligned(off)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, x)
+
+
+def test_backward_tiles_agree_with_the_cuda_source():
+    """The wrapper's table of the backward tiles (which ``smem_bytes`` and
+    the refusals read) is the one ``csrc/flash_attention.cu`` compiles:
+    BwdCfg's warps, split and streamed rows per head dim; every tile fits
+    the card, and at D <= 128 a block's warps or those of the blocks an SM
+    holds by shared memory reach 8."""
+    import re
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    found = {}
+    for d, body in re.findall(r"struct BwdCfg<(\d+)> \{(.*?)\};", src, re.S):
+        nums = dict(re.findall(r"(\w+) = (\d+)", body))
+        found[int(d)] = {k: (int(nums[f"{p}_WARPS"]), int(nums[f"{p}_SPLIT"]),
+                             int(nums[f"{p}_STREAM"]))
+                         for k, p in (("dq", "DQ"), ("dkv", "DKV"))}
+    assert found == fa_kernel.BWD_TILES
+    assert sorted(found) == list(fa_kernel.HEAD_DIMS)
+    for d in fa_kernel.HEAD_DIMS:
+        for kernel in ("dq", "dkv"):
+            tile = fa_kernel.bwd_tiles(kernel, d)
+            need = fa_kernel.smem_bytes(kernel, d)
+            assert need <= fa_kernel.SMEM_LIMIT
+            if d <= 128:
+                blocks = min(fa_kernel.SMEM_LIMIT // need, 2048 //
+                             tile["threads"])
+                assert blocks * tile["warps"] >= 8
+            assert tile["own"] % 16 == 0 and tile["stream"] % 8 == 0
+
+
 def test_lean_launch_path_takes_the_plain_version_on_the_cpu():
     rng = np.random.RandomState(3)
     a = torch.from_numpy(rng.randn(40, 24).astype(np.float32))
@@ -818,8 +977,12 @@ def test_cuda_kernels_match_plain_versions(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_kernels_match_plain(dtype):
     """On a card: the four flash-attention kernels against their plain
-    versions at every compiled head dim, GQA, the three masks and a ragged
-    Sq with sk_orig, counting each entry point's launches."""
+    versions at every compiled head dim, GQA, the three masks, a ragged
+    Sq with sk_orig, a D = 128 shape whose backward tiles are all wholly
+    visible (no mask evaluated) and a D = 256 one whose keys end in a
+    sk_orig tail inside a tile, and an operand off 16 bytes; each backward
+    kernel launched twice and held equal bit for bit, counting each entry
+    point's launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     td = DTYPES[dtype][1]
@@ -829,7 +992,9 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
     cases = [(2, 8, 2, 128, 32, True, 0, 100), (2, 4, 4, 128, 32, False, 0, 0),
              (2, 6, 1, 128, 32, True, 16, 100), (1, 8, 1, 256, 64, True, 0, 0),
              (1, 8, 2, 192, 128, True, 0, 150),
-             (1, 4, 1, 320, 256, True, 64, 300)]
+             (1, 4, 1, 320, 256, True, 64, 300),
+             (1, 8, 2, 512, 128, False, 0, 0),
+             (1, 4, 2, 512, 256, True, 0, 437)]
     for b, h, kv, s, d, causal, window, sk_orig in cases:
         q, k, v, do = (torch.randn(b, n, s, d, generator=gen, device="cuda")
                        .mul(0.5).to(td) for n in (h, kv, kv, h))
@@ -844,17 +1009,24 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
                                        atol=tol)
         torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
         delta = (do.float() * want_o.float()).sum(-1)
+        if s == 192:          # k off 16 bytes: the wrapper copies it
+            k = k.new_empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
+            assert k.data_ptr() % 16
         grads = fa_kernel.flash_attention_bwd(q, k, v, do, want_lse, delta,
+                                              **kw)
+        again = fa_kernel.flash_attention_bwd(q, k, v, do, want_lse, delta,
                                               **kw)
         wants = fa_kernel.plain_bwd(q, k, v, do, want_lse, delta, **pkw)
         torch.cuda.synchronize()
-        for got, want in zip(grads, wants):
+        for got, repeat, want in zip(grads, again, wants):
+            assert torch.equal(got, repeat)
             scale = max(1.0, want.float().abs().max().item())
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol * scale)
     n = len(cases)
     assert {e: fa_kernel.LAUNCHES[e] - before[e] for e in before} == \
-        {e: n for e in before}
+        {"flash_attention": n, "flash_attention_fwd": n,
+         "flash_attention_bwd_dq": 2 * n, "flash_attention_bwd_dkv": 2 * n}
 
 
 @pytest.mark.cuda

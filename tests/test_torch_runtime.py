@@ -2,12 +2,16 @@
 caches move between the packages unchanged, the port's fit reaches the
 reference's accuracy, fingerprints never collide, and dispatch has the
 cold -> measured -> fitted -> predicted semantics of tests/test_runtime.py."""
+import shutil
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 import repro.api  # noqa: F401  (before repro.workloads: import cycle)
 from repro.core import nnc as jnnc
+from repro.runtime import DispatchPolicy as JDispatchPolicy
 from repro.runtime import Dispatcher as JDispatcher
 from repro.runtime import Fingerprint as JFingerprint
 from repro.runtime import TuningCache as JTuningCache
@@ -15,6 +19,7 @@ from repro.runtime import current_fingerprint as jax_fingerprint
 from repro.runtime import default_registry as jdefault_registry
 from repro.runtime import seed_from_programs as jseed
 from repro.workloads import get_workload as jget_workload
+from repro.runtime import registry as jregistry_mod
 from repro.workloads import suite_registry as jsuite_registry
 from repro_torch.core import nnc
 from repro_torch.kernels import Aval
@@ -22,6 +27,7 @@ from repro_torch.runtime import (Dispatcher, DispatchPolicy, Fingerprint,
                                  OnlineConfig, OnlineRefiner, TuningCache,
                                  current_fingerprint, default_registry,
                                  shape_bucket)
+from repro_torch.runtime import dispatch as port_dispatch
 from repro_torch.runtime.registry import (KernelRegistry, RegisteredKernel,
                                           Variant)
 
@@ -493,3 +499,185 @@ def test_online_refit_lowers_rolling_mape(tmp_path):
     assert refiner.refits["mv"] >= 2
     assert mape_start > 50.0
     assert refiner.rolling_mape("mv") < 0.5 * mape_start
+
+
+# --------------------------------------------------------------------------
+# the Dispatcher's stats, reset, fit and module-level dispatch
+# --------------------------------------------------------------------------
+
+def _toy_registry_of(mod):
+    """The two-variant toy kernel in either package's registry types; its
+    calls multiply by one, so jax and torch arrays both pass."""
+    def abstract_params(a):
+        return {"m": int(a.shape[0])}
+
+    variants = tuple(
+        mod.Variant("toy", name, lambda args, p: args[0] * 1.0,
+                    lambda p, _i=float(i): [p["m"], _i],
+                    lambda p: float(p["m"]))
+        for i, name in enumerate(("v0", "v1")))
+    reg = mod.KernelRegistry()
+    reg.register(mod.RegisteredKernel("toy", abstract_params,
+                                      ("m", "variant"), variants))
+    return reg
+
+
+def _toy_cache_dir(root):
+    """A persisted toy cache written by the JAX package: five shape buckets,
+    the two variants within 1%, a closed-form model."""
+    cache = JTuningCache(str(root), JFingerprint(*SIM))
+    reg = _toy_registry_of(jregistry_mod)
+    entry = cache.entry("toy", feature_names=["m", "variant"],
+                        variant_names=["v0", "v1"])
+    for m in (32, 128, 512, 2048, 4096):
+        entry.add_rows(reg.feature_rows("toy", {"m": m}),
+                       [m / 1e6, 1.01 * m / 1e6], shape_bucket({"m": m}))
+    entry.fit(model=jnnc.LinearModel())
+    cache.save()
+    return root
+
+
+# seen shapes, a memo hit, an unseen near-tie shape class (gated), its memo
+TOY_SEQUENCE = (32, 32, 512, 32768, 32768, 128)
+COUNT_KEYS = ("dispatches", "predicted", "measured", "gated", "default")
+
+
+@pytest.mark.parametrize("online", [False, True])
+def test_dispatcher_stats_match_jax_on_the_same_cache(tmp_path, online):
+    """Over copies of one persisted cache, the port's and the JAX package's
+    Dispatcher, after the same dispatches, report stats() with the same
+    keys and the same counts."""
+    _toy_cache_dir(tmp_path / "jax")
+    shutil.copytree(tmp_path / "jax", tmp_path / "port")
+    kw = {"min_window": 1e-4, "online": online, "refit_every": 1000}
+    jd = JDispatcher(registry=_toy_registry_of(jregistry_mod),
+                     cache=JTuningCache(str(tmp_path / "jax"),
+                                        JFingerprint(*SIM)),
+                     policy=JDispatchPolicy(**kw))
+    from repro_torch.runtime import registry as registry_mod
+    td = Dispatcher(registry=_toy_registry_of(registry_mod),
+                    cache=TuningCache(str(tmp_path / "port"),
+                                      Fingerprint(*SIM)),
+                    policy=DispatchPolicy(**kw))
+    import jax.numpy as jnp
+    for m in TOY_SEQUENCE:
+        jd.dispatch("toy", jnp.ones(m, jnp.float32))
+        td.dispatch("toy", torch.ones(m))
+    want, got = jd.stats(), td.stats()
+    assert set(got) == set(want)
+    assert {k: got[k] for k in COUNT_KEYS} == {k: want[k] for k in COUNT_KEYS}
+    assert got["gated"] == 1 and got["dispatches"] == len(TOY_SEQUENCE)
+    assert [s.mode for s in td.selections] == [s.mode for s in jd.selections]
+    for key in ("steady_overhead_s", "steady_overhead_pct",
+                "steady_overhead_pct_per_call"):
+        assert got[key] > 0.0
+    assert 0.0 < got["steady_overhead_pct"] < 100.0
+    if online:
+        assert set(got["rolling_mape"]) == set(want["rolling_mape"]) \
+            == {"toy"}
+
+
+def test_reset_stats_zeroes_counts_and_keeps_the_memo(tmp_path):
+    from repro_torch.runtime import registry as registry_mod
+    d = Dispatcher(registry=_toy_registry_of(registry_mod),
+                   cache=TuningCache(str(_toy_cache_dir(tmp_path)),
+                                     Fingerprint(*SIM)),
+                   policy=DispatchPolicy(min_window=1e-4))
+    for m in TOY_SEQUENCE:
+        d.dispatch("toy", torch.ones(m))
+    memo = dict(d._decisions)
+    d.reset_stats()
+    assert d.stats() == dict.fromkeys(COUNT_KEYS, 0)
+    assert len(d.selections) == 0 and d._decisions == memo
+    assert d.cache.entry("toy").model is not None
+
+    def no_forward(rows):
+        raise AssertionError("a memo hit runs no model forward")
+
+    d._entry("toy").predict = no_forward
+    d.dispatch("toy", torch.ones(32768))            # seen: a memo hit
+    assert d.stats()["predicted"] == 1 and d.selections[-1].mode == "predicted"
+    assert d._decisions == memo
+
+
+def test_fit_writes_the_cache_and_a_fresh_dispatcher_predicts_alike(tmp_path):
+    from repro_torch.runtime import registry as registry_mod
+    reg = _toy_registry_of(registry_mod)
+    d = Dispatcher(registry=reg, cache=TuningCache(str(tmp_path),
+                                                   Fingerprint(*SIM)),
+                   policy=DispatchPolicy(fit_epochs=150))
+    entry = d._entry("toy")
+    for m in (32, 128, 512, 2048, 4096):
+        entry.add_rows(reg.feature_rows("toy", {"m": m}),
+                       [m / 1e6, 2 * m / 1e6], shape_bucket({"m": m}))
+    assert entry.model is None
+    d.fit("toy")                                    # policy.fit_epochs
+    assert entry.model is not None and entry.model.epochs == 150
+    fresh = Dispatcher(registry=reg, cache=TuningCache(str(tmp_path),
+                                                       Fingerprint(*SIM)))
+    for m in (64, 1000, 32768):
+        assert fresh.predict_times("toy", {"m": m}) == \
+            d.predict_times("toy", {"m": m})
+    d.fit("toy", model=nnc.LinearModel())           # other kwargs pass on
+    assert type(entry.model).__name__ == "LinearModel"
+    again = Dispatcher(registry=reg, cache=TuningCache(str(tmp_path),
+                                                       Fingerprint(*SIM)))
+    assert again.predict_times("toy", {"m": 64}) == \
+        d.predict_times("toy", {"m": 64})
+
+
+def test_module_dispatch_reuses_one_dispatcher_until_the_policy_changes(
+        tmp_path, monkeypatch):
+    from repro_torch.runtime import registry as registry_mod
+    module = sys.modules["repro_torch.runtime.dispatch"]
+    made = []
+
+    def make(policy=None):
+        d = Dispatcher(registry=_toy_registry_of(registry_mod),
+                       cache=TuningCache(str(tmp_path), Fingerprint(*SIM)),
+                       policy=policy)
+        made.append(d)
+        return d
+
+    monkeypatch.setattr(module, "_DEFAULT", None)
+    monkeypatch.setattr(module, "Dispatcher", make)
+    out = port_dispatch("toy", torch.full((8,), 2.0))
+    torch.testing.assert_close(out, torch.full((8,), 2.0))
+    first = module.default_dispatcher()
+    port_dispatch("toy", torch.ones(8))
+    port_dispatch("toy", torch.ones(8), policy=DispatchPolicy())
+    assert len(made) == 1 and module.default_dispatcher() is first
+    assert first.stats()["dispatches"] == 3
+    other = DispatchPolicy(min_window=1e-4)
+    port_dispatch("toy", torch.ones(8), policy=other)
+    assert len(made) == 2 and module.default_dispatcher().policy == other
+    assert module.default_dispatcher().stats()["dispatches"] == 1
+
+
+def test_predict_times_are_kept_until_the_next_refit(tmp_path):
+    """A repeated prediction of one shape runs no model forward until a
+    refit bumps the entry's version; then the new model prices it."""
+    from repro_torch.runtime import registry as registry_mod
+    d = Dispatcher(registry=_toy_registry_of(registry_mod),
+                   cache=TuningCache(str(_toy_cache_dir(tmp_path)),
+                                     Fingerprint(*SIM)))
+    entry = d._entry("toy")
+    first = d.predict_times("toy", {"m": 1000})
+    calls = []
+    forward = entry.predict
+    entry.predict = lambda rows: calls.append(1) or forward(rows)
+    assert d.predict_times("toy", {"m": 1000}) == first
+    assert d.predict_time("toy", {"m": 1000}) == min(first.values())
+    assert not calls
+    d.predict_times("toy", {"m": 2000})              # another shape: forward
+    assert len(calls) == 1
+    for m in (32, 128):
+        entry.add_rows(d.registry.feature_rows("toy", {"m": m}),
+                       [10 * m / 1e6, 30 * m / 1e6], shape_bucket({"m": m}))
+    entry.fit(model=nnc.LinearModel())
+    entry.predict = lambda rows: calls.append(1) or entry.model.predict_np(
+        np.atleast_2d(rows))
+    again = d.predict_times("toy", {"m": 1000})
+    assert len(calls) == 2 and again != first
+    assert again == dict(zip(["v0", "v1"], entry.model.predict_np(
+        d.registry.feature_rows("toy", {"m": 1000})).tolist()))
