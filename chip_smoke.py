@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    power limit as ``nvidia-smi`` reports them.
 2. build   — compiles every hand-written kernel from ``src/repro_torch/csrc``
    (matmul, matvec, conv2d, maxpool, blur, flash_attention) with ``nvcc``,
-   one process per source, all at once, and prints the time and the
-   compiler's register and shared-memory report.
+   one process per source, all at once, and prints the time, the
+   compiler's register and spill report, and per library its kernels, the
+   most registers a thread and the spill bytes in all.
 3. kernels — each kernel at each schedule, fp32 and bf16, against its plain
    PyTorch version on the card, over the ragged shape grid of the JAX
    package's kernel tests and the workloads' shapes: matmul and matvec at
@@ -27,7 +28,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    separable, both tiles) at the workloads' planes and the JAX tests'
    ragged shapes, against their plain version exactly and the plain blur
    within 1e-5 (fp32) and 2e-2 (bf16), and the five blur host schedules
-   against the plain blur at 1e-5; the four flash-attention kernels over
+   against the plain blur at 1e-5; each blur entry and maxpool on the
+   workloads' planes 4 bytes off alignment (their staged path, maxpool
+   with a NaN), exactly; the four flash-attention kernels over
    the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
    window), at full width (``attention_block``'s q/k/v and one attention
    layer each of yi-9b and gemma3-1b at 4096 tokens, B = 1 of the train_4k
@@ -62,7 +65,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    went (decisions, calls to synchronise, the gaps between nodes) and the
    card's busy share are printed, async must equal sequential bit for bit;
    one call timed on the calling thread, on a fresh thread and on a lane
-   worker of the programs' kind (``exec.LanePool``); then the blur kernels
+   worker of the programs' kind (``exec.LanePool``); the lane contention
+   probe (``contention_probe``: a card lane's chain of dispatched 384^3
+   matmuls beside a cpu lane's 384^3 matmuls, each side alone and
+   together, under a spinning and a yielding wait and three cpu-lane
+   thread counts), and what ``torch.set_num_threads`` on a lane worker
+   changes; then the blur kernels
    (both tiles, fused and separable) on the plane each workload's blur
    node took, against that node's output, with the counters zeroed just
    before.  Every output is held against its workload's reference
@@ -78,7 +86,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    each for its faster schedule with both schedules' times; the blur
    kernels (the fused one and each separable pass, both tiles) beside
    ``F.avg_pool2d``, with the host schedules'
-   times for information; the flash-attention kernels at the three
+   times for information, and beside each blur and maxpool time the
+   device-memory rate it reached as a share of the card's peak; the
+   flash-attention kernels at the three
    attention shapes, forward and backward, beside
    ``scaled_dot_product_attention`` forward, backward (its forward+backward
    less its forward) and forward+backward, the backward's bounds on the
@@ -90,6 +100,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -248,9 +259,18 @@ def phase_build(build) -> None:
     wall = time.perf_counter() - t0
     for name, (seconds, report) in built.items():
         print(f"build: {name}.cu {seconds:.2f} s")
+        regs, spills = [], []
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+            regs += [int(r) for r in re.findall(r"Used (\d+) registers",
+                                                line)]
+            spills += [int(b) for b in re.findall(
+                r"(\d+) bytes spill stores", line)]
+        print(f"build: {name}.cu: {len(regs)} kernels, at most "
+              f"{max(regs, default=0)} "
+              f"registers a thread, {sum(spills)} bytes of spill stores in "
+              f"all, {sum(b > 0 for b in spills)} kernels spilling")
     print(f"build: {len(built)} libraries in {wall:.2f} s wall "
           f"({'all cached' if not built else 'parallel nvcc'})")
 
@@ -491,6 +511,71 @@ def _check_blur(bk, device, gen, report, worst) -> None:
               + json.dumps(errs))
 
 
+def _off4(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies 4 bytes past an aligned
+    buffer."""
+    per = 4 // t.element_size()
+    return t.new_empty(t.numel() + per)[per:].view(t.shape).copy_(t)
+
+
+def _check_windows_staged(bk, mp, device, gen, report) -> None:
+    """The window kernels' staged path: each blur entry and maxpool on a
+    workload plane whose base lies 4 bytes past an aligned buffer (the
+    v pass on such a copy of h, the maxpool plane with a NaN), both tiles,
+    fp32 and bf16, held to the plain version exactly; the wrappers'
+    geometry must have chosen the staged path, and the aligned planes the
+    vector path."""
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for m, n in WORK_BLUR:
+            a = _plane((m, n), True, device, gen).to(dtype)
+            for name, fn, plain, src in (
+                    ("blur_direct", bk.blur_direct, bk.plain, a),
+                    ("blur_h", bk.blur_h, bk.plain_h, a),
+                    ("blur_v", bk.blur_v, bk.plain_v, bk.plain_h(a))):
+                taps, (mi, ni) = bk._TAPS[name], src.shape
+                plane, es = _off4(src), src.element_size()
+                if bk.geometry(taps, mi, ni, es, 128,
+                               plane.data_ptr() & 15).load_bytes:
+                    raise RuntimeError(f"{name} {dtype} {(mi, ni)} off 4 "
+                                       "bytes: not the staged path")
+                if ni * es % 8 == 0 and not bk.geometry(
+                        taps, mi, ni, es, 128, src.data_ptr() & 15).load_bytes:
+                    raise RuntimeError(f"{name} {dtype} {(mi, ni)}: not the "
+                                       "vector path")
+                want = plain(plane)
+                for bm, bn in bk.SCHEDULES:
+                    got = fn(plane, bm=bm, bn=bn)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(
+                        got, want, rtol=0, atol=0,
+                        msg=lambda x: f"{name} tile {bm} {dtype} "
+                                      f"{(mi, ni)} off 4 bytes: {x}")
+                    key = (f"{name}_t{bm} staged", dname)
+                    report[key] = max(report.get(key, 0.0), (
+                        got.float() - want.float()).abs().max().item())
+        for m, n, r, s in WORK_MP:
+            a = _plane((m, n), True, device, gen).to(dtype)
+            a[m // 3, n // 5] = float("nan")
+            plane = _off4(a)
+            if mp.geometry(m, n, r, s, plane.element_size(), 32,
+                           plane.data_ptr() & 15).load_bytes:
+                raise RuntimeError(f"maxpool {(m, n)} off 4 bytes: not the "
+                                   "staged path")
+            want = mp.plain(plane, r=r, s=s)
+            for bm, bn in mp.SCHEDULES:
+                got = mp.maxpool(plane, r=r, s=s, bm=bm, bn=bn)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, want, rtol=0, atol=0, equal_nan=True,
+                    msg=lambda x: f"maxpool tile {bm} {dtype} {(m, n)} off "
+                                  f"4 bytes: {x}")
+                key = (f"maxpool_t{bm} staged", dname)
+                report[key] = max(report.get(key, 0.0), (
+                    got.float() - want.float()).nan_to_num().abs().max()
+                    .item())
+
+
 def _fa_inputs(b, h, kv, s, d, dtype, device, gen) -> tuple:
     """q, k scaled by 0.5 and v, do standard normal, as the JAX
     flash-attention tests draw them."""
@@ -591,6 +676,7 @@ def phase_kernels(K, device) -> dict:
     _check_mm_mv(K["matmul"], K["matvec"], device, gen, report, worst)
     _check_conv_pool(K["conv2d"], K["maxpool"], device, gen, report, worst)
     _check_blur(K["blur"], device, gen, report, worst)
+    _check_windows_staged(K["blur"], K["maxpool"], device, gen, report)
     _check_flash_attention(K["flash_attention"], device, gen, report, worst)
     print("kernels: " + json.dumps(
         {f"{k}/{d}": e for (k, d), e in sorted(report.items())}))
@@ -962,6 +1048,139 @@ def _thread_cost(device) -> None:
           + f"; the python loop on the calling thread {here * 1e6:.1f} us")
 
 
+CONTENTION_CHAIN = 100    # dispatched card matmuls in one timed chain
+CONTENTION_HOST = 10      # host matmuls in one timed run
+CONTENTION_ROUNDS = 5     # rounds per measurement; the median is printed
+
+
+def _lane_threads(threads: int) -> dict:
+    """What ``torch.set_num_threads(threads)`` on a lane worker changes:
+    the worker's own count, the calling thread's, and a thread started
+    after it (which takes the process default)."""
+    import threading
+
+    from repro_torch.exec import LanePool
+
+    default = torch.get_num_threads()
+    pool = LanePool(init=lambda lane: torch.set_num_threads(threads))
+    pool.reserve([("cpu", 0)])
+    box = []
+    job = pool.submit(("cpu", 0), lambda: box.append(torch.get_num_threads()))
+    job.done.wait()
+    pool.close()
+    fresh = []
+    t = threading.Thread(target=lambda: fresh.append(torch.get_num_threads()))
+    t.start()
+    t.join()
+    torch.set_num_threads(default)     # the process default back
+    return {"worker": box[0], "caller": torch.get_num_threads(),
+            "later thread": fresh[0], "default": default}
+
+
+def contention_probe(card, host, device) -> dict:
+    """Fault 1's fixed probe, independent of placement: a ``LanePool`` with
+    a ``cuda:0`` lane and a ``cpu`` lane; the cpu lane runs 384^3 fp32
+    matmuls through the host dispatcher ``host`` (mixed_dag's products)
+    while the card lane runs a chain of 384^3 card matmuls dispatched
+    through ``card``, each followed by the dispatcher's synchronise; each
+    side also alone.  Under each wait on the card lane (the spinning
+    ``torch.cuda.synchronize``, a yielding blocking event) and each
+    intra-op thread count of the cpu lane's worker (the default, 2 fewer,
+    half).  The yielding wait replaces the dispatcher's ``synchronize`` for
+    the probe alone.  Returns (wait, threads) -> microseconds per op, the
+    median of CONTENTION_ROUNDS rounds: card alone, card beside the host,
+    host alone, host beside the card."""
+    from repro_torch.api.compile_ import _bind_lane_device
+    from repro_torch.exec import LanePool
+
+    dispatch = sys.modules["repro_torch.runtime.dispatch"]
+    spin = dispatch.synchronize
+
+    def yielding(out):
+        """The dispatcher's wait with the core given up: a blocking event
+        on the output's stream."""
+        if isinstance(out, torch.Tensor) and out.is_cuda:
+            done = torch.cuda.Event(blocking=True)
+            done.record(torch.cuda.current_stream(out.device))
+            done.synchronize()
+        return out
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    a, b = (torch.rand(384, 384, generator=gen, device=device) - 0.5
+            for _ in range(2))
+    ha, hb = a.cpu(), b.cpu()
+    card.dispatch("matmul", a, b)
+    host.dispatch("matmul", ha, hb)
+
+    def per_op(fn, reps) -> float:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    def chain():
+        return per_op(lambda: card.dispatch("matmul", a, b),
+                      CONTENTION_CHAIN)
+
+    def host_mm():
+        return per_op(lambda: host.dispatch("matmul", ha, hb),
+                      CONTENTION_HOST)
+
+    def run(pool, slots, jobs) -> dict:
+        """Each job on its lane's worker, all at once; job -> its result."""
+        boxes = {k: [] for k in jobs}
+        handles = [pool.submit(slots[k], lambda k=k, f=f:
+                               boxes[k].append(f()))
+                   for k, f in jobs.items()]
+        for h in handles:
+            h.done.wait()
+            if h.error is not None:
+                raise h.error
+        return {k: v[0] for k, v in boxes.items()}
+
+    default = torch.get_num_threads()
+    slots = {"card": (str(device), 0), "host": ("cpu", 0)}
+    results = {}
+    for wait in ("spin", "yield"):
+        for threads in sorted({default, max(1, default - 2),
+                               max(1, default // 2)}, reverse=True):
+            def init(lane, _t=threads):
+                _bind_lane_device(lane)
+                if lane == "cpu":
+                    torch.set_num_threads(_t)
+            pool = LanePool(init=init)
+            dispatch.synchronize = yielding if wait == "yield" else spin
+            try:
+                pool.reserve(slots.values())
+                rounds = []
+                for _ in range(CONTENTION_ROUNDS):
+                    alone = {**run(pool, slots, {"card": chain}),
+                             **run(pool, slots, {"host": host_mm})}
+                    both = run(pool, slots, {"card": chain, "host": host_mm})
+                    rounds.append((alone["card"], both["card"],
+                                   alone["host"], both["host"]))
+            finally:
+                dispatch.synchronize = spin
+                pool.close()
+                torch.set_num_threads(default)   # the process default back
+            results[(wait, threads)] = tuple(
+                sorted(r[i] for r in rounds)[len(rounds) // 2]
+                for i in range(4))
+    return results
+
+
+def _print_contention(card, host, device) -> None:
+    print("main: slice 4 intra-op threads set on a lane worker: "
+          + json.dumps(_lane_threads(2)))
+    results = contention_probe(card, host, device)
+    for (wait, threads), (ca, cb, ha, hb) in results.items():
+        print(f"main: slice 4 lane contention probe, card lane {wait}, cpu "
+              f"lane {threads} threads: card 384^3 dispatch alone {ca:.1f} "
+              f"us, beside the host matmul {cb:.1f} us ({cb / ca:.2f}x); "
+              f"host 384^3 matmul alone {ha:.1f} us, beside the card chain "
+              f"{hb:.1f} us ({hb / ha:.2f}x)")
+
+
 def _slice4(K, device, root, fp) -> tuple:
     """The exec path over the card and the host.  Returns path label ->
     launch counts, for the compiled runs and for the blur kernels on their
@@ -997,6 +1216,9 @@ def _slice4(K, device, root, fp) -> tuple:
     print(f"main: slice 4 cudnn_fp32 block entered and left in "
           f"{_cudnn_lock_us():.3f} us with no other holder")
     _thread_cost(device)
+    _print_contention(disps["cuda:0"], disps["cpu"], device)
+    for disp in disps.values():          # the probe's dispatches
+        disp.reset_stats()
     work = {}
     for name in EXEC_WORKLOADS:
         built = get_workload(name).build("large", registry=disps["cpu"]
@@ -1198,6 +1420,21 @@ def _measure(label, fns, sets, flops, nbytes, card,
             "bound_by": bound_by, "nbytes": nbytes}
 
 
+def _bandwidth(label, res, card) -> dict:
+    """Print the device-memory rate each timed function achieved: the
+    bytes the work must move (each input read once, each output written
+    once) over its device time, and that as a share of the card's peak
+    rate.  Returns function -> share."""
+    peak = card_peaks(card)[2]
+    rates = {name: res["nbytes"] / (ms * 1e-3)
+             for name, ms in res["device_ms"].items() if ms}
+    print(f"times: {label}: achieved by device time " + ", ".join(
+        f"{name} {rate / 1e12:.2f} TB/s ({100 * rate / peak:.1f}%)"
+        for name, rate in rates.items())
+        + f" of {peak / 1e12:.2f} TB/s; {card}")
+    return {name: rate / peak for name, rate in rates.items()}
+
+
 def _record(name, schedule, shape, res, worst, by_path) -> dict:
     """One kernel's record; ``launches`` sums the paths' runs, and
     ``launches_by_path`` gives each path's own count."""
@@ -1274,12 +1511,17 @@ def _times_conv_pool(mc, mp, device, gen, card, worst, by_path) -> list:
                    a, r=r, s=s, bm=_b, bn=_b)) for bm, _ in mp.SCHEDULES}
         fns.update(plain=lambda a: mp.plain(a, r=r, s=s),
                    library=lambda a: F.max_pool2d(a[None, None], r, s)[0, 0])
-        res = _measure(f"maxpool fp32 [{m},{n}] r={r} s={s}", fns,
+        label = f"maxpool fp32 [{m},{n}] r={r} s={s}"
+        res = _measure(label, fns,
                        _operand_sets([(m, n)], nbytes, device, gen),
                        float(om * on * r * r), nbytes, card)
+        shares = _bandwidth(label, res, card)
         if idx == 0:
-            records.append(_record("maxpool", "pallas_32", (m, n, r, s), res,
-                                   worst, by_path))
+            rec = _record("maxpool", "pallas_32", (m, n, r, s), res, worst,
+                          by_path)
+            rec["bandwidth_share"] = shares.get("pallas_32")
+            rec["geometry"] = mp.geometry(m, n, r, s, 4, 32)._asdict()
+            records.append(rec)
     return records
 
 
@@ -1325,16 +1567,28 @@ def _times_blur(bk, device, gen, card, worst, by_path) -> list:
                      h[None, None], (3, 1), stride=1)[0, 0]},
                 [(bk.blur_h(a),) for (a,) in sets], 3.0 * om * on,
                 4 * (m * on + om * on), card)}
+        shares = {"t128 direct": _bandwidth(f"blur fp32 [{m},{n}]", whole,
+                                            card).get("t128 direct")}
+        for name, res in passes.items():
+            shares[name] = _bandwidth(f"blur pass {name[-1]} fp32 [{m},{n}]",
+                                      res, card).get(name)
         t = _best(ops.HOST_SCHEDULES, sets)
         print(f"times: blur host schedules fp32 [{m},{n}] (TF32 as PyTorch "
               f"sets it): " + ", ".join(f"{v} {ms * 1e3:.1f} us"
                                         for v, ms in t.items()))
         if idx == 0:
-            records.append(_record("blur_direct", "t128 direct", (m, n),
-                                   whole, worst, by_path))
+            rec = _record("blur_direct", "t128 direct", (m, n), whole, worst,
+                          by_path)
+            rec["bandwidth_share"] = shares["t128 direct"]
+            rec["geometry"] = bk.geometry((3, 3), m, n, 4, 128)._asdict()
+            records.append(rec)
             for name, res in passes.items():
                 rec = _record(name, name, (m, n), res, worst, by_path)
                 rec["schedule"] = "t128"
+                rec["bandwidth_share"] = shares[name]
+                rec["geometry"] = bk.geometry(
+                    bk._TAPS[name], m, n if name == "blur_h" else on, 4,
+                    128)._asdict()
                 records.append(rec)
     return records
 

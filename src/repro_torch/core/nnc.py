@@ -217,16 +217,12 @@ class MLPModel:
                              dtype=torch.float32)
         ys = torch.as_tensor((y - self.y_mean) / self.y_std,
                              dtype=torch.float32)
-        # the tensors are a few hundred elements: intra-op threads cost more
-        # than they save, so the fit runs on one (restored afterwards)
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            with torch.inference_mode():
-                ws, bs, loss = self._train(starts, Xs, ys)
-        finally:
-            torch.set_num_threads(threads)
+        # the fit keeps the intra-op thread count it finds: the count is
+        # the process default that threads take at their first parallel
+        # operation, so setting it here, even on a thread of the fit's
+        # own, could leave another lane's thread on one (PERF.md, fault 1)
         with torch.inference_mode():
+            ws, bs, loss = self._train(starts, Xs, ys)
             # restart selection by a held-out validation slice of the TRAIN
             # set: tiny nets land in minima with equal train loss but very
             # different generalisation

@@ -86,6 +86,66 @@ class Entry:
         return build.load(self.library, {self.name: self.argtypes})
 
 
+class Window(NamedTuple):
+    """Launch geometry of a window kernel (blur, maxpool;
+    ``csrc/window.cuh``).  ``load_bytes`` 16 or 8 takes the vector path,
+    where a thread owns one load packet of columns and walks ``rows`` output
+    rows, and blocks are one row of ``threads`` threads; 0 takes the staged
+    path, one block per output tile (``threads``, ``rows`` and
+    ``store_bytes`` 0)."""
+    load_bytes: int
+    store_bytes: int
+    threads: int
+    rows: int
+    blocks: int
+
+    def config(self, dtype: int, tile: int) -> int:
+        """The packed launch configuration the C entries decode
+        (``repro::Config``), less the device index, which the caller ors in
+        at bit 48."""
+        return (dtype | self.load_bytes << 8 | self.store_bytes << 16
+                | self.rows << 24 | (self.threads // 32) << 32 | tile << 40)
+
+
+# blocks a window kernel's vector path launches at least, where the plane
+# allows: several for each of an H100's 132 SMs
+FILL_BLOCKS = 4 * 132
+
+
+def packet_bytes(ptr: int, row_bytes: int) -> int:
+    """The widest load packet, 16 or 8 bytes, on which a plane at address
+    ``ptr`` with rows of ``row_bytes`` starts every row; 0 when neither
+    fits."""
+    for size in (16, 8):
+        if not (ptr | row_bytes) & (size - 1):
+            return size
+    return 0
+
+
+def store_bytes(ptr: int, row_bytes: int, most: int) -> int:
+    """The widest power-of-two store packet, at most ``most`` bytes, on
+    which every output row at ``ptr`` starts; 4-byte words at least, else 1
+    (one element at a time)."""
+    size = most
+    while size >= 4:
+        if not (ptr | row_bytes) & (size - 1):
+            return size
+        size //= 2
+    return 1
+
+
+def strips(out_rows: int, groups: int, threads: int, rows: int) -> tuple:
+    """(threads, rows, blocks) of a vector-path launch whose thread groups
+    (one packet each) span ``groups`` a row over ``out_rows`` output rows:
+    blocks at most ``threads`` wide, a thread walking at most ``rows`` rows,
+    halved (down to 1) until the grid reaches FILL_BLOCKS."""
+    threads = min(threads, -(-groups // 32) * 32)
+    across = -(-groups // threads)
+    while rows > 1 and across * -(-out_rows // rows) < FILL_BLOCKS:
+        rows //= 2
+    return threads, rows, across * -(-out_rows // rows)
+
+
 def device_guard(tensor: torch.Tensor):
     """Context that makes ``tensor``'s card the current device for a
     launch; a no-op when it already is (the common case, kept cheap)."""

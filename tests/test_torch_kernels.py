@@ -881,6 +881,186 @@ def test_build_is_content_keyed_and_failures_raise(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
+# --------------------------------------------------------------------------
+# the window kernels (blur, maxpool): the workloads' planes, the launch
+# geometry the wrappers choose, and the lean launch path
+# --------------------------------------------------------------------------
+
+WORK_BLUR = [(1024, 1024), (384, 384)]          # image_pipeline, mixed_dag
+WORK_POOL = [(1020, 1020), (384, 384)]          # the same, at r = s = 2
+
+
+@pytest.mark.parametrize("m,n", WORK_BLUR)
+@pytest.mark.parametrize("separable", [False, True])
+def test_blur_wrappers_match_jax_at_the_workload_planes(m, n, separable):
+    """The blur wrappers on CPU tensors at the workloads' planes, drawn as
+    the workloads draw them: against the JAX oracle and the JAX op's plain
+    path within 1e-5, and each pass against the Pallas bodies bit for
+    bit."""
+    rng = np.random.RandomState(m + separable)
+    x = (rng.rand(m, n) - 0.5).astype(np.float32)
+    ja, ta = jnp.asarray(x), torch.from_numpy(x)
+    out = bl_kernel.blur(ta, separable=separable)
+    assert tuple(out.shape) == (m - 2, n - 2)
+    for want in (jbl_ref.blur(ja), jbl_ops.blur(ja, use_kernel=False)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(_pallas_blur_bodies(ja, separable)))
+    if separable:
+        h = bl_kernel.blur_h(ta, bm=16, bn=16)
+        on = n - 2
+        jh = ((ja[:, 0:on] + ja[:, 1:on + 1] + ja[:, 2:on + 2])
+              * (1.0 / 3.0))
+        np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+        assert torch.equal(bl_kernel.blur_v(h, bm=16, bn=16), out)
+
+
+@pytest.mark.parametrize("m,n", WORK_POOL)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_wrapper_equals_jax_at_the_workload_planes(m, n, dtype):
+    rng = np.random.RandomState(m)
+    ja, ta = _pair(rng, (m, n), dtype)
+    want = np.float32(jmp_ref.maxpool(ja, r=2, s=2))
+    np.testing.assert_array_equal(
+        np.float32(jmp_ops.maxpool(ja, r=2, s=2, use_kernel=False)), want)
+    for bm, bn in mp_kernel.SCHEDULES:
+        out = mp_kernel.maxpool(ta, r=2, s=2, bm=bm, bn=bn)
+        assert tuple(out.shape) == (m // 2, n // 2)
+        np.testing.assert_array_equal(out.float().numpy(), want)
+
+
+# (taps, input plane) of each blur entry at the workloads' planes: the v
+# pass reads the h pass's [m, n-2]
+BLUR_PASSES = {"blur_direct": (3, 3), "blur_h": (1, 3), "blur_v": (3, 1)}
+
+
+def _blur_inputs():
+    for m, n in WORK_BLUR:
+        for name, taps in BLUR_PASSES.items():
+            yield name, taps, (m, n - 2) if name == "blur_v" else (m, n)
+
+
+@pytest.mark.parametrize("tile,pool_tile", [(128, 32), (16, 8)])
+def test_window_geometry_fills_the_card_on_the_vector_path(tile, pool_tile):
+    """fp32 at every workload plane, through allocator-aligned buffers:
+    the vector path, 16-byte loads where the input rows allow them (8 for
+    the v pass over h's 4,088-byte rows), stores as wide as the output rows
+    lie (h's rows take 8 bytes), and at least the FILL_BLOCKS of the rule
+    (several blocks for each of an H100's 132 SMs)."""
+    from repro_torch.kernels import FILL_BLOCKS, Window
+
+    assert FILL_BLOCKS >= 132
+    for name, taps, (m, n) in _blur_inputs():
+        geo = bl_kernel.geometry(taps, m, n, 4, tile)
+        on = n - taps[1] + 1
+        assert geo.load_bytes == (16 if n % 4 == 0 else 8), (name, m, n)
+        assert geo.store_bytes == (16 if on % 4 == 0 else 8), (name, m, n)
+        # strips shortened until the grid fills the card, or to one row
+        assert geo.blocks >= 132, (name, m, n, geo)
+        assert geo.blocks >= FILL_BLOCKS or geo.rows == 1, (name, m, n, geo)
+        assert (geo.threads, geo.rows) <= bl_kernel.VECTOR[tile]
+    for m, n in WORK_POOL:
+        geo = mp_kernel.geometry(m, n, 2, 2, 4, pool_tile)
+        assert (geo.load_bytes, geo.store_bytes) == (16, 8)
+        assert geo.blocks >= 132, (m, n, geo)
+        assert geo.blocks >= FILL_BLOCKS or geo.rows == 1, (m, n, geo)
+    # the two tiles stay two schedules: at the image plane they launch
+    # differently shaped blocks
+    assert bl_kernel.geometry((3, 3), 1024, 1024, 4, 128) != \
+        bl_kernel.geometry((3, 3), 1024, 1024, 4, 16)
+    assert mp_kernel.geometry(1020, 1020, 2, 2, 4, 32) != \
+        mp_kernel.geometry(1020, 1020, 2, 2, 4, 8)
+    assert Window(16, 8, 128, 2, 0).config(1, 128) == \
+        1 | 16 << 8 | 8 << 16 | 2 << 24 | 4 << 32 | 128 << 40
+
+
+@pytest.mark.parametrize("kernel", ["blur", "maxpool"])
+def test_window_geometry_takes_the_staged_path_off_alignment(kernel):
+    """A base 4 bytes off 16 (``a_low = 4``), rows whose width is off 8
+    bytes, and for maxpool every window but r = s = 2, take the staged
+    path: one block per output tile, as before."""
+    if kernel == "blur":
+        for taps in BLUR_PASSES.values():
+            assert bl_kernel.geometry(taps, 1024, 1024, 4, 128,
+                                      a_low=4).load_bytes == 0
+            assert bl_kernel.geometry(taps, 51, 201, 4, 16).load_bytes == 0
+            # bf16 rows of 1,022 elements lie on 4 bytes only
+            assert bl_kernel.geometry(taps, 64, 1022, 2, 16).load_bytes == 0
+        staged = bl_kernel.geometry((3, 3), 1024, 1024, 4, 128, a_low=4)
+        assert staged.blocks == 8 * 8
+        # a misaligned output alone narrows the stores, not the path
+        geo = bl_kernel.geometry((3, 3), 1024, 1024, 4, 128, out_low=4)
+        assert (geo.load_bytes, geo.store_bytes) == (16, 4)
+    else:
+        for m, n, r, s in [(100, 90, 3, 2), (65, 43, 5, 1), (32, 32, 4, 2)]:
+            for tile in (32, 8):
+                geo = mp_kernel.geometry(m, n, r, s, 4, tile)
+                om, on = (m - r) // s + 1, (n - r) // s + 1
+                assert geo.load_bytes == 0
+                assert geo.blocks == -(-om // tile) * -(-on // tile)
+        assert mp_kernel.geometry(1020, 1020, 2, 2, 4, 32,
+                                  a_low=4).load_bytes == 0
+        assert mp_kernel.geometry(101, 90, 2, 2, 4, 32).load_bytes == 8
+        assert mp_kernel.geometry(64, 1022, 2, 2, 2, 32).load_bytes == 0
+
+
+def test_window_config_agrees_with_the_cuda_source():
+    """``Window.config``'s byte fields are the ones ``repro::Config``
+    (csrc/window.cuh) decodes, and the rows the wrappers ask for are the
+    ones ``with_rows`` compiles."""
+    import re
+    from repro_torch.kernels import Window
+
+    src = (build.CSRC / "window.cuh").read_text()
+    body = re.search(r"struct Config \{(.*?)\};", src, re.S).group(1)
+    shifts = {name: int(shift or 0) for name, shift in re.findall(
+        r"(\w+)\(\s*(?:32 \* )?static_cast<int>\(\(?c(?: >> (\d+)\))?", body)}
+    assert shifts == {"dtype": 0, "load_bytes": 8, "store_bytes": 16,
+                      "rows": 24, "threads": 32, "tile": 40, "device": 48}
+    cfg = Window(8, 4, 64, 2, 0).config(1, 16) | 3 << 48
+    assert [cfg >> shifts[k] & 0xff for k in shifts] == [1, 8, 4, 2, 2, 16,
+                                                         3]
+    compiled = {int(r) for r in re.findall(r"case (\d+): return launch", src)}
+    for table in (bl_kernel.VECTOR, mp_kernel.VECTOR):
+        for threads, rows in table.values():
+            assert rows in compiled and threads % 32 == 0 and threads <= 256
+
+
+def test_lean_window_launch_path_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors the blur and maxpool wrappers return their plain
+    versions and launch, build and bind nothing; a tensor on another
+    device is refused as the backend rule refuses it."""
+    rng = np.random.RandomState(5)
+    a = torch.from_numpy(rng.randn(40, 36).astype(np.float32))
+    before = (dict(bl_kernel.LAUNCHES), mp_kernel.LAUNCHES,
+              mp_kernel._ENTRY.fn,
+              {k: e.fn for k, e in bl_kernel._ENTRIES.items()})
+    for bm, bn in bl_kernel.SCHEDULES:
+        assert torch.equal(bl_kernel.blur_direct(a, bm=bm, bn=bn),
+                           bl_kernel.plain(a))
+        assert torch.equal(bl_kernel.blur_h(a, bm=bm, bn=bn),
+                           bl_kernel.plain_h(a))
+        assert torch.equal(bl_kernel.blur_v(a, bm=bm, bn=bn),
+                           bl_kernel.plain_v(a))
+    for bm, bn in mp_kernel.SCHEDULES:
+        assert torch.equal(mp_kernel.maxpool(a, r=2, s=2, bm=bm, bn=bn),
+                           mp_kernel.plain(a, r=2, s=2))
+    assert (dict(bl_kernel.LAUNCHES), mp_kernel.LAUNCHES,
+            mp_kernel._ENTRY.fn,
+            {k: e.fn for k, e in bl_kernel._ENTRIES.items()}) == before
+    meta = torch.zeros(40, 36, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        bl_kernel.blur(meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        mp_kernel.maxpool(meta, r=2, s=2)
+    # the refusals come before the device is looked at
+    with pytest.raises(ValueError, match="no blur kernel for tile"):
+        bl_kernel.blur_h(meta, bm=64, bn=64)
+    with pytest.raises(ValueError, match="maxpool needs a"):
+        mp_kernel.maxpool(torch.zeros(4, device="meta"), r=2, s=2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain_versions(dtype):
@@ -1053,3 +1233,72 @@ def test_cuda_blur_kernels_match_plain(dtype):
     n = len(shapes) * len(bl_kernel.SCHEDULES)
     assert {e: bl_kernel.LAUNCHES[e] - before[e] for e in before} == \
         {"blur_direct": n, "blur_h": n, "blur_v": n}
+
+
+def _off4(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose base lies 4 bytes past an aligned
+    buffer."""
+    per = 4 // t.element_size()
+    return t.new_empty(t.numel() + per)[per:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_window_kernels_match_plain_on_both_paths(dtype):
+    """On a card: each blur entry and maxpool, both tiles, equal their
+    plain versions bit for bit on the vector path (the workloads' planes,
+    the JAX tests' ragged shapes) and on the staged path (the same planes
+    4 bytes off alignment, an odd width, maxpool's other windows), a NaN
+    planted in every maxpool plane; the geometry takes the path the
+    alignment allows, and each entry point counts its launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    td = DTYPES[dtype][1]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    before = (dict(bl_kernel.LAUNCHES), mp_kernel.LAUNCHES)
+    passes = {"blur_direct": (bl_kernel.blur_direct, bl_kernel.plain),
+              "blur_h": (bl_kernel.blur_h, bl_kernel.plain_h),
+              "blur_v": (bl_kernel.blur_v, bl_kernel.plain_v)}
+    paths = set()
+    calls = 0
+    for m, n in [(1024, 1024), (384, 384), (1024, 1022), (66, 66),
+                 (51, 201)]:
+        a = torch.randn(m, n, generator=gen, device="cuda").to(td)
+        for plane in (a, _off4(a)):
+            for name, (fn, plain) in passes.items():
+                want = plain(plane)
+                for bm, bn in bl_kernel.SCHEDULES:
+                    geo = bl_kernel.geometry(
+                        BLUR_PASSES[name], m, n, plane.element_size(), bm,
+                        plane.data_ptr() & 15)
+                    vector = plane.data_ptr() % 8 == 0 and \
+                        n * plane.element_size() % 8 == 0
+                    assert (geo.load_bytes > 0) == vector
+                    paths.add(vector)
+                    got = fn(plane, bm=bm, bn=bn)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, rtol=0, atol=0)
+                    calls += 1
+    assert paths == {True, False}
+    n_each = calls // len(passes)
+    assert {e: bl_kernel.LAUNCHES[e] - before[0][e] for e in passes} == \
+        dict.fromkeys(passes, n_each)
+    calls = 0
+    for m, n, r, s in [(1020, 1020, 2, 2), (384, 384, 2, 2), (101, 90, 2, 2),
+                       (100, 90, 3, 2), (65, 43, 5, 1), (32, 32, 4, 2)]:
+        a = torch.randn(m, n, generator=gen, device="cuda").to(td)
+        a[m // 2, n // 3] = float("nan")
+        for plane in (a, _off4(a)):
+            want = mp_kernel.plain(plane, r=r, s=s)
+            for bm, bn in mp_kernel.SCHEDULES:
+                geo = mp_kernel.geometry(m, n, r, s, plane.element_size(), bm,
+                                         plane.data_ptr() & 15)
+                assert (geo.load_bytes > 0) == (
+                    r == s == 2 and plane.data_ptr() % 8 == 0
+                    and n * plane.element_size() % 8 == 0)
+                got = mp_kernel.maxpool(plane, r=r, s=s, bm=bm, bn=bn)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True)
+                calls += 1
+    assert mp_kernel.LAUNCHES == before[1] + calls

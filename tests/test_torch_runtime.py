@@ -89,6 +89,57 @@ def test_port_fit_reaches_reference_mape():
                                rtol=1e-5)
 
 
+def test_concurrent_fits_leave_every_threads_count_alone(monkeypatch):
+    """Two threads fit models at once, and no fit sets an intra-op thread
+    count: ``torch.set_num_threads`` also sets the process default that a
+    thread takes at its first parallel operation, so a fit that set it,
+    even on a thread of its own, could hand one thread to a lane's thread
+    starting meanwhile.  The calling threads, a thread started while the
+    fits train and one started after them keep the process default; the
+    fits equal a fit run alone, bit for bit."""
+    import threading
+
+    default = torch.get_num_threads()
+    X, y = _fit_xy()
+    alone = nnc.MLPModel([3, 8, 1], epochs=150, seed=4).fit(X, y)
+    train = nnc.MLPModel._train
+    sets, started, callers = [], [], []
+
+    def spy(self, *args):
+        box = []
+        t = threading.Thread(target=lambda: box.append(
+            torch.get_num_threads()))
+        t.start()
+        t.join()
+        started.append(box[0])
+        return train(self, *args)
+
+    monkeypatch.setattr(nnc.MLPModel, "_train", spy)
+    monkeypatch.setattr(torch, "set_num_threads", sets.append)
+    models = [nnc.MLPModel([3, 8, 1], epochs=150, seed=4) for _ in range(2)]
+
+    def fit(model):
+        model.fit(X, y)
+        callers.append(torch.get_num_threads())
+
+    threads = [threading.Thread(target=fit, args=(m,)) for m in models]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    after = []
+    t = threading.Thread(target=lambda: after.append(torch.get_num_threads()))
+    t.start()
+    t.join()
+    assert sets == []
+    assert started == [default, default]
+    assert callers == [default, default]
+    assert torch.get_num_threads() == default and after == [default]
+    for model in models:
+        assert all(np.array_equal(wa, wb) and np.array_equal(ba, bb)
+                   for (wa, ba), (wb, bb) in zip(model.params, alone.params))
+
+
 def test_fit_is_deterministic_and_warm_start_resumes():
     X, y = _fit_xy()
     a = nnc.MLPModel([3, 8, 1], epochs=200, seed=3).fit(X, y)
