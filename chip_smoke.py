@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit) on error:
 2. build   — compiles every hand-written kernel from ``src/repro_torch/csrc``
    (matmul, matvec, conv2d, maxpool, blur, flash_attention) with ``nvcc``,
    one process per source, all at once, and prints the time, the
-   compiler's register and spill report, and per library its kernels, the
-   most registers a thread and the spill bytes in all.
+   compiler's register and spill report, per library its kernels, the
+   most registers a thread and the spill bytes in all, and by name the
+   registers and spills of conv2d's vector-path kernels and the
+   flash-attention forward kernels.
 3. kernels — each kernel at each schedule, fp32 and bf16, against its plain
    PyTorch version on the card, over the ragged shape grid of the JAX
    package's kernel tests and the workloads' shapes: matmul and matvec at
@@ -24,7 +26,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    (k or n off 16 bytes, a base pointer off 16 bytes), with the cluster
    size ``split_k`` gives each main-path product printed; each matvec
    launched twice and held equal bit for bit; conv2d and maxpool
-   exactly (a maxpool NaN case included); the blur kernels (fused and
+   exactly (a maxpool NaN case included), conv2d on both of its paths
+   (the vector path at r = 3, 5, 7 on the workload plane and on a
+   [1024,1024] one, the staged path on copies 4 bytes off alignment); the
+   blur kernels (fused and
    separable, both tiles) at the workloads' planes and the JAX tests'
    ragged shapes, against their plain version exactly and the plain blur
    within 1e-5 (fp32) and 2e-2 (bf16), and the five blur host schedules
@@ -37,8 +42,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    shape's global batch of 256) and at two shapes whose backward tiles are
    wholly visible (D = 128) or end in a sk_orig tail (D = 256), at 1e-4
    (fp32) and 3e-2 (bf16), gradients relative to their largest magnitude
-   above 1, each backward kernel launched twice and held equal bit for
-   bit.
+   above 1, each kernel launched twice and held equal bit for bit.
 4. main path — four paths, each over fresh tuning caches (the card's
    fingerprint, and the host's for slice 4) and its own dispatchers over
    the port's registry, the launch counters zeroed just before each and
@@ -86,13 +90,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    each for its faster schedule with both schedules' times; the blur
    kernels (the fused one and each separable pass, both tiles) beside
    ``F.avg_pool2d``, with the host schedules'
-   times for information, and beside each blur and maxpool time the
-   device-memory rate it reached as a share of the card's peak; the
+   times for information, and beside each blur, maxpool and conv2d time
+   the device-memory rate it reached as a share of the card's peak; the
    flash-attention kernels at the three
    attention shapes, forward and backward, beside
    ``scaled_dot_product_attention`` forward, backward (its forward+backward
-   less its forward) and forward+backward, the backward's bounds on the
-   tensor cores (3xTF32) with the fp32 FMA bound beside them.
+   less its forward) and forward+backward, their bounds on the tensor
+   cores (3xTF32) with the fp32 FMA bound beside them.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -253,20 +257,42 @@ def card_peaks(name: str) -> tuple:
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
+# kernels whose registers and spills the build lines give by name
+NAMED_KERNELS = ("conv_vec_kernel", "fa_fwd_kernel")
+
+
+def _demangle(names: list) -> list:
+    """The names as ``c++filt`` gives them, or as they are without it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     built = build.build()
     wall = time.perf_counter() - t0
     for name, (seconds, report) in built.items():
         print(f"build: {name}.cu {seconds:.2f} s")
-        regs, spills = [], []
+        regs, spills, named = [], [], {}
+        kernel = None
         for line in report.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = entry.group(1)
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+                if kernel and any(k in kernel for k in NAMED_KERNELS):
+                    named.setdefault(kernel, []).append(line.strip())
             regs += [int(r) for r in re.findall(r"Used (\d+) registers",
                                                 line)]
             spills += [int(b) for b in re.findall(
                 r"(\d+) bytes spill stores", line)]
+        for readable, lines in zip(_demangle(list(named)), named.values()):
+            print(f"build: {name}.cu {readable}: " + "; ".join(lines))
         print(f"build: {name}.cu: {len(regs)} kernels, at most "
               f"{max(regs, default=0)} "
               f"registers a thread, {sum(spills)} bytes of spill stores in "
@@ -576,6 +602,49 @@ def _check_windows_staged(bk, mp, device, gen, report) -> None:
                     .item())
 
 
+def _check_conv_paths(mc, device, gen, report) -> None:
+    """conv2d on both of its paths: the workload plane and a [1024,1024]
+    one (whose bf16 rows take the vector path, where the workload's
+    2,044-byte bf16 rows do not), each aligned and 4 bytes past an aligned
+    buffer (``_off4``, the staged path), at every compiled tap count r = 3,
+    5, 7, both tiles, fp32 and bf16, held to the plain version bit for bit;
+    the wrapper's geometry must have chosen the path the alignment
+    allows, and both paths must have run."""
+    paths = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for m, n, _ in WORK_MC + [(1024, 1024, 3)]:
+            a = _plane((m, n), True, device, gen).to(dtype)
+            for r in mc.VECTOR_TAPS:
+                w = _plane((r, r), True, device, gen).to(dtype)
+                for plane, off in ((a, False), (_off4(a), True)):
+                    es = plane.element_size()
+                    vector = not off and n * es % 8 == 0
+                    want = mc.plain(plane, w)
+                    for bm, bn in mc.SCHEDULES:
+                        geo = mc.geometry(m, n, r, es, bm,
+                                          plane.data_ptr() & 15)
+                        if (geo.load_bytes > 0) != vector:
+                            raise RuntimeError(
+                                f"conv2d {dtype} {(m, n, r)} off 4 bytes="
+                                f"{off}: geometry {geo} is not the "
+                                f"{'vector' if vector else 'staged'} path")
+                        got = mc.conv2d(plane, w, bm=bm, bn=bn)
+                        torch.cuda.synchronize()
+                        torch.testing.assert_close(
+                            got, want, rtol=0, atol=0,
+                            msg=lambda x: f"conv2d tile {bm} {dtype} "
+                                          f"{(m, n, r)} off 4 bytes={off}: "
+                                          f"{x}")
+                        path = "vector" if vector else "staged"
+                        paths.add(path)
+                        key = (f"conv2d_t{bm} {path}", dname)
+                        report[key] = max(report.get(key, 0.0), (
+                            got.float() - want.float()).abs().max().item())
+    if paths != {"vector", "staged"}:
+        raise RuntimeError(f"conv2d ran only its {paths} path")
+
+
 def _fa_inputs(b, h, kv, s, d, dtype, device, gen) -> tuple:
     """q, k scaled by 0.5 and v, do standard normal, as the JAX
     flash-attention tests draw them."""
@@ -594,6 +663,11 @@ def _fa_case(fa, q, k, v, do, kw, tol) -> dict:
     want_o, want_lse = fa.plain_fwd(q, k, v, **pkw)
     out = fa.flash_attention(q, k, v, **kw)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    if not (torch.equal(fa.flash_attention(q, k, v, **kw), out)
+            and torch.equal(o2, o) and torch.equal(lse2, lse)):
+        raise RuntimeError("flash attention forward: two launches on the "
+                           "same operands differ")
     torch.cuda.synchronize()
     for got in (out, o):
         torch.testing.assert_close(got.float(), want_o.float(), rtol=tol,
@@ -636,8 +710,8 @@ def _check_flash_attention(fa, device, gen, report, worst) -> None:
     """Each kernel against its plain version over the JAX tests' grid
     (Sq = Sk = 100 padded to 128 as ops.attention pads at bq = bk = 32,
     sk_orig masking the padded keys), at FA_SHAPES' full widths and at
-    FA_EDGES; each backward kernel launched twice and held equal bit for
-    bit."""
+    FA_EDGES; each kernel launched twice and held equal bit for bit; the
+    forwards at attention_block in fp32 within PARITY_TOL."""
     for dtype, tol in ((torch.float32, FP32_TOL),
                        (torch.bfloat16, FA_BF16_TOL)):
         dname = str(dtype).removeprefix("torch.")
@@ -658,6 +732,13 @@ def _check_flash_attention(fa, device, gen, report, worst) -> None:
                 for t in (q, k, v, do):
                     t[:, :, kw["sk_orig"]:] = 0
             errs = _fa_case(fa, q, k, v, do, kw, tol)
+            # attention_block's forward also within the workloads' budget
+            if dtype == torch.float32 and label == FA_SHAPES[0][0]:
+                for name in ("flash_attention", "flash_attention_fwd"):
+                    if errs[name] > PARITY_TOL:
+                        raise RuntimeError(
+                            f"{name} at {label}: {errs[name]:.3g} from its "
+                            f"plain version, above {PARITY_TOL}")
             for name, err in errs.items():
                 key = (f"{name} {label.split()[0]}", dname)
                 report[key] = max(report.get(key, 0.0), err)
@@ -677,6 +758,7 @@ def phase_kernels(K, device) -> dict:
     _check_conv_pool(K["conv2d"], K["maxpool"], device, gen, report, worst)
     _check_blur(K["blur"], device, gen, report, worst)
     _check_windows_staged(K["blur"], K["maxpool"], device, gen, report)
+    _check_conv_paths(K["conv2d"], device, gen, report)
     _check_flash_attention(K["flash_attention"], device, gen, report, worst)
     print("kernels: " + json.dumps(
         {f"{k}/{d}": e for (k, d), e in sorted(report.items())}))
@@ -1497,13 +1579,17 @@ def _times_conv_pool(mc, mp, device, gen, card, worst, by_path) -> list:
                for bm, _ in mc.SCHEDULES}
         fns.update(plain=mc.plain, library=lambda a, w: F.conv2d(
             a[None, None], w[None, None])[0, 0])
+        label = f"conv2d fp32 [{m},{n}] r={r}"
         with cudnn_fp32():            # the library call in full fp32
-            res = _measure(f"conv2d fp32 [{m},{n}] r={r}", fns,
+            res = _measure(label, fns,
                            _operand_sets([(m, n), (r, r)], nbytes, device,
                                          gen),
                            2.0 * om * on * r * r, nbytes, card)
-        records.append(_record("conv2d", "pallas_32", (m, n, r), res, worst,
-                               by_path))
+        shares = _bandwidth(label, res, card)
+        rec = _record("conv2d", "pallas_32", (m, n, r), res, worst, by_path)
+        rec["bandwidth_share"] = shares.get("pallas_32")
+        rec["geometry"] = mc.geometry(m, n, r, 4, 32)._asdict()
+        records.append(rec)
     for idx, (m, n, r, s) in enumerate(WORK_MP):
         om, on = (m - r) // s + 1, (n - r) // s + 1
         nbytes = 4 * (m * n + om * on)
@@ -1661,6 +1747,9 @@ def _times_flash_attention(fa, device, gen, card, worst, by_path) -> list:
                f"causal={causal} window={window}, {pairs} visible pairs of "
                f"{s * s}")
         sdpa_fwd, sdpa_fwd_bwd = _sdpa(causal, window, s, device)
+        # every kernel runs its products 3xTF32 on the tensor cores: its
+        # bound is that route's, the fp32 FMA bound beside it
+        fwd_bytes = 2 * q_bytes + 2 * kv_bytes
         fwd = _measure(
             f"flash attention forward {tag}",
             {"flash_attention": lambda q, k, v: fa.flash_attention(
@@ -1669,12 +1758,19 @@ def _times_flash_attention(fa, device, gen, card, worst, by_path) -> list:
                  q, k, v, **kw),
              "plain": lambda q, k, v: fa.plain_fwd(q, k, v, **pkw),
              "library": sdpa_fwd},
-            fwd_sets, 4 * work, 2 * q_bytes + 2 * kv_bytes, card)
-        bound, bound_by = _bound(4 * work, 2 * q_bytes + 2 * kv_bytes
-                                 + row_bytes, card)
+            fwd_sets, 4 * work, fwd_bytes, card, route="3xtf32")
+        bound, bound_by = _bound(4 * work, fwd_bytes + row_bytes, card,
+                                 "3xtf32")
         fwd_lse = dict(fwd, bound_ms=bound, bound_by=bound_by)
-        # the backward kernels run their products 3xTF32 on the tensor
-        # cores: their bound is that route's, the fp32 FMA bound beside it
+        for res, nbytes in ((fwd, fwd_bytes), (fwd_lse,
+                                               fwd_bytes + row_bytes)):
+            res.update(route="3xtf32", bound_fp32_ms=_bound(
+                4 * work, nbytes, card)[0])
+        print(f"times: flash attention forward {tag}: bound "
+              f"{fwd['bound_ms'] * 1e3:.2f} us (3xtf32), "
+              f"{fwd['bound_fp32_ms'] * 1e3:.2f} us on fp32 FMAs; with lse "
+              f"{fwd_lse['bound_ms'] * 1e3:.2f} us, "
+              f"{fwd_lse['bound_fp32_ms'] * 1e3:.2f} us; {card}")
         bwd_in = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
         dq = _measure(
             f"flash attention backward dq {tag}",

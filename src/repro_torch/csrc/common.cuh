@@ -46,20 +46,29 @@ __host__ __device__ constexpr int tile_threads() {
 }
 
 // Stages the h x w window at (row0, col0) of the row-major [m, n] plane `a`
-// into `dst` as fp32, row stride w, with the NT threads of the block.
-// Coalesced: consecutive threads read consecutive elements of a row.
-// Elements past the plane get `fill`; they feed only masked outputs.
+// into `dst` as fp32, row stride w, with the NT threads of the block.  The
+// block walks the window as rows of min(w, NT) threads (a thread's row and
+// column are divided out once, not per element), several rows at a time
+// where a row is narrower than the block.  Coalesced: consecutive threads
+// read consecutive elements of a row.  Elements past the plane get `fill`;
+// they feed only masked outputs.
 template <int NT, typename T>
 __device__ __forceinline__ void stage_window(const T* __restrict__ a,
                                              float* dst, int m, int n,
                                              int row0, int col0, int h, int w,
                                              float fill) {
-  for (int e = threadIdx.x; e < h * w; e += NT) {
-    const int i = e / w, j = e % w;
-    const int gi = row0 + i, gj = col0 + j;
-    dst[e] = (gi < m && gj < n)
-                 ? to_float(a[static_cast<size_t>(gi) * n + gj])
-                 : fill;
+  const int cols = w < NT ? w : NT;  // threads along a window row
+  const int step = NT / cols;        // window rows staged at once
+  const int r0 = threadIdx.x / cols, c0 = threadIdx.x % cols;
+  if (r0 >= step) return;
+  for (int i = r0; i < h; i += step) {
+    const int gi = row0 + i;
+    for (int j = c0; j < w; j += cols) {
+      const int gj = col0 + j;
+      dst[i * w + j] = (gi < m && gj < n)
+                           ? to_float(a[static_cast<size_t>(gi) * n + gj])
+                           : fill;
+    }
   }
 }
 

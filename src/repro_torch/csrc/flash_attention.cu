@@ -1,8 +1,7 @@
 // GQA flash attention for Hopper (sm_90a), forward and backward: fp32 or
 // bf16 operands, fp32 arithmetic, each output rounded to the operands' type
-// once; lse and delta are fp32.  The forward runs on plain FMAs; the
-// backward runs its products on the tensor cores at fp32 accuracy
-// (3xTF32, below).
+// once; lse and delta are fp32.  Every product runs on the tensor cores at
+// fp32 accuracy (3xTF32, below).
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention/
 // flash_attention.py: `_fa_kernel` (forward), `_fa_fwd_kernel` (forward that
@@ -18,38 +17,35 @@
 // sweep of its own, as in the JAX package: no atomics, so every launch
 // gives the same bits.
 //
-// The forward stages its Q rows once, then per step of the sweep a K and a
-// V tile, in shared memory as fp32 with a row stride of D+1 (reads of
-// D-long rows by 16 lanes fall in 16 banks).  A block has 256 threads as a
-// 16 x 16 grid; a thread owns 4 rows and 4 columns of each 64 x 64 score
-// tile and 4 rows and D/16 columns of the output tile, and row reductions
-// (max, sum) are shuffles over the 16 lanes of a half-warp.
-//
-// The backward: a warp owns 16 rows of the block's own tile (queries for
-// dq, keys for dk/dv) and computes their scores against each streamed tile
-// with m16n8k8 `mma.sync` products, S = Q·Kᵀ and dP = dO·Vᵀ, turns them
-// into P and dS in the accumulators' registers, and feeds those straight
-// into dQ += dS·K, or dV += Pᵀ·dO and dK += dSᵀ·Q: the m16n8 accumulator
-// holds columns 2t and 2t+1 of its rows, which the next product's A
-// fragment takes as its k slots t and t+4, so its B fragment reads rows 2t
-// and 2t+1.  No score tile goes through shared memory.  Each fp32 operand
-// x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi) (the rounding
-// of cvt.rna.tf32.f32, done by an integer add and mask), and a product is
-// lo·hi + hi·lo + hi·hi (the small terms first), accurate to about fp32's
-// rounding; bf16 operands are exact in tf32 (lo = 0, their
-// terms skipped), while P and dS are always split.  Each sweep step sums
-// its products in a fresh accumulator, added in fp32 to the carried one.
+// Every sweep is built the same way.  A warp owns 16 rows of the block's
+// own tile (queries for the forward and dq, keys for dk/dv) and computes
+// their scores against each streamed tile with m16n8k8 `mma.sync`
+// products: S = Q·Kᵀ, and for the backward dP = dO·Vᵀ.  It turns them into
+// P (the forward's online softmax: row max and row sum over the 4 lanes
+// that share a row, on the accumulators' registers) or P and dS, and feeds
+// those straight into O += P·V, or dQ += dS·K, or dV += Pᵀ·dO and
+// dK += dSᵀ·Q: the m16n8 accumulator holds columns 2t and 2t+1 of its rows,
+// which the next product's A fragment takes as its k slots t and t+4, so
+// its B fragment reads rows 2t and 2t+1.  No score tile goes through shared
+// memory.  Each fp32 operand x is split into hi = rna_tf32(x) and
+// lo = rna_tf32(x - hi) (the rounding of cvt.rna.tf32.f32, done by an
+// integer add and mask), and a product is lo·hi + hi·lo + hi·hi (the small
+// terms first), accurate to about fp32's rounding; bf16 operands are exact
+// in tf32 (lo = 0, their terms skipped), while P and dS are always split.
+// Each sweep step sums its products in a fresh accumulator, added in fp32
+// to the carried one (the forward's O scaled by the step's alpha first).
 // The streamed tiles (K and V, or Q, dO, lse and delta) land by 16-byte
 // cp.async in the operands' type, two stages, the next step's copies in
 // flight during this step's products; rows are D + 16/sizeof(T) elements
 // long, so that they start on 16 bytes and the fragment reads of a warp
-// fall in distinct banks.  Tiles by head dim (BwdCfg): 8 warps a block,
-// 128 own rows and 32 streamed at D = 64 and 128 (203 KB of shared
-// memory at D = 128 in fp32), 4 warps with 64 own rows and 64 (dq) or
-// 32 (dk/dv) streamed at D = 32; at D = 256 two warps share 16 rows, each
-// with half the output columns, so its accumulators fit the registers.  Heads are the backward grid's fast
-// dimension, so that under a causal mask every head's heaviest blocks
-// start in the first wave and the light ones fill the tail.
+// fall in distinct banks.  Tiles by head dim: FwdCfg for the forward,
+// BwdCfg for the backward (warps a block, warps sharing 16 own rows,
+// streamed rows a step); at D = 256 two warps share 16 rows, each with half
+// the output columns (and each recomputing the rows' scores), so that its
+// accumulators fit the registers.  Heads are the grid's fast dimension, so
+// that under a causal mask every head's heaviest blocks (the last q tiles
+// of the forward and dq, the first KV tiles of dk/dv) start in the first
+// wave and the light ones fill the tail.
 //
 // Ragged tiles are masked: rows past Sq are zero and never written, keys
 // past Sk take no part.  The caller's (bq, bk) only sets the padding, as in
@@ -63,32 +59,30 @@
 // alpha = exp(-1e30 - m) = 0, where -inf would give inf - inf = NaN.  A row
 // that sees no key at all (a padded query row under a window) ends up
 // averaging every key's value, as in the Pallas kernels; in the backward
-// its p is 0 everywhere.  The backward evaluates the mask only on tiles
-// where it can bite: a warp's tile wholly visible skips the test, one
-// wholly invisible skips its products.
+// its p is 0 everywhere.  The mask is evaluated only on tiles where it can
+// bite: a warp's tile wholly visible skips the test, one wholly invisible
+// skips its products.
 //
 // Skipped tiles: a sweep visits only the tiles that hold a key (or query)
 // some row (or column) of the block can see; the others change nothing,
 // since all their p are 0 after the row's first visible key (alpha = 1),
 // and what they add before it alpha = 0 wipes out.  The one exception is a
-// forward block whose last query row sees no key: such a row must average
-// all keys, so that block sweeps every KV tile.  Causal attention thus
-// does about half the work of all tiles, and a window of w at S keys about
-// w/S of it.
+// forward row that sees no key: it must average all keys, so a forward
+// block whose last query row is blind sweeps every KV tile, and so does
+// each of its warps that holds a blind row (blindness only grows along the
+// rows, so the warp's last row decides).  Causal attention thus does about
+// half the work of all tiles, and a window of w at S keys about w/S of it.
 //
 // What bounds it: attention does 4·S·D FLOP per query row forward and
 // 14·S·D backward on 2-4 reads of a D-long row, some hundreds of FLOP a
 // byte at the shapes used (S of 512-4096, D of 32-256), above the card's
-// ridge, so it is bound by arithmetic.  The forward's rate is the fp32 FMA
-// rate (67 TFLOP/s on an H100 SXM outside the tensor cores), and its
-// shared-memory reads (BQ/16 + BK/16 words per 16 FMAs) hold it near half
-// of that.  The backward's is the TF32 tensor-core rate over three
-// products (495/3 = 165 TFLOP/s of fp32-grade work, dense); mma.sync
+// ridge, so it is bound by arithmetic: the TF32 tensor-core rate over three
+// products (495/3 = 165 TFLOP/s of fp32-grade work, dense).  mma.sync
 // reaches only part of the rate `wgmma` does, three products a product
 // triple the tensor-core work, and every fragment a warp reads is split
-// (two integer roundings and a subtraction) before its products.
-// wgmma with K-major swizzled tiles, TMA loads and a warp-specialised
-// pipeline are the known next steps.
+// (two integer roundings and a subtraction) before its products.  wgmma
+// with K-major swizzled tiles, TMA loads and a warp-specialised pipeline
+// are the known next steps.
 
 #include <cmath>
 #include <cstddef>
@@ -98,9 +92,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kLanes = 16;     // threads along a tile row (half a warp)
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.44269504088896341f;  // exp(x) = exp2(x·log2 e)
 
 // Shape and mask of one call.  q, dq, do, out: [B,H,Sq,D]; k, v: [B,KV,Sk,D];
 // lse, delta: [B,H,Sq]; per-q-head dk, dv: [B,H,Sk,D]; all contiguous.
@@ -109,15 +102,6 @@ struct Problem {
   float scale;
 };
 
-constexpr int kFwdTile = 64;
-
-// Row strides of the staged tiles: D+1 floats for operand rows; BK+16 for
-// score tiles, so the two rows a warp touches fall 16 banks apart.
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 1; }
-template <int BK>
-__host__ __device__ constexpr int sld() { return BK + 16; }
-
 __device__ __forceinline__ bool visible(int qp, int kp, const Problem& p) {
   bool ok = kp < p.sk_orig;
   if (p.causal) ok = ok && kp <= qp;
@@ -125,33 +109,12 @@ __device__ __forceinline__ bool visible(int qp, int kp, const Problem& p) {
   return ok;
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off /= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off /= 2)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Stages rows [row0, row0 + ROWS) of the row-major [n, D] matrix `src` into
-// `dst` as fp32 with row stride D+1; rows at or past n become zero.
-// Coalesced: consecutive threads read consecutive elements of a row.
-template <int ROWS, int D, typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           float* dst, int row0, int n) {
-  for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * ld<D>() + c] =
-        row0 + r < n
-            ? repro::to_float(src[static_cast<size_t>(row0 + r) * D + c])
-            : 0.f;
-  }
+// True when query row q sees no key.  Only a window makes a row blind, and
+// then every later row is blind too.
+__device__ __forceinline__ bool blind_row(int q, const Problem& p) {
+  const int lo = p.window > 0 ? max(0, q - p.window + 1) : 0;
+  const int hi = p.causal ? min(p.sk_orig - 1, q) : p.sk_orig - 1;
+  return lo > hi;
 }
 
 // The KV tiles [j0, j1) a forward or dq block over queries [q0, q_last]
@@ -162,8 +125,7 @@ __device__ __forceinline__ void kv_tiles(int q0, int q_last, const Problem& p,
                                          bool all_if_blind, int& j0, int& j1) {
   const int lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int hi = p.causal ? min(p.sk_orig - 1, q_last) : p.sk_orig - 1;
-  const int lo_last = p.window > 0 ? max(0, q_last - p.window + 1) : 0;
-  if (all_if_blind && lo_last > hi) {
+  if (all_if_blind && blind_row(q_last, p)) {
     j0 = 0;
     j1 = (p.sk + BK - 1) / BK;
   } else if (lo > hi) {
@@ -175,146 +137,45 @@ __device__ __forceinline__ void kv_tiles(int q0, int q_last, const Problem& p,
 }
 
 // ---------------------------------------------------------------------------
-// forward: `_fa_kernel` and `_fa_fwd_kernel` in one template
-// ---------------------------------------------------------------------------
-
-template <int D, int BQ, int BK>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * ld<D>() +
-                          static_cast<size_t>(BQ) * sld<BK>());
-}
-
-template <typename T, int D, int BQ, int BK, bool WITH_LSE>
-__global__ void __launch_bounds__(kThreads)
-    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out,
-                  float* __restrict__ lse, Problem p) {
-  constexpr int RM = BQ / kLanes;  // query rows a thread owns
-  constexpr int CN = BK / kLanes;  // score columns a thread owns
-  constexpr int DN = D / kLanes;   // output columns a thread owns
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [BQ][D+1]
-  float* ks = qs + BQ * ld<D>();      // [BK][D+1]
-  float* vs = ks + BK * ld<D>();      // [BK][D+1]
-  float* ps = vs + BK * ld<D>();      // [BQ][BK+16]
-
-  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const int bh = blockIdx.y;
-  const int kvh = (bh / p.h) * p.kv + (bh % p.h) / (p.h / p.kv);
-  // the last q tiles carry the most causal work: start them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int q_last = min(q0 + BQ, p.sq) - 1;
-  const T* qh = q + static_cast<size_t>(bh) * p.sq * D;
-  const T* kh = k + static_cast<size_t>(kvh) * p.sk * D;
-  const T* vh = v + static_cast<size_t>(kvh) * p.sk * D;
-
-  stage_rows<BQ, D>(qh, qs, q0, p.sq);
-
-  float acc[RM][DN], m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
-  }
-
-  int j0, j1;
-  kv_tiles<BK>(q0, q_last, p, true, j0, j1);
-  for (int j = j0; j < j1; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<BK, D>(kh, ks, k0, p.sk);
-    stage_rows<BK, D>(vh, vs, k0, p.sk);
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) s[i][c] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float a[RM], b[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = qs[(ty + i * kLanes) * ld<D>() + e];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) b[c] = ks[(tx + c * kLanes) * ld<D>() + e];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) s[i][c] = fmaf(a[i], b[c], s[i][c]);
-    }
-
-    // online softmax, in the Pallas kernel's order of operations
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qp = q0 + ty + i * kLanes;
-      float mx = -INFINITY;  // only ever a key past Sk keeps it
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const int kp = k0 + tx + c * kLanes;
-        const float sv = visible(qp, kp, p) ? s[i][c] * p.scale : kNegInf;
-        s[i][c] = sv;
-        if (kp < p.sk) mx = fmaxf(mx, sv);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const int kp = k0 + tx + c * kLanes;
-        const float pv = kp < p.sk ? expf(s[i][c] - m_new) : 0.f;
-        ps[(ty + i * kLanes) * sld<BK>() + tx + c * kLanes] = pv;
-        rs += pv;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DN; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float a[RM], b[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = ps[(ty + i * kLanes) * sld<BK>() + c];
-#pragma unroll
-      for (int dd = 0; dd < DN; ++dd) b[dd] = vs[c * ld<D>() + tx + dd * kLanes];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int dd = 0; dd < DN; ++dd) acc[i][dd] = fmaf(a[i], b[dd], acc[i][dd]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qr = q0 + ty + i * kLanes;
-    if (qr >= p.sq) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    T* orow = out + (static_cast<size_t>(bh) * p.sq + qr) * D;
-#pragma unroll
-    for (int dd = 0; dd < DN; ++dd)
-      orow[tx + dd * kLanes] = repro::from_float<T>(acc[i][dd] / li);
-    if (WITH_LSE && tx == 0)
-      lse[static_cast<size_t>(bh) * p.sq + qr] = m[i] + logf(li);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: tensor-core tiles at fp32 accuracy (3xTF32)
+// tensor-core tiles at fp32 accuracy (3xTF32)
 // ---------------------------------------------------------------------------
 
 // Tiles by head dim.  A warp owns 16 rows of the block's own tile (query
-// rows for dq, key rows for dk/dv) and, with SPLIT = 2, half of the output
-// columns: two warps then share 16 rows, each recomputing their scores, so
-// that at D = 256 an accumulator stays within the registers.  STREAM is the
-// rows of the other operand a step of the sweep copies (keys for dq,
-// queries for dk/dv), two steps in flight.  At D <= 128 a block has 8
-// warps (4 at D = 32, several blocks an SM), so at least 8 warps are
-// resident on an SM; the staged tiles fit the 227 KB a block can take.
+// rows for the forward and dq, key rows for dk/dv) and, with SPLIT = 2,
+// half of the output columns: two warps then share 16 rows, each
+// recomputing their scores, so that at D = 256 an accumulator stays within
+// the registers.  STREAM is the rows of the other operand a step of the
+// sweep copies (keys for the forward and dq, queries for dk/dv), two steps
+// in flight.  A block owns at least 64 rows (`valid` admits 65535 blocks of
+// them along a sequence).  The staged tiles fit the 227 KB a block can
+// take.
+//
+// The forward's (FwdCfg) are the fastest of tools/flash_attention_probe.py's
+// sweep at each head dim on an H100: 4 warps (64 query rows) and 64 keys a
+// step at D = 32, several blocks an SM; 8 warps and 32 or 64 keys at D = 64
+// and 128 (255 registers at D = 128, one block an SM); 16 warps in pairs
+// (128 rows) and 16 keys at D = 256.
+template <int D>
+struct FwdCfg;
+template <>
+struct FwdCfg<32> {
+  static constexpr int WARPS = 4, SPLIT = 1, STREAM = 64;
+};
+template <>
+struct FwdCfg<64> {
+  static constexpr int WARPS = 8, SPLIT = 1, STREAM = 32;
+};
+template <>
+struct FwdCfg<128> {
+  static constexpr int WARPS = 8, SPLIT = 1, STREAM = 64;
+};
+template <>
+struct FwdCfg<256> {
+  static constexpr int WARPS = 16, SPLIT = 2, STREAM = 16;
+};
+
+// The backward's (BwdCfg): at D <= 128 a block has 8 warps (4 at D = 32,
+// several blocks an SM), so at least 8 warps are resident on an SM.
 template <int D>
 struct BwdCfg;
 template <>
@@ -338,12 +199,14 @@ struct BwdCfg<256> {
   static constexpr int DKV_WARPS = 8, DKV_SPLIT = 2, DKV_STREAM = 16;
 };
 
-// One backward sweep's shape: WARPS warps, SPLIT warps per 16 own rows,
-// OWN = 16·WARPS/SPLIT own rows and STREAM streamed rows per step.  Tiles
-// sit in shared memory in the operands' type with rows of D + 16/sizeof(T)
-// elements: 16-byte aligned for cp.async, and the fragment reads of a warp
-// (row g, column t, or row 2t, column g) fall in distinct banks.
-template <typename T, int D, int WARPS, int SPLIT, int STREAM, int ROWBUF>
+// One sweep's shape: WARPS warps, SPLIT warps per 16 own rows, OWN =
+// 16·WARPS/SPLIT own rows in OWNT own tiles (Q; or Q and dO, K and V) and
+// STREAM streamed rows per step.  Tiles sit in shared memory in the
+// operands' type with rows of D + 16/sizeof(T) elements: 16-byte aligned
+// for cp.async, and the fragment reads of a warp (row g, column t, or row
+// 2t, column g) fall in distinct banks.
+template <typename T, int D, int WARPS, int SPLIT, int STREAM, int OWNT,
+          int ROWBUF>
 struct Sweep {
   static constexpr int kWarps = WARPS, kSplit = SPLIT;
   static constexpr int NT = 32 * WARPS;
@@ -351,23 +214,27 @@ struct Sweep {
   static constexpr int STR = STREAM;
   static constexpr int LD = D + 16 / static_cast<int>(sizeof(T));
   static constexpr int DOUT = D / SPLIT;   // output columns a warp owns
-  // own tiles (2 x OWN rows), then two stages of two streamed tiles, then
-  // ROWBUF floats a row of the streamed tile per stage (lse, delta)
+  // own tiles (OWNT x OWN rows), then two stages of two streamed tiles,
+  // then ROWBUF floats a row of the streamed tile per stage (lse, delta)
   static constexpr size_t TILES =
-      sizeof(T) * static_cast<size_t>(LD) * (2 * OWN + 4 * STREAM);
+      sizeof(T) * static_cast<size_t>(LD) * (OWNT * OWN + 4 * STREAM);
   static constexpr size_t SMEM =
       TILES + sizeof(float) * 2 * static_cast<size_t>(ROWBUF) * STREAM;
-  static_assert(STREAM % 8 == 0 && DOUT % 8 == 0 && WARPS % SPLIT == 0,
+  static_assert(STREAM % 8 == 0 && DOUT % 8 == 0 && WARPS % SPLIT == 0 &&
+                    OWN >= 64,
                 "tile shape");
   static_assert(SMEM <= repro::kSmemOptIn, "tiles above the opt-in limit");
 };
 
 template <typename T, int D>
+using FwdSweep = Sweep<T, D, FwdCfg<D>::WARPS, FwdCfg<D>::SPLIT,
+                       FwdCfg<D>::STREAM, 1, 0>;
+template <typename T, int D>
 using DqSweep = Sweep<T, D, BwdCfg<D>::DQ_WARPS, BwdCfg<D>::DQ_SPLIT,
-                      BwdCfg<D>::DQ_STREAM, 0>;
+                      BwdCfg<D>::DQ_STREAM, 2, 0>;
 template <typename T, int D>
 using DkvSweep = Sweep<T, D, BwdCfg<D>::DKV_WARPS, BwdCfg<D>::DKV_SPLIT,
-                       BwdCfg<D>::DKV_STREAM, 2>;
+                       BwdCfg<D>::DKV_STREAM, 2, 2>;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -487,6 +354,100 @@ __device__ __forceinline__ void frag_b_perm(const T* y, int c0, int g, int t,
   x[1] = repro::to_float(y[(2 * t + 1) * LD + c0 + g]);
 }
 
+// s = A · Bᵀ over D, in a fresh accumulator: A the warp's 16 own rows, B
+// the N8·8 streamed rows, both of type T in shared memory (the forward's
+// S = Q·Kᵀ).  A k step's three products go out term by term over the N8
+// key groups, so that consecutive mma.sync instructions feed different
+// accumulators instead of waiting on each other; each accumulator still
+// takes lo·hi, hi·lo, hi·hi in that order.
+template <int D, int LD, int N8, typename T>
+__device__ __forceinline__ void score(const T* a, const T* b,
+                                      float (&s)[N8][4], int g, int t) {
+  constexpr bool E = kExact<T>;
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll 2
+  for (int c0 = 0; c0 < D; c0 += 8) {
+    float x[4];
+    uint32_t ah[4], al[4], bh[N8][2], bl[N8][2];
+    frag_a<LD>(a, c0, g, t, x);
+    split<E>(x, ah, al);
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      float y[2];
+      frag_bt<LD>(b + n * 8 * LD, c0, g, t, y);
+      split<E>(y, bh[n], bl[n]);
+    }
+    if (!E) {
+#pragma unroll
+      for (int n = 0; n < N8; ++n) mma(s[n], al, bh[n]);
+#pragma unroll
+      for (int n = 0; n < N8; ++n) mma(s[n], ah, bl[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < N8; ++n) mma(s[n], ah, bh[n]);
+  }
+}
+
+// acc += P · V for the forward: P a score accumulator (16 rows x N8·8
+// keys, in registers), V the streamed rows at `y` (the warp's DN8·8
+// columns from c0).  P is split once, as the A fragments of its N8 k
+// steps.  The output columns go in groups of up to 4 blocks of 8: a group
+// sums the step's products in fresh accumulators, term by term over the
+// group (consecutive mma.sync feed different accumulators), and adds them
+// to `acc` in fp32 (the tensor cores truncate as they accumulate; see
+// `accumulate`).  The backward keeps `accumulate`, one block of 8 columns
+// at a time: its dk/dv sweep holds two output tiles, and a group's extra
+// accumulators and fragments (about 24 registers) would not fit beside
+// them at D = 128.
+template <int LD, int N8, int DN8, typename T>
+__device__ __forceinline__ void accumulate_pv(const float (&s)[N8][4],
+                                              const T* y, int c0,
+                                              float (&acc)[DN8][4], int g,
+                                              int t) {
+  constexpr bool E = kExact<T>;
+  constexpr int G = DN8 < 4 ? DN8 : 4;
+  static_assert(DN8 % G == 0, "column groups");
+  uint32_t ah[N8][4], al[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+    const float x[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+    split<false>(x, ah[n], al[n]);
+  }
+#pragma unroll
+  for (int d0 = 0; d0 < DN8; d0 += G) {
+    float part[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float z[2];
+        frag_b_perm<LD>(y + n * 8 * LD, c0 + (d0 + j) * 8, g, t, z);
+        split<E>(z, bh[j], bl[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) mma(part[j], al[n], bh[j]);
+      if (!E) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) mma(part[j], ah[n], bl[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) mma(part[j], ah[n], bh[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[d0 + j][i] += part[j][i];
+  }
+}
+
 // s1 += A1 · B1ᵀ and s2 += A2 · B2ᵀ over D: A1, A2 the warp's 16 own rows,
 // B1, B2 the N8·8 streamed rows, all of type T in shared memory.
 template <int D, int LD, int N8, typename T>
@@ -552,6 +513,160 @@ __device__ __forceinline__ void accumulate(const float (&s)[N8][4],
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dn][i] += part[i];
+  }
+}
+
+// The max and the sum of v over the 4 lanes that hold one accumulator row
+// (lanes 4g .. 4g+3).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// forward: `_fa_kernel` and `_fa_fwd_kernel` in one template; one block per
+// (b·h, q tile), KV tiles in the loop
+// ---------------------------------------------------------------------------
+
+template <typename T, int D, bool WITH_LSE>
+__global__ void __launch_bounds__(FwdSweep<T, D>::NT)
+    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, Problem p) {
+  using S = FwdSweep<T, D>;
+  constexpr int LD = S::LD, BQ = S::OWN, BK = S::STR, NT = S::NT;
+  constexpr int N8 = BK / 8, DN8 = S::DOUT / 8;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* qs = reinterpret_cast<T*>(fwd_smem);   // [BQ][LD]
+  T* kvs = qs + BQ * LD;                    // 2 stages of K [BK][LD], V
+
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
+            t = threadIdx.x % 4;
+  const int row = 16 * (warp / S::kSplit);       // the warp's first own row
+  const int c0 = (warp % S::kSplit) * S::DOUT;   // its first output column
+  // heads are the grid's fast dimension, and the last q tiles (the heaviest
+  // under a causal mask) come first
+  const int bh = blockIdx.x;
+  const int kvh = (bh / p.h) * p.kv + (bh % p.h) / (p.h / p.kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q_last = min(q0 + BQ, p.sq) - 1;
+  const int qw = q0 + row;                        // the warp's first query
+  const size_t qoff = static_cast<size_t>(bh) * p.sq * D;
+  const T* kh = k + static_cast<size_t>(kvh) * p.sk * D;
+  const T* vh = v + static_cast<size_t>(kvh) * p.sk * D;
+
+  int j0, j1;
+  kv_tiles<BK>(q0, q_last, p, true, j0, j1);
+  copy_rows<BQ, D, LD, NT>(q + qoff, qs, q0, p.sq);
+  cp_async_commit();
+  if (j0 < j1) {
+    copy_rows<BK, D, LD, NT>(kh, kvs, j0 * BK, p.sk);
+    copy_rows<BK, D, LD, NT>(vh, kvs + BK * LD, j0 * BK, p.sk);
+  }
+  cp_async_commit();
+
+  // a warp holding a row that sees no key visits every tile of the sweep
+  const bool blind = qw < p.sq && blind_row(min(qw + 15, p.sq - 1), p);
+  float acc[DN8][4], m_row[2], l_row[2];
+#pragma unroll
+  for (int dn = 0; dn < DN8; ++dn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dn][i] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_row[h] = kNegInf;
+    l_row[h] = 0.f;
+  }
+
+  for (int j = j0; j < j1; ++j) {
+    const T* ks = kvs + ((j - j0) & 1) * 2 * BK * LD;
+    const T* vs = ks + BK * LD;
+    if (j + 1 < j1) {  // the next tile into the other stage
+      T* nk = kvs + ((j + 1 - j0) & 1) * 2 * BK * LD;
+      copy_rows<BK, D, LD, NT>(kh, nk, (j + 1) * BK, p.sk);
+      copy_rows<BK, D, LD, NT>(vh, nk + BK * LD, (j + 1) * BK, p.sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * BK, k_end = k0 + BK - 1;
+    // whether none of the warp's 16 rows sees a key of the tile (and none
+    // is blind), and whether all of them see all of its keys
+    const bool skip = qw >= p.sq ||
+                      (!blind && (k0 >= p.sk_orig ||
+                                  (p.causal && k0 > qw + 15) ||
+                                  (p.window > 0 && qw - k_end >= p.window)));
+    const bool full = qw + 15 < p.sq && k_end < p.sk_orig &&
+                      (!p.causal || k_end <= qw) &&
+                      (p.window <= 0 || qw + 15 - k0 < p.window);
+    if (!skip) {
+      float s[N8][4];
+      score<D, LD>(qs + row * LD, ks, s, g, t);
+      // the online softmax, in the Pallas kernel's order of operations;
+      // element i of an accumulator is row g + 8·(i/2), column 2t + (i&1)
+      float mx[2] = {-INFINITY, -INFINITY};  // only keys past Sk keep it
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i / 2;
+          const int qp = qw + g + 8 * h, kp = k0 + n * 8 + 2 * t + (i & 1);
+          const float sv = full || visible(qp, kp, p) ? s[n][i] * p.scale
+                                                      : kNegInf;
+          s[n][i] = sv;
+          if (full || kp < p.sk) mx[h] = fmaxf(mx[h], sv);
+        }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_row[h], quad_max(mx[h]));
+        alpha[h] = exp2f((m_row[h] - m_new) * kLog2e);
+        m_row[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i / 2, kp = k0 + n * 8 + 2 * t + (i & 1);
+          const float pv = full || kp < p.sk
+                               ? exp2f((s[n][i] - m_row[h]) * kLog2e)
+                               : 0.f;
+          s[n][i] = pv;
+          rs[h] += pv;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l_row[h] = l_row[h] * alpha[h] + quad_sum(rs[h]);
+#pragma unroll
+      for (int dn = 0; dn < DN8; ++dn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dn][i] *= alpha[i / 2];
+      accumulate_pv<LD>(s, vs, c0, acc, g, t);   // O += P · V
+    }
+    __syncthreads();  // the stage is free for the copy two steps on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qr = qw + g + 8 * h;
+    if (qr >= p.sq) continue;
+    const float li = fmaxf(l_row[h], 1e-30f);
+    T* orow = out + qoff + static_cast<size_t>(qr) * D + c0;
+#pragma unroll
+    for (int dn = 0; dn < DN8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        orow[dn * 8 + 2 * t + e] =
+            repro::from_float<T>(acc[dn][2 * h + e] / li);
+    if (WITH_LSE && t == 0 && c0 == 0)
+      lse[static_cast<size_t>(bh) * p.sq + qr] = m_row[h] + logf(li);
   }
 }
 
@@ -849,11 +964,11 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse,
             int causal, int window, cudaStream_t stream) {
   const Problem p = make_problem(h, kv, sq, sk, d, sk_orig, causal, window);
   return with_head_dim(d, [&](auto dim) {
-    constexpr int D = decltype(dim)::value, B = kFwdTile;
-    return launch(fa_fwd_kernel<T, D, B, B, WITH_LSE>,
-                  dim3((sq + B - 1) / B, b * h), kThreads,
-                  fwd_smem<D, B, B>(), stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
+    constexpr int D = decltype(dim)::value;
+    using S = FwdSweep<T, D>;
+    return launch(fa_fwd_kernel<T, D, WITH_LSE>,
+                  dim3(b * h, (sq + S::OWN - 1) / S::OWN), S::NT, S::SMEM,
+                  stream, static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<T*>(out), lse, p);
   });
 }

@@ -1,10 +1,10 @@
-// The vector path of the window kernels (blur, maxpool): a thread owns V
-// consecutive elements of a plane row, loaded as one 16- or 8-byte packet
-// and widened to fp32 in registers, and writes its outputs back in packets
-// as wide as the output rows' alignment allows.  No shared memory and no
-// per-element index arithmetic: a thread's column is its global index times
-// V.  The launch configuration comes from the wrapper packed in one 64-bit
-// word (`Config`), so the C entry decodes it with shifts.
+// The vector path of the window kernels (blur, maxpool, conv2d): a thread owns
+// V consecutive elements of a plane row, loaded as one 16- or 8-byte packet and
+// widened to fp32 in registers, and writes its outputs back in packets as wide
+// as the output rows' alignment allows.  No shared memory and no per-element
+// index arithmetic: a thread's column is its global index times V.  The launch
+// configuration comes from the wrapper packed in one 64-bit word (`Config`), so
+// the C entry decodes it with shifts.
 #pragma once
 
 #include <cstdint>
@@ -72,16 +72,32 @@ __device__ __forceinline__ float element(unsigned w, int e,
   return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
 }
 
-// Loads the V elements at p (aligned to V * sizeof(T) bytes: 16 or 8)
-// through the read-only path and widens them to fp32.
+// The packet of V elements of type T.
 template <typename T, int V>
-__device__ __forceinline__ void load_packet(const T* p, float (&x)[V]) {
-  constexpr int B = V * static_cast<int>(sizeof(T));
+using PacketOf = typename Packet<V * static_cast<int>(sizeof(T))>::type;
+
+// The raw packet of V elements at p (aligned to V * sizeof(T) bytes: 16 or
+// 8), through the read-only path.
+template <typename T, int V>
+__device__ __forceinline__ PacketOf<T, V> fetch_packet(const T* p) {
+  return __ldg(reinterpret_cast<const PacketOf<T, V>*>(p));
+}
+
+// The V elements of a raw packet widened to fp32 into x[0, V).
+template <typename T, int V, int N>
+__device__ __forceinline__ void widen(const PacketOf<T, V>& raw,
+                                      float (&x)[N]) {
   constexpr int E = 4 / static_cast<int>(sizeof(T));  // elements a word
-  const typename Packet<B>::type raw =
-      __ldg(reinterpret_cast<const typename Packet<B>::type*>(p));
+  static_assert(N >= V, "too few values");
 #pragma unroll
   for (int e = 0; e < V; ++e) x[e] = element(word(raw, e / E), e, T());
+}
+
+// Loads the V elements at p through the read-only path and widens them to
+// fp32.
+template <typename T, int V>
+__device__ __forceinline__ void load_packet(const T* p, float (&x)[V]) {
+  widen<T, V>(fetch_packet<T, V>(p), x);
 }
 
 __device__ __forceinline__ unsigned bits(float v) {

@@ -87,7 +87,7 @@ class Entry:
 
 
 class Window(NamedTuple):
-    """Launch geometry of a window kernel (blur, maxpool;
+    """Launch geometry of a window kernel (blur, maxpool, conv2d;
     ``csrc/window.cuh``).  ``load_bytes`` 16 or 8 takes the vector path,
     where a thread owns one load packet of columns and walks ``rows`` output
     rows, and blocks are one row of ``threads`` threads; 0 takes the staged

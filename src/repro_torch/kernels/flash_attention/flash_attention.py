@@ -40,37 +40,44 @@ _SIGNATURES = {
 }
 
 
-# The backward sweeps' tiles by head dim, as csrc/flash_attention.cu's
-# BwdCfg compiles them: (warps a block, warps sharing 16 own rows, streamed
-# rows a step).  A block owns 16 * warps / split rows (queries for dq, keys
-# for dk/dv).
+# The sweeps' tiles by head dim, as csrc/flash_attention.cu compiles them:
+# (warps a block, warps sharing 16 own rows, streamed rows a step), the
+# forward's from FwdCfg, the backward's from BwdCfg.  A block owns 16 *
+# warps / split rows (queries for the forward and dq, keys for dk/dv).
+FWD_TILES = {32: (4, 1, 64), 64: (8, 1, 32), 128: (8, 1, 64),
+             256: (16, 2, 16)}
 BWD_TILES = {32: {"dq": (4, 1, 64), "dkv": (4, 1, 32)},
              64: {"dq": (8, 1, 32), "dkv": (8, 1, 32)},
              128: {"dq": (8, 1, 32), "dkv": (8, 1, 32)},
              256: {"dq": (8, 2, 16), "dkv": (8, 2, 16)}}
 
 
-def bwd_tiles(kernel: str, d: int) -> dict:
-    """The compiled tile of backward ``kernel`` ("dq" or "dkv") at head dim
-    ``d``: warps and threads a block, own and streamed rows."""
-    warps, split, stream = BWD_TILES[d][kernel]
+def _tile(warps: int, split: int, stream: int) -> dict:
     return {"warps": warps, "threads": 32 * warps, "split": split,
             "own": 16 * warps // split, "stream": stream}
 
 
+def fwd_tiles(d: int) -> dict:
+    """The compiled tile of the forward at head dim ``d``: warps and
+    threads a block, own (query) and streamed (key) rows."""
+    return _tile(*FWD_TILES[d])
+
+
+def bwd_tiles(kernel: str, d: int) -> dict:
+    """The compiled tile of backward ``kernel`` ("dq" or "dkv") at head dim
+    ``d``: warps and threads a block, own and streamed rows."""
+    return _tile(*BWD_TILES[d][kernel])
+
+
 def smem_bytes(kernel: str, d: int, itemsize: int = 4) -> int:
     """Shared memory a block of ``kernel`` ("fwd", "dq", "dkv") stages at
-    head dim ``d`` for operands of ``itemsize`` bytes.  The forward: fp32
-    operand tiles with row stride d+1 and a score tile with row stride
-    t+16 at its 64 x 64 tile.  The backward: its own rows and two stages of
-    two streamed tiles in the operands' type, rows of d + 16/itemsize
-    elements, and for dk/dv two stages of the streamed rows' lse and
-    delta."""
-    if kernel == "fwd":
-        t = 64
-        return 4 * (3 * t * (d + 1) + t * (t + 16))
-    tile = bwd_tiles(kernel, d)
-    tiles = itemsize * (d + 16 // itemsize) * (2 * tile["own"]
+    head dim ``d`` for operands of ``itemsize`` bytes: its own rows (Q for
+    the forward; two own tiles for the backward) and two stages of two
+    streamed tiles in the operands' type, rows of d + 16/itemsize elements,
+    and for dk/dv two stages of the streamed rows' lse and delta."""
+    tile = fwd_tiles(d) if kernel == "fwd" else bwd_tiles(kernel, d)
+    own_tiles = 1 if kernel == "fwd" else 2
+    tiles = itemsize * (d + 16 // itemsize) * (own_tiles * tile["own"]
                                                 + 4 * tile["stream"])
     return tiles + (4 * 2 * 2 * tile["stream"] if kernel == "dkv" else 0)
 
@@ -123,7 +130,7 @@ def _check_kernel(q):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its storage does not start on 16 bytes:
-    the backward kernels copy rows by 16-byte cp.async."""
+    the kernels copy rows by 16-byte cp.async."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -167,7 +174,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return plain(q, k, v, causal=causal, window=window, sk_orig=sk_orig)
     _check_kernel(q)
     out = torch.empty_like(q)
-    _launch("repro_flash_attention", q, (q, k, v, out),
+    _launch("repro_flash_attention", q, (*map(_aligned, (q, k, v)), out),
             _dims(q, k, sk_orig, causal, window))
     return out
 
@@ -183,7 +190,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_kernel(q)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("repro_flash_attention_fwd", q, (q, k, v, out, lse),
+    _launch("repro_flash_attention_fwd", q,
+            (*map(_aligned, (q, k, v)), out, lse),
             _dims(q, k, sk_orig, causal, window))
     return out, lse
 

@@ -458,6 +458,84 @@ def test_3xtf32_backward_holds_the_fp32_tolerance(h, kv, causal, window):
     assert worst(1) > 1e-4
 
 
+def _fwd_tf32(q, k, v, causal, window, sk_orig, terms, tile):
+    """The forward as the tensor-core kernel computes it: per step of
+    ``tile`` keys, S = Q·Kᵀ and P·V on emulated tf32 (``_mm_tf32``), the
+    online softmax on fp32 between them, each step's P·V added to the
+    alpha-scaled carried O in fp32; out and lse = m + log l."""
+    b, h, sq, d = q.shape
+    k, v = fa_ref._expand(k, h), fa_ref._expand(v, h)
+    sk = k.shape[2]
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    ok = fa_ref.visible(sq, sk, causal=causal, window=window,
+                        sk_orig=sk_orig, device=q.device)
+    acc = torch.zeros(b, h, sq, d)
+    m = torch.full((b, h, sq), fa_ref.NEG_INF)
+    l = torch.zeros(b, h, sq)
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        s = _mm_tf32(q, kt.transpose(-1, -2), terms) * scale
+        s = torch.where(ok[:, k0:k0 + tile], s, fa_ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _mm_tf32(p, vt, terms)
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+def _fwd_err(got, want) -> float:
+    """The worst error of out and lse, each element's relative to its
+    magnitude above 1 (a blind row's lse is near -1e30)."""
+    errs = []
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.array(w, dtype=np.float32))
+        errs.append(((g - w).abs() / w.abs().clamp(min=1.0)).max().item())
+    return max(errs)
+
+
+@pytest.mark.parametrize("h,kv", FA_HEADS)
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_3xtf32_forward_holds_the_fp32_tolerance(h, kv, causal, window):
+    """The tolerance argument of the tensor-core forward, on the CPU: the
+    forward with both products split 3xTF32, stepped at the kernel's tile
+    of keys (``FWD_TILES``), stays within 1e-4/20 of the fp32 forward and
+    of the JAX Pallas forward (interpret mode) at the JAX tests' grid (Sq =
+    Sk = 100 padded to 128, sk_orig masking the pad, the padded query rows
+    blind under a window), while one tf32 product (1xTF32) leaves 1e-4."""
+    rng = np.random.RandomState(h + kv + window + 3)
+    (jq, jk, jv), (tq, tk, tv) = _fa_draw(rng, h, kv, "float32", 0.5)
+    jpad = [jnp.pad(x, ((0, 0), (0, 0), (0, 28), (0, 0))) for x in
+            (jq, jk, jv)]
+    q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, 28)) for x in (tq, tk, tv))
+    kw = {"causal": causal, "window": window, "sk_orig": 100}
+    tile = fa_kernel.fwd_tiles(32)["stream"]
+    want = fa_ref.flash_attention_fwd(q, k, v, **kw)
+    jwant = jfa_kernel.flash_attention_fwd(*jpad, bq=32, bk=32, **kw)
+    got = _fwd_tf32(q, k, v, causal, window, 100, 3, tile)
+    assert _fwd_err(got, want) < 1e-4 / 20
+    assert _fwd_err(got, jwant) < 1e-4 / 20
+    assert _fwd_err(_fwd_tf32(q, k, v, causal, window, 100, 1, tile),
+                    want) > 1e-4
+
+
+def test_3xtf32_forward_holds_attention_blocks_budget():
+    """At attention_block's q/k/v (B=4, H=8, S=512, D=32, causal, drawn
+    uniform in [-0.5, 0.5) as the workload draws them), the 3xTF32 forward
+    at the kernel's tile stays within the workloads' 1e-5 of the fp32
+    forward, relative to its largest magnitude above 1."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy((rng.rand(4, 8, 512, 32) - 0.5)
+                                .astype(np.float32)) for _ in range(3))
+    tile = fa_kernel.fwd_tiles(32)["stream"]
+    out, _ = _fwd_tf32(q, k, v, True, 0, 512, 3, tile)
+    want = fa_ref.flash_attention(q, k, v, causal=True)
+    scale = max(1.0, want.abs().max().item())
+    assert (out - want).abs().max().item() / scale < 1e-5
+
+
 @pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("sq", [128, 100])
 def test_attention_backward_makes_no_copy_it_does_not_need(h, kv, sq):
@@ -517,8 +595,10 @@ def test_flash_attention_wrapper_refuses_what_the_kernels_do_not_take():
         fa_kernel._check_kernel(torch.zeros(1, 1, 1, 48))
     for d in fa_kernel.HEAD_DIMS:
         fa_kernel._check_kernel(torch.zeros(1, 1, 1, d))
-    # gemma3-1b's head dim opts in to more than 48 KB and fits the card
-    assert fa_kernel.smem_bytes("fwd", 256) == 4 * (192 * 257 + 64 * 80)
+    # gemma3-1b's head dim opts in to more than 48 KB and fits the card:
+    # the forward's 128 own query rows and two stages of 16 keys and values,
+    # rows of 260 floats
+    assert fa_kernel.smem_bytes("fwd", 256) == 4 * 260 * (128 + 4 * 16)
     assert 48 * 1024 < fa_kernel.smem_bytes("fwd", 256) <= fa_kernel.SMEM_LIMIT
     # the backward at D = 256: 64 own rows and two stages of 16 streamed
     # rows, rows of 260 floats, and for dk/dv two stages of lse and delta
@@ -823,6 +903,34 @@ def test_backward_tiles_agree_with_the_cuda_source():
             assert tile["own"] % 16 == 0 and tile["stream"] % 8 == 0
 
 
+def test_forward_tiles_agree_with_the_cuda_source():
+    """The wrapper's table of the forward's tiles (which ``smem_bytes`` and
+    the refusals read) is the one ``csrc/flash_attention.cu`` compiles:
+    FwdCfg's warps, split and streamed rows per head dim; every tile fits
+    the card, a block owns at least 64 query rows (the kernels' grid
+    admits 65535 blocks of them along a sequence), and at D = 256 two
+    warps share 16 rows, so that each holds half of O."""
+    import re
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    found = {int(d): tuple(int(x) for x in body) for d, *body in re.findall(
+        r"struct FwdCfg<(\d+)> \{\s*static constexpr int WARPS = (\d+), "
+        r"SPLIT = (\d+), STREAM = (\d+);\s*\};", src)}
+    assert found == fa_kernel.FWD_TILES
+    assert sorted(found) == list(fa_kernel.HEAD_DIMS)
+    assert "kFwdTile" not in src
+    for d in fa_kernel.HEAD_DIMS:
+        tile = fa_kernel.fwd_tiles(d)
+        for itemsize in (4, 2):
+            need = fa_kernel.smem_bytes("fwd", d, itemsize)
+            assert need <= fa_kernel.SMEM_LIMIT
+            assert need == itemsize * (d + 16 // itemsize) * (
+                tile["own"] + 4 * tile["stream"])
+        assert tile["own"] >= 64 and tile["stream"] % 8 == 0
+        assert (d // tile["split"]) % 8 == 0
+    assert fa_kernel.fwd_tiles(256)["split"] == 2
+
+
 def test_lean_launch_path_takes_the_plain_version_on_the_cpu():
     rng = np.random.RandomState(3)
     a = torch.from_numpy(rng.randn(40, 24).astype(np.float32))
@@ -965,22 +1073,53 @@ def test_window_geometry_fills_the_card_on_the_vector_path(tile, pool_tile):
         assert (geo.load_bytes, geo.store_bytes) == (16, 8)
         assert geo.blocks >= 132, (m, n, geo)
         assert geo.blocks >= FILL_BLOCKS or geo.rows == 1, (m, n, geo)
+    # conv2d at the image workload's [1022,1022] (rows of 4,088 bytes: 8-byte
+    # packets) and at a plane whose rows take 16, at its tile of the same
+    # size class
+    conv_tile = {128: 32, 16: 16}[tile]
+    for m, n, load in ((1022, 1022, 8), (1024, 1024, 16)):
+        for r in mc_kernel.VECTOR_TAPS:
+            geo = mc_kernel.geometry(m, n, r, 4, conv_tile)
+            on = n - r + 1
+            assert geo.load_bytes == load, (m, n, r)
+            assert geo.store_bytes == min(load, 16 if on % 4 == 0 else
+                                          8 if on % 2 == 0 else 4)
+            assert geo.blocks >= FILL_BLOCKS or geo.rows == 1, (m, n, r, geo)
+            assert (geo.threads, geo.rows) <= mc_kernel.VECTOR[conv_tile]
     # the two tiles stay two schedules: at the image plane they launch
     # differently shaped blocks
     assert bl_kernel.geometry((3, 3), 1024, 1024, 4, 128) != \
         bl_kernel.geometry((3, 3), 1024, 1024, 4, 16)
+    assert mc_kernel.geometry(1022, 1022, 3, 4, 32) != \
+        mc_kernel.geometry(1022, 1022, 3, 4, 16)
     assert mp_kernel.geometry(1020, 1020, 2, 2, 4, 32) != \
         mp_kernel.geometry(1020, 1020, 2, 2, 4, 8)
     assert Window(16, 8, 128, 2, 0).config(1, 128) == \
         1 | 16 << 8 | 8 << 16 | 2 << 24 | 4 << 32 | 128 << 40
 
 
-@pytest.mark.parametrize("kernel", ["blur", "maxpool"])
+@pytest.mark.parametrize("kernel", ["blur", "maxpool", "conv2d"])
 def test_window_geometry_takes_the_staged_path_off_alignment(kernel):
     """A base 4 bytes off 16 (``a_low = 4``), rows whose width is off 8
-    bytes, and for maxpool every window but r = s = 2, take the staged
-    path: one block per output tile, as before."""
-    if kernel == "blur":
+    bytes, for maxpool every window but r = s = 2, and for conv2d every r
+    the vector path does not compile, take the staged path: one block per
+    output tile, as before."""
+    if kernel == "conv2d":
+        for m, n, r in [(1022, 1022, 3), (1022, 1022, 7), (100, 90, 5)]:
+            for tile in (32, 16):
+                geo = mc_kernel.geometry(m, n, r, 4, tile, a_low=4)
+                om, on = m - r + 1, n - r + 1
+                assert geo == (0, 0, 0, 0, -(-om // tile) * -(-on // tile))
+                # odd widths, and bf16 rows of 1,022 elements (4 bytes)
+                assert mc_kernel.geometry(m, n + 1, r, 4, tile).load_bytes == 0
+                assert mc_kernel.geometry(m, n, r, 2, tile).load_bytes == 0
+        for r in (1, 2, 4, 6, 9):
+            assert mc_kernel.geometry(1024, 1024, r, 4, 32).load_bytes == 0
+        assert mc_kernel.geometry(1024, 1024, 9, 4, 32).blocks == 32 * 32
+        # a misaligned output alone narrows the stores, not the path
+        geo = mc_kernel.geometry(1024, 1024, 3, 4, 32, out_low=4)
+        assert (geo.load_bytes, geo.store_bytes) == (16, 4)
+    elif kernel == "blur":
         for taps in BLUR_PASSES.values():
             assert bl_kernel.geometry(taps, 1024, 1024, 4, 128,
                                       a_low=4).load_bytes == 0
@@ -1022,20 +1161,44 @@ def test_window_config_agrees_with_the_cuda_source():
     assert [cfg >> shifts[k] & 0xff for k in shifts] == [1, 8, 4, 2, 2, 16,
                                                          3]
     compiled = {int(r) for r in re.findall(r"case (\d+): return launch", src)}
-    for table in (bl_kernel.VECTOR, mp_kernel.VECTOR):
+    for table in (bl_kernel.VECTOR, mp_kernel.VECTOR, mc_kernel.VECTOR):
         for threads, rows in table.values():
             assert rows in compiled and threads % 32 == 0 and threads <= 256
+    # conv2d's vector path compiles the tap counts the wrapper sends it, and
+    # its C entry takes the packed shape, r and config
+    conv = (build.CSRC / "conv2d.cu").read_text()
+    taps = re.search(r"int with_taps\(.*?\n\}", conv, re.S).group(0)
+    assert tuple(int(r) for r in re.findall(r"case (\d+):", taps)) == \
+        mc_kernel.VECTOR_TAPS
+    assert "long long shape, int r, long long config" in conv
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert mc_kernel._ENTRY.argtypes == [ptr] * 3 + [i64, i32, i64, ptr]
 
 
 def test_lean_window_launch_path_takes_the_plain_version_on_the_cpu():
-    """On CPU tensors the blur and maxpool wrappers return their plain
-    versions and launch, build and bind nothing; a tensor on another
+    """On CPU tensors the blur, maxpool and conv2d wrappers return their
+    plain versions and launch, build and bind nothing; a tensor on another
     device is refused as the backend rule refuses it."""
     rng = np.random.RandomState(5)
     a = torch.from_numpy(rng.randn(40, 36).astype(np.float32))
     before = (dict(bl_kernel.LAUNCHES), mp_kernel.LAUNCHES,
               mp_kernel._ENTRY.fn,
-              {k: e.fn for k, e in bl_kernel._ENTRIES.items()})
+              {k: e.fn for k, e in bl_kernel._ENTRIES.items()},
+              mc_kernel.LAUNCHES, mc_kernel._ENTRY.fn)
+    # conv2d on both of its paths' tap counts, fp32 and bf16: the plain
+    # version, which is the JAX oracle's arithmetic
+    for r in (3, 4, 7):
+        w = torch.from_numpy(rng.randn(r, r).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            for bm, bn in mc_kernel.SCHEDULES:
+                assert torch.equal(
+                    mc_kernel.conv2d(a.to(dtype), w.to(dtype), bm=bm, bn=bn),
+                    mc_kernel.plain(a.to(dtype), w.to(dtype)))
+        np.testing.assert_allclose(
+            mc_kernel.conv2d(a, w).numpy(),
+            np.asarray(jmc_ref.conv2d(jnp.asarray(a.numpy()),
+                                      jnp.asarray(w.numpy()))),
+            rtol=1e-6, atol=1e-6)
     for bm, bn in bl_kernel.SCHEDULES:
         assert torch.equal(bl_kernel.blur_direct(a, bm=bm, bn=bn),
                            bl_kernel.plain(a))
@@ -1048,10 +1211,15 @@ def test_lean_window_launch_path_takes_the_plain_version_on_the_cpu():
                            mp_kernel.plain(a, r=2, s=2))
     assert (dict(bl_kernel.LAUNCHES), mp_kernel.LAUNCHES,
             mp_kernel._ENTRY.fn,
-            {k: e.fn for k, e in bl_kernel._ENTRIES.items()}) == before
+            {k: e.fn for k, e in bl_kernel._ENTRIES.items()},
+            mc_kernel.LAUNCHES, mc_kernel._ENTRY.fn) == before
     meta = torch.zeros(40, 36, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         bl_kernel.blur(meta)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        mc_kernel.conv2d(meta, torch.zeros(3, 3, device="meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        mc_kernel.conv2d(a, torch.zeros(3, 3, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         mp_kernel.maxpool(meta, r=2, s=2)
     # the refusals come before the device is looked at
@@ -1131,16 +1299,33 @@ def test_cuda_kernels_match_plain_versions(dtype):
         assert torch.equal(mv_kernel.matvec(a, x), got)
     assert mv_kernel.LAUNCHES == before + 6
     before = mc_kernel.LAUNCHES
-    for m, n, r in [(100, 90, 5), (41, 77, 7), (1022, 1022, 3)]:
+    paths = set()
+    calls = 0
+    # the vector path (r = 3, 5, 7 on rows on 8 or 16 bytes) and the staged
+    # one (other r, a base 4 bytes off, rows off 8 bytes)
+    for m, n, r in [(100, 90, 5), (41, 77, 7), (1022, 1022, 3),
+                    (1022, 1022, 5), (1022, 1022, 7), (1024, 1024, 3),
+                    (64, 64, 4), (51, 201, 3)]:
         a = torch.randn(m, n, generator=gen, device="cuda").to(td)
         w = torch.randn(r, r, generator=gen, device="cuda").to(td)
-        for bm, bn in mc_kernel.SCHEDULES:
-            got = mc_kernel.conv2d(a, w, bm=bm, bn=bn)
-            torch.cuda.synchronize()
-            # the plain version's tap order and roundings: equal bit for bit
-            torch.testing.assert_close(got, mc_kernel.plain(a, w), rtol=0,
-                                       atol=0)
-    assert mc_kernel.LAUNCHES == before + 3 * len(mc_kernel.SCHEDULES)
+        for plane in (a, _off4(a)):
+            want = mc_kernel.plain(plane, w)
+            for bm, bn in mc_kernel.SCHEDULES:
+                geo = mc_kernel.geometry(m, n, r, plane.element_size(), bm,
+                                         plane.data_ptr() & 15)
+                vector = r in mc_kernel.VECTOR_TAPS and \
+                    plane.data_ptr() % 8 == 0 and \
+                    n * plane.element_size() % 8 == 0
+                assert (geo.load_bytes > 0) == vector
+                paths.add(vector)
+                got = mc_kernel.conv2d(plane, w, bm=bm, bn=bn)
+                torch.cuda.synchronize()
+                # the plain version's tap order and roundings: equal bit
+                # for bit
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                calls += 1
+    assert paths == {True, False}
+    assert mc_kernel.LAUNCHES == before + calls
     before = mp_kernel.LAUNCHES
     for m, n, r, s in [(100, 90, 3, 2), (65, 43, 5, 1), (1020, 1020, 2, 2)]:
         a = torch.randn(m, n, generator=gen, device="cuda").to(td)
@@ -1160,9 +1345,9 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
     versions at every compiled head dim, GQA, the three masks, a ragged
     Sq with sk_orig, a D = 128 shape whose backward tiles are all wholly
     visible (no mask evaluated) and a D = 256 one whose keys end in a
-    sk_orig tail inside a tile, and an operand off 16 bytes; each backward
-    kernel launched twice and held equal bit for bit, counting each entry
-    point's launches."""
+    sk_orig tail inside a tile, and an operand off 16 bytes; each kernel
+    launched twice and held equal bit for bit, counting each entry point's
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     td = DTYPES[dtype][1]
@@ -1183,6 +1368,10 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
         want_o, want_lse = fa_kernel.plain_fwd(q, k, v, **pkw)
         out = fa_kernel.flash_attention(q, k, v, **kw)
         o, lse = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        # each forward launched twice gives the same bits
+        assert torch.equal(fa_kernel.flash_attention(q, k, v, **kw), out)
+        o2, lse2 = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
         torch.cuda.synchronize()
         for got in (out, o):
             torch.testing.assert_close(got.float(), want_o.float(), rtol=tol,
@@ -1205,7 +1394,7 @@ def test_cuda_flash_attention_kernels_match_plain(dtype):
                                        atol=tol * scale)
     n = len(cases)
     assert {e: fa_kernel.LAUNCHES[e] - before[e] for e in before} == \
-        {"flash_attention": n, "flash_attention_fwd": n,
+        {"flash_attention": 2 * n, "flash_attention_fwd": 2 * n,
          "flash_attention_bwd_dq": 2 * n, "flash_attention_bwd_dkv": 2 * n}
 
 

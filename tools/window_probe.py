@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
-"""Build the blur and maxpool kernels, check them and sweep their launch
-geometry on one NVIDIA card; then the lane contention probe.
+"""Build the window kernels (blur, maxpool, conv2d), check them and sweep
+their launch geometry on one NVIDIA card; then the lane contention probe.
 
 Run from the root of a checkout::
 
-    python3 tools/window_probe.py
+    python3 tools/window_probe.py [conv2d]
 
-A short call for a changed ``csrc/blur.cu``, ``csrc/maxpool.cu`` or
-``csrc/window.cuh``: it builds both libraries (printing ``ptxas``'s
-register and spill report), holds every blur entry and the maxpool kernel
-at both tiles, fp32 and bf16, to its plain version bit for bit at the
-workloads' planes, the JAX tests' ragged shapes and a plane whose base lies
-4 bytes past an aligned buffer (the staged path), with a NaN case for
-maxpool; then it times each entry at the workloads' planes (the profiler's
-device time per call over operand sets past the 50 MB L2) for every block
-width and rows a thread walks of the vector path, beside the wrappers' own
-geometry and the library call (``F.avg_pool2d``, ``F.max_pool2d``), and the
-wrappers' event time per call.  Last, ``chip_smoke.contention_probe`` over
-two freshly warmed dispatchers (the card's and the host's) and the time of
-one dispatcher-sized model fit with the default intra-op threads and with
-one.  Exits 1 if any check fails.
+A short call for a changed ``csrc/blur.cu``, ``csrc/maxpool.cu``,
+``csrc/conv2d.cu`` or ``csrc/window.cuh``: it builds the three libraries
+(printing ``ptxas``'s register and spill report), holds every blur entry,
+the maxpool kernel and conv2d at both tiles, fp32 and bf16, to its plain
+version bit for bit at the workloads' planes, the JAX tests' ragged shapes
+and a plane whose base lies 4 bytes past an aligned buffer (the staged
+path), with a NaN case for maxpool and conv2d at r = 3, 5, 7 (the vector
+path) and 4 (staged); then it times each entry at the workloads' planes
+(the profiler's device time per call over operand sets past the 50 MB L2)
+for every block width and rows a thread walks of the vector path, beside
+the wrappers' own geometry and the library call (``F.avg_pool2d``,
+``F.max_pool2d``, ``F.conv2d`` with TF32 off), and the wrappers' event time
+per call; conv2d at [1022,1022] for each compiled r.  Last,
+``chip_smoke.contention_probe`` over two freshly warmed dispatchers (the
+card's and the host's) and the time of one dispatcher-sized model fit with
+the default intra-op threads and with one.  With the argument ``conv2d``
+only conv2d is built, checked and swept.  Exits 1 if any check fails.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ BLUR = [(1024, 1024), (384, 384), (66, 66), (128, 100), (51, 200),
         (1024, 1022), (7, 9)]
 POOL = [(1020, 1020, 2, 2), (384, 384, 2, 2), (64, 64, 2, 2), (66, 34, 2, 2),
         (101, 90, 2, 2), (100, 90, 3, 2), (65, 43, 5, 1), (32, 32, 4, 2)]
+CONV = [(1022, 1022, 3), (1022, 1022, 5), (1022, 1022, 7), (64, 64, 3),
+        (100, 90, 5), (41, 77, 7), (64, 64, 4), (51, 201, 3), (1024, 1022, 3),
+        (7, 9, 7)]
 THREADS = (32, 64, 128, 256)
 ROWS = (1, 2, 4)
 
@@ -227,6 +233,81 @@ def sweep_pool(mp, gen, card) -> None:
         torch.cuda.empty_cache()
 
 
+def check_conv(mc, gen) -> list:
+    """conv2d, both tiles, fp32 and bf16, on CONV's planes and their copies
+    4 bytes off alignment, against its plain version bit for bit."""
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n, r in CONV:
+            a = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(r, r, generator=gen, device="cuda").to(dtype)
+            for plane in (a, misaligned(a)):
+                want = mc.plain(plane, w)
+                for bm, bn in mc.SCHEDULES:
+                    got = mc.conv2d(plane, w, bm=bm, bn=bn)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        bad.append(("conv2d", bm, str(dtype), (m, n, r),
+                                    plane.data_ptr() & 15,
+                                    mc.geometry(m, n, r, plane.element_size(),
+                                                bm, plane.data_ptr() & 15,
+                                                got.data_ptr() & 15),
+                                    (got.float() - want.float()).abs().max()
+                                    .item()))
+            print(f"conv2d {dtype} {(m, n, r)} checked")
+    return bad
+
+
+def sweep_conv(mc, gen, card) -> None:
+    from repro_torch.kernels import Window, cudnn_fp32, store_bytes
+
+    m = n = 1022
+    for r in mc.VECTOR_TAPS:
+        om, on = m - r + 1, n - r + 1
+        nbytes = 4 * (m * n + r * r + om * on)
+        sets = [(a, torch.rand(r, r, generator=gen, device="cuda") - 0.5)
+                for (a,) in planes((m, n), nbytes, gen)]
+        fn = mc._ENTRY.fn or mc._ENTRY.bind()
+        geo = mc.geometry(m, n, r, 4, 32)
+        outs = [a.new_empty((om, on)) for a, _ in sets]
+        times = {}
+        for threads in THREADS:
+            for rows in ROWS:
+                cfg = Window(geo.load_bytes, store_bytes(
+                    0, on * 4, geo.load_bytes), threads, rows,
+                    0).config(0, 32)
+                it = iter(outs * 4)
+
+                def call(a, w, _c=cfg, _it=it):
+                    code = fn(a.data_ptr(), w.data_ptr(),
+                              next(_it).data_ptr(), m | n << 32, r, _c,
+                              torch.cuda.current_stream().cuda_stream)
+                    if code:
+                        mc._ENTRY.fail(code)
+                times[f"{threads}x{rows}"] = round(device_us(call, sets), 2)
+        own = {f"t{bm}": (mc.geometry(m, n, r, 4, bm), device_us(
+            lambda a, w, _b=bm: mc.conv2d(a, w, bm=_b, bn=_b), sets))
+            for bm, _ in mc.SCHEDULES}
+
+        def lib(a, w):
+            return F.conv2d(a[None, None], w[None, None])[0, 0]
+        with cudnn_fp32():
+            lib_us = device_us(lib, sets)
+            ev = {k: round(event_us(f, sets), 2) for k, f in (
+                ("t32", mc.conv2d), ("library", lib))}
+        best = min(times.values())
+        print(f"sweep conv2d fp32 [{m},{n}] r={r} device us by threads x "
+              f"rows: {json.dumps(times)}; wrappers "
+              + json.dumps({k: [list(g), round(t, 2)]
+                            for k, (g, t) in own.items()})
+              + f"; library (TF32 off) {lib_us:.2f} us; events "
+              f"{json.dumps(ev)}; bound {nbytes / 3.35e12 * 1e6:.2f} us, "
+              f"t32 at {100 * nbytes / 3.35e12 * 1e6 / own['t32'][1]:.1f}% "
+              f"of the peak rate, the sweep's best {best} us; {card}")
+        del sets
+        torch.cuda.empty_cache()
+
+
 def fit_seconds() -> dict:
     """One fit of the dispatcher's model size (6000 epochs, 40 rows) on a
     fresh thread with the default intra-op threads and with one."""
@@ -283,29 +364,37 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.blur import blur as bk
+    from repro_torch.kernels.conv2d import conv2d as mc
     from repro_torch.kernels.maxpool import maxpool as mp
 
+    only_conv = sys.argv[1:] == ["conv2d"]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
     t0 = time.perf_counter()
-    for name, (_, report) in build.build(["blur", "maxpool"]).items():
+    names = ["conv2d"] if only_conv else ["blur", "maxpool", "conv2d"]
+    for name, (_, report) in build.build(names).items():
         print(f"build {name}")
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print("  ", line.strip())
     print(f"build {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = check(bk, mp, gen)
+    bad = [] if only_conv else check(bk, mp, gen)
+    bad += check_conv(mc, gen)
     for b in bad:
         print("MISMATCH", b)
-    print(f"launches: blur {bk.LAUNCHES}, maxpool {mp.LAUNCHES}")
-    sweep_blur(bk, gen, card)
-    sweep_pool(mp, gen, card)
-    print(f"fit seconds by intra-op threads (fresh thread each): "
-          f"{fit_seconds()}")
-    contention(torch.device("cuda", 0))
+    print(f"launches: blur {bk.LAUNCHES}, maxpool {mp.LAUNCHES}, conv2d "
+          f"{mc.LAUNCHES}")
+    if not only_conv:
+        sweep_blur(bk, gen, card)
+        sweep_pool(mp, gen, card)
+    sweep_conv(mc, gen, card)
+    if not only_conv:
+        print(f"fit seconds by intra-op threads (fresh thread each): "
+              f"{fit_seconds()}")
+        contention(torch.device("cuda", 0))
     print(card)
     return 1 if bad else 0
 
