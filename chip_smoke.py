@@ -77,7 +77,29 @@ Phases, each of which fails the run (non-zero exit) on error:
    changes; then the blur kernels
    (both tiles, fused and separable) on the plane each workload's blur
    node took, against that node's output, with the counters zeroed just
-   before.  Every output is held against its workload's reference
+   before; the contention probe again in child processes (today's
+   spinning wait and thread count), in turns under the OpenMP runtime's
+   default wait policy and under ``OMP_WAIT_POLICY=PASSIVE``.  Then the
+   obs path: ``large`` ``image_pipeline`` and ``mixed_dag`` on the warm
+   slice-2 dispatcher, compiled with a fresh ``obs.Telemetry``, five
+   sequential calls each, printing the dispatch and gate counters, the
+   decision and per-kernel time percentiles, the drift status, the
+   ``makespan:`` instants, explain's buckets and critical path, and the
+   memory ledger's peak beside the predicted peak and the allocator's
+   growth over the call; it fails unless the ledger peak equals the
+   predicted one, the buckets sum to the makespan within 1%, the trace
+   saved with the telemetry merged and read back (``from_chrome``,
+   ``analyze_chrome``) gives the live critical path and buckets, the
+   outputs equal those of the program compiled without telemetry bit for
+   bit, and the matmul, conv2d and maxpool launches equal the dispatches
+   that picked their hand variants (one at least above zero);
+   ``steady_overhead_pct`` with and without telemetry in turns, for
+   information.  And ``mixed_dag`` over ``{"cuda:0", "cpu"}`` under the
+   async executor with a telemetry: lane utilisation, queue depths and
+   waits, explain's buckets, the ledger peaks within 1.25x of predicted
+   both ways, the card's hand launches equal to its hand picks, then one
+   sequential call (ledger peak equal to predicted) for comparison.
+   Every output is held against its workload's reference
    within 1e-5 (relative to the output's largest magnitude where that
    exceeds 1), and every hand kernel a path runs must have launched in it.
    cuDNN's TF32 default is left as PyTorch sets it: the port pins fp32
@@ -1159,7 +1181,8 @@ def _lane_threads(threads: int) -> dict:
             "later thread": fresh[0], "default": default}
 
 
-def contention_probe(card, host, device) -> dict:
+def contention_probe(card, host, device, waits=("spin", "yield"),
+                     thread_counts=None) -> dict:
     """Fault 1's fixed probe, independent of placement: a ``LanePool`` with
     a ``cuda:0`` lane and a ``cpu`` lane; the cpu lane runs 384^3 fp32
     matmuls through the host dispatcher ``host`` (mixed_dag's products)
@@ -1167,9 +1190,9 @@ def contention_probe(card, host, device) -> dict:
     through ``card``, each followed by the dispatcher's synchronise; each
     side also alone.  Under each wait on the card lane (the spinning
     ``torch.cuda.synchronize``, a yielding blocking event) and each
-    intra-op thread count of the cpu lane's worker (the default, 2 fewer,
-    half).  The yielding wait replaces the dispatcher's ``synchronize`` for
-    the probe alone.  Returns (wait, threads) -> microseconds per op, the
+    intra-op thread count of the cpu lane's worker (by default: the
+    process default, 2 fewer, half).  The yielding wait replaces the
+    dispatcher's ``synchronize`` for the probe alone.  Returns (wait, threads) -> microseconds per op, the
     median of CONTENTION_ROUNDS rounds: card alone, card beside the host,
     host alone, host beside the card."""
     from repro_torch.api.compile_ import _bind_lane_device
@@ -1223,9 +1246,10 @@ def contention_probe(card, host, device) -> dict:
     default = torch.get_num_threads()
     slots = {"card": (str(device), 0), "host": ("cpu", 0)}
     results = {}
-    for wait in ("spin", "yield"):
-        for threads in sorted({default, max(1, default - 2),
-                               max(1, default // 2)}, reverse=True):
+    if thread_counts is None:
+        thread_counts = (default, max(1, default - 2), max(1, default // 2))
+    for wait in waits:
+        for threads in sorted(set(thread_counts), reverse=True):
             def init(lane, _t=threads):
                 _bind_lane_device(lane)
                 if lane == "cpu":
@@ -1263,29 +1287,98 @@ def _print_contention(card, host, device) -> None:
               f"{hb:.1f} us ({hb / ha:.2f}x)")
 
 
+OMP_CHILDREN = ("default", "PASSIVE", "PASSIVE", "default")   # in turns
+
+
+def _slice4_dispatchers(root) -> dict:
+    """Slice 4's dispatchers over the tuning caches it wrote under
+    ``root`` (fitted at its warm-up, so they start warm)."""
+    from repro_torch.runtime import (Dispatcher, TuningCache,
+                                     current_fingerprint, default_registry)
+
+    return {name: Dispatcher(default_registry(), TuningCache(
+        str(Path(root) / f"slice_4_{name.replace(':', '')}"),
+        current_fingerprint("cpu" if name == "cpu" else "cuda")))
+        for name in EXEC_DEVICES}
+
+
+def contention_child(root) -> int:
+    """One process's contention probe at today's settings (the spinning
+    wait, the default intra-op thread count) over slice 4's caches under
+    ``root``; prints the OpenMP wait policy it ran under, the parallel
+    back end and the probe's four medians as a JSON line."""
+    import os
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    disps = _slice4_dispatchers(root)
+    threads = torch.get_num_threads()
+    (ca, cb, ha, hb), = contention_probe(
+        disps["cuda:0"], disps["cpu"], device, waits=("spin",),
+        thread_counts=(threads,)).values()
+    backend = [ln.strip() for ln in torch.__config__.parallel_info()
+               .splitlines() if "OpenMP" in ln or "backend" in ln]
+    print(json.dumps({"OMP_WAIT_POLICY": os.environ.get("OMP_WAIT_POLICY",
+                                                        "unset"),
+                      "threads": threads, "parallel": backend,
+                      "card_alone_us": ca, "card_beside_us": cb,
+                      "host_alone_us": ha, "host_beside_us": hb}))
+    return 0
+
+
+def _omp_wait_probe(root, card: str) -> None:
+    """Fault 1's untried hypothesis, the OpenMP team spinning after a CPU
+    matmul: the contention probe in child processes, in turns with the
+    OpenMP runtime's default wait policy and with
+    ``OMP_WAIT_POLICY=PASSIVE`` (read when the runtime starts, hence a
+    process each).  The port's defaults are left as they are."""
+    import os
+
+    for policy in OMP_CHILDREN:
+        env = {k: v for k, v in os.environ.items() if k != "OMP_WAIT_POLICY"}
+        if policy != "default":
+            env["OMP_WAIT_POLICY"] = policy
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--contention-child", str(root)], env=env,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode:
+            raise RuntimeError(f"contention child ({policy}) exited "
+                               f"{out.returncode}: {out.stderr[-2000:]}")
+        r = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"main: slice 4 contention probe in a child process, "
+              f"OMP_WAIT_POLICY={r['OMP_WAIT_POLICY']} "
+              f"({time.perf_counter() - t0:.1f} s; cpu lane "
+              f"{r['threads']} threads; {'; '.join(r['parallel'])}): card "
+              f"384^3 dispatch alone {r['card_alone_us']:.1f} us, beside "
+              f"the host matmul {r['card_beside_us']:.1f} us "
+              f"({r['card_beside_us'] / r['card_alone_us']:.2f}x); host "
+              f"384^3 matmul alone {r['host_alone_us']:.1f} us, beside the "
+              f"card chain {r['host_beside_us']:.1f} us "
+              f"({r['host_beside_us'] / r['host_alone_us']:.2f}x); {card}")
+
+
 def _slice4(K, device, root, fp) -> tuple:
     """The exec path over the card and the host.  Returns path label ->
     launch counts, for the compiled runs and for the blur kernels on their
-    planes, and the card dispatcher's picks in the compiled runs."""
+    planes, the card dispatcher's picks in the compiled runs, and the
+    path's dispatchers and comm model."""
     from repro_torch.api import Program, ops, use_dispatcher
     from repro_torch.exec import (CommModel, StealPolicy, copy_to_dst,
                                   measure_copies)
     from repro_torch.kernels.blur import ops as blur_ops
-    from repro_torch.runtime import (Dispatcher, TuningCache,
-                                     current_fingerprint, default_registry)
+    from repro_torch.runtime import TuningCache
     from repro_torch.workloads import get_workload
 
-    fps = {"cuda:0": fp, "cpu": current_fingerprint("cpu")}
-    disps = {name: Dispatcher(default_registry(), TuningCache(
-        str(Path(root) / f"slice_4_{name.replace(':', '')}"), fps[name]))
-        for name in EXEC_DEVICES}
+    disps = _slice4_dispatchers(root)
     t0 = time.perf_counter()
     for name, disp in disps.items():
         dev = torch.device(name)
         gen = torch.Generator(device=dev).manual_seed(3)
         with use_dispatcher(disp):
             _warm_slice2(ops, dev, gen)
-        print(f"main: slice 4 {name} dispatcher ({fps[name].key}): "
+        print(f"main: slice 4 {name} dispatcher "
+              f"({disp.cache.fingerprint.key}): "
               f"{disp.n_measured} measured, {disp.n_gated} gated, "
               f"{disp.n_predicted} predicted")
     comm = CommModel(TuningCache(str(Path(root) / "slice_4_comm"), fp))
@@ -1359,24 +1452,304 @@ def _slice4(K, device, root, fp) -> tuple:
               f"{list(plane.shape)} vs the blur node's output, max abs err "
               f"over max(1, |out|): " + json.dumps(errs))
     counts["slice 4 blur"] = launch_counts(K)
-    return counts, picks
+    return counts, picks, {"disps": disps, "comm": comm}
+
+
+# the obs path: telemetry, the memory ledger and explain on the slice-2
+# dispatcher (one device) and on slice 4's pair (two)
+OBS_WORKLOADS = ("image_pipeline", "mixed_dag")
+OBS_RUNS = 5            # sequential calls with telemetry, one device
+OBS_PAIRS = 5           # interleaved calls without and with telemetry
+OBS_BOUND = 1.25        # async ledger peak vs predicted, both ways
+HAND = ("matmul", "conv2d", "maxpool")   # kernels with pallas_* variants
+
+
+def _hand_launches(label, K, disp) -> dict:
+    """Hold each HAND kernel's launches since the counters were zeroed to
+    the dispatches of ``disp`` (stats reset at the same moment) that chose
+    its hand variant.  Returns the launch counts."""
+    picks = _card_picks(disp, 0)
+    want = {k: sum(n for v, n in picks.get(k, {}).items()
+                   if v.startswith("pallas_")) for k in HAND}
+    counts = launch_counts(K)
+    got = {k: counts[k] for k in HAND}
+    print(f"obs: {label}: hand-kernel launches {json.dumps(got)}, hand "
+          f"picks {json.dumps(want)}")
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got} differ from the hand "
+                           f"picks {want}")
+    return counts
+
+
+def _print_telemetry(label, tel, card) -> None:
+    s = tel.summary()
+    decisions = {k: v for k, v in s["counters"].items()
+                 if k.startswith(("dispatch.", "gate."))}
+    hists = {n: f"p50 {h['p50'] * 1e6:.1f} us, p99 {h['p99'] * 1e6:.1f} "
+                f"us, n {h['count']}"
+             for n, h in s["histograms"].items() if h["count"]
+             and (n == "dispatch.overhead_s" or n.startswith("kernel."))}
+    drift = {k: f"live MAPE {d['live_mape_pct']:.1f}%, band "
+                f"{d['fit_band_pct']:.1f}%, n {d['n']}, flagged {d['flagged']}"
+             for k, d in s["drift"].items()}
+    spans = [f"{e['args']['executor']} predicted "
+             f"{e['args']['predicted_s'] * 1e3:.3f} ms, realized "
+             f"{e['args']['realized_s'] * 1e3:.3f} ms, APE "
+             f"{e['args']['ape_pct']:.0f}%" for e in tel.events("makespan")]
+    print(f"obs: {label} telemetry: counters {json.dumps(decisions)}; "
+          f"{json.dumps(hists)}; drift {json.dumps(drift)}; dispatch share "
+          f"of dispatch+kernel time "
+          f"{100 * s['overhead'].get('dispatch_frac', 0.0):.1f}%; {card}")
+    print(f"obs: {label} makespan instants: {'; '.join(spans)}; {card}")
+
+
+def _print_explain(label, doc, trace, card) -> None:
+    span = doc["makespan_s"]
+    groups: dict = {}
+    for bucket, v in doc["buckets"].items():
+        groups[bucket.split(".")[0]] = groups.get(bucket.split(".")[0], 0.0) \
+            + v
+    path = " -> ".join(f"{r['task']}@{r['lane']}({r['run_s'] * 1e6:.0f}"
+                       f"+{(r['queue_s'] + r['overhead_s']) * 1e6:.0f}us)"
+                       for r in doc["critical_path"])
+    # bind copies run before the first node and are no node's dependency:
+    # the chain head's wait, so overhead.dispatch, holds them
+    binds = [e for e in trace.events if e.note == "bind"]
+    if binds:
+        path += (f"; {len(binds)} bind copies "
+                 f"{(max(e.end_s for e in binds) - trace.t0) * 1e6:.0f} us "
+                 "from the call's start (in overhead.dispatch)")
+    print(f"obs: {label} explain: makespan {span * 1e3:.3f} ms (trace wall "
+          f"{trace.wall_s * 1e3:.3f} ms), buckets sum "
+          f"{doc['bucket_total_s'] * 1e3:.3f} ms (residual "
+          f"{100 * doc['residual_frac']:.4f}%); "
+          + json.dumps({g: f"{v * 1e6:.0f} us ({100 * v / span:.1f}%)"
+                        for g, v in groups.items()})
+          + "; by bucket "
+          + json.dumps({b: f"{v * 1e6:.0f} us"
+                        for b, v in doc["buckets"].items()})
+          + f"; critical path (run + wait) {path}; {card}")
+
+
+def _same_analysis(label, live, saved) -> None:
+    """The saved Chrome document's analysis against the live one: the same
+    critical path, the same buckets to a nanosecond (Chrome keeps
+    microseconds as floats)."""
+    if [r["task"] for r in saved["critical_path"]] \
+            != [r["task"] for r in live["critical_path"]]:
+        raise RuntimeError(f"{label}: the saved trace's critical path "
+                           "differs from the live one's")
+    if set(saved["buckets"]) != set(live["buckets"]) or any(
+            abs(saved["buckets"][b] - v) > 1e-9
+            for b, v in live["buckets"].items()):
+        raise RuntimeError(f"{label}: the saved trace's buckets differ from "
+                           "the live ones")
+
+
+def _obs_one_device(K, disp, device, card) -> dict:
+    """``image_pipeline`` and ``mixed_dag`` large on the warm slice-2
+    dispatcher, compiled with a fresh ``Telemetry``, OBS_RUNS sequential
+    calls each.  Returns workload -> launch counts of its calls."""
+    from repro_torch.exec import ExecutionTrace
+    from repro_torch.obs import Telemetry, analyze_chrome
+    from repro_torch.workloads import get_workload
+
+    counts = {}
+    for name in OBS_WORKLOADS:
+        built = get_workload(name).build("large", registry=disp.registry,
+                                         device=device)
+        refs = built.reference()
+        tel = Telemetry(run_id=f"obs-{name}")
+        traced = built.program.compile(devices=disp, bindings=built.bindings,
+                                       telemetry=tel)
+        disp.telemetry = None       # on for the traced program's calls only
+        plain = built.program.compile(devices=disp, bindings=built.bindings)
+        torch.cuda.synchronize()
+        disp.reset_stats()
+        zero_counts(K)
+        disp.telemetry = tel
+        rows = []
+        for _ in range(OBS_RUNS):
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            outs = traced()
+            torch.cuda.synchronize()
+            top = torch.cuda.max_memory_allocated(device)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            err = _check_outputs(f"obs {name}", outs, refs)
+            peak = traced.last_memory.peak_bytes()
+            rows.append(f"ledger {json.dumps(peak)}, allocator peak {top} B "
+                        f"({top - before} B above the call's start)")
+            if peak != traced.predicted_peak_bytes:
+                raise RuntimeError(
+                    f"obs {name}: sequential ledger peak {peak} differs from "
+                    f"the predicted {traced.predicted_peak_bytes}")
+        disp.telemetry = None
+        counts[name] = _hand_launches(f"one device {name}", K, disp)
+        live = traced.explain()
+        if abs(live["bucket_total_s"] - live["makespan_s"]) \
+                > 0.01 * live["makespan_s"]:
+            raise RuntimeError(f"obs {name}: explain's buckets sum to "
+                               f"{live['bucket_total_s']} s of a "
+                               f"{live['makespan_s']} s makespan")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            traced.last_trace.save_chrome(str(path), telemetry=tel)
+            doc = json.loads(path.read_text())
+        back = ExecutionTrace.from_chrome(doc)
+        _same_analysis(f"obs {name}", live, analyze_chrome(doc))
+        tracks = sum(1 for e in doc["traceEvents"] if e["ph"] == "C")
+        print(f"obs: one device {name} large, {OBS_RUNS} sequential calls: "
+              f"max abs err vs reference over max(1, |ref|) {err:.3g} "
+              f"(budget {PARITY_TOL}); predicted peak "
+              f"{json.dumps(traced.predicted_peak_bytes)} B, per call "
+              + "; ".join(rows) + f"; the Chrome round trip ({len(back.events)}"
+              f" events, {tracks} counter points) gives the live critical "
+              f"path and buckets; {card}")
+        _print_telemetry(f"one device {name}", tel, card)
+        _print_explain(f"one device {name}", live, traced.last_trace, card)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        if any(not torch.equal(o, w) for o, w in zip(outs, want)):
+            raise RuntimeError(f"obs {name}: outputs with telemetry differ "
+                               "from the program compiled without it")
+        share = {"without": [], "with": []}
+        for _ in range(OBS_PAIRS):
+            for key, prog, t in (("without", plain, None),
+                                 ("with", traced, tel)):
+                disp.telemetry = t
+                disp.reset_stats()
+                prog()
+                torch.cuda.synchronize()
+                share[key].append(disp.stats().get("steady_overhead_pct",
+                                                   float("nan")))
+        disp.telemetry = None
+        print(f"obs: one device {name}: outputs with telemetry equal those "
+              f"without bit for bit; steady_overhead_pct in turns, without "
+              f"telemetry " + ", ".join(f"{v:.1f}" for v in share["without"])
+              + "; with " + ", ".join(f"{v:.1f}" for v in share["with"])
+              + f" (information only); {card}")
+    return counts
+
+
+def _obs_two_devices(K, ctx, card) -> dict:
+    """``mixed_dag`` large over slice 4's ``cuda:0`` + ``cpu`` pair under the
+    async executor with a fresh ``Telemetry``: lane utilisation, queue and
+    transfer waits and explain's buckets (the attribution of fault 1), the
+    ledger peaks within OBS_BOUND of predicted, then one sequential call
+    for comparison.  Returns the async calls' launch counts."""
+    from repro_torch.exec import copy_to_dst
+    from repro_torch.obs import Telemetry
+    from repro_torch.workloads import get_workload
+
+    disps, comm = ctx["disps"], ctx["comm"]
+    card_disp = disps["cuda:0"]
+    built = get_workload("mixed_dag").build(
+        "large", registry=disps["cpu"].registry, device="cpu")
+    refs = built.reference()
+    tel = Telemetry(run_id="obs-mixed_dag-two-devices")
+    compiled = built.program.compile(devices=disps, bindings=built.bindings,
+                                     comm=comm, transfer=copy_to_dst,
+                                     executor="async", telemetry=tel)
+    walls, peaks = [], []
+    try:
+        for disp in disps.values():
+            disp.reset_stats()
+        zero_counts(K)
+        for _ in range(EXEC_RUNS):
+            t0 = time.perf_counter()
+            outs = compiled()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            err = _check_outputs("obs two devices mixed_dag async",
+                                 tuple(o.cpu() for o in outs), refs)
+            peak = compiled.last_memory.peak_bytes()
+            peaks.append(peak)
+            for dev, got in peak.items():
+                want = compiled.predicted_peak_bytes[dev]
+                if not want / OBS_BOUND <= got <= OBS_BOUND * want:
+                    raise RuntimeError(
+                        f"obs two devices: async ledger peak on {dev} {got} "
+                        f"B is outside {OBS_BOUND}x of the predicted {want}")
+        counts = _hand_launches("two devices mixed_dag async", K, card_disp)
+        doc = compiled.explain()
+        trace = compiled.last_trace
+        hists = tel.summary()["histograms"]
+        waits = {n: f"p50 {h['p50'] * 1e6:.0f} us, p99 "
+                    f"{h['p99'] * 1e6:.0f} us, n {h['count']}"
+                 for n, h in hists.items()
+                 if n.startswith(("exec.transfer_wait_s", "exec.task_wait_s"))
+                 and h["count"]}
+        depth = {n.removeprefix("exec.queue_depth."):
+                 max(v for _, v in tel.series(n))
+                 for n in tel.series_names()
+                 if n.startswith("exec.queue_depth.")}
+        lanes = {lane: f"{u['n_tasks']} tasks, busy {100 * u['busy_frac']:.1f}"
+                       f"%, wait {100 * u['wait_frac']:.1f}%, idle "
+                       f"{100 * u['idle_frac']:.1f}%"
+                 for lane, u in doc["lanes"].items()}
+        nodes = {e.name: f"{e.device}/{e.dur_s * 1e6:.0f}us"
+                 for e in trace.by_start() if e.kind == "compute"}
+        on_cpu = [n for n in compiled.assignments
+                  if compiled.device_of(n) == "cpu"]
+        print(f"obs: two devices mixed_dag large planned with "
+              f"{len(on_cpu)} of {len(compiled.assignments)} nodes on cpu "
+              f"{on_cpu}, {len(compiled.transfers)} planned transfers; "
+              f"{card}")
+        print(f"obs: two devices mixed_dag large async, {EXEC_RUNS} calls: "
+              f"walls " + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+              + f" ms; max abs err vs reference over max(1, |ref|) {err:.3g}"
+              f" (budget {PARITY_TOL}); ledger peaks per call "
+              + json.dumps(peaks) + " B against predicted "
+              + json.dumps(compiled.predicted_peak_bytes)
+              + f" B (bound {OBS_BOUND}x); {card}")
+        print(f"obs: two devices async last call: lanes {json.dumps(lanes)}; "
+              f"max queue depth {json.dumps(depth)}; waits "
+              f"{json.dumps(waits)}; node=lane/time {json.dumps(nodes)}; "
+              f"{card}")
+        _print_telemetry("two devices", tel, card)
+        _print_explain("two devices async", doc, trace, card)
+        t0 = time.perf_counter()
+        compiled(_executor="sequential")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = compiled.last_memory.peak_bytes()
+        if peak != compiled.predicted_peak_bytes:
+            raise RuntimeError(f"obs two devices: sequential ledger peak "
+                               f"{peak} differs from the predicted "
+                               f"{compiled.predicted_peak_bytes}")
+        print(f"obs: two devices sequential call for comparison: wall "
+              f"{wall * 1e3:.3f} ms, ledger peak equal to predicted; {card}")
+        _print_explain("two devices sequential", compiled.explain(),
+                       compiled.last_trace, card)
+    finally:
+        compiled.close()
+        for disp in disps.values():
+            disp.telemetry = None
+        comm.telemetry = None
+    return counts
 
 
 def phase_main_path(K, device) -> dict:
-    """Each path through its own dispatcher over a fresh cache; returns
-    path label -> kernel -> launches in that path's run."""
+    """Each path through its own dispatcher over a fresh cache, then the
+    obs path over the slice-2 and slice-4 dispatchers; returns path label
+    -> kernel -> launches in that path's run."""
     from repro_torch.api import ops, use_dispatcher
     from repro_torch.runtime import (Dispatcher, TuningCache,
                                      current_fingerprint, default_registry)
 
     gen = torch.Generator(device=device).manual_seed(1)
     by_path = {}
+    disps = {}
+    card = card_line()
     with tempfile.TemporaryDirectory() as root:
         fp = current_fingerprint("cuda")
         print(f"main: fingerprint {fp.key}")
         for label, hand, fitted, warm, workloads, after in PATHS:
             cache_dir = str(Path(root) / label.replace(" ", "_"))
-            disp = Dispatcher(default_registry(), TuningCache(cache_dir, fp))
+            disp = disps[label] = Dispatcher(default_registry(),
+                                             TuningCache(cache_dir, fp))
             zero_counts(K)
             t0 = time.perf_counter()
             with use_dispatcher(disp):
@@ -1407,8 +1780,18 @@ def phase_main_path(K, device) -> dict:
                     raise RuntimeError(f"{kernel}: the {label} path never "
                                        "launched its hand kernel")
             by_path[label] = counts
-        counts, picks = _slice4(K, device, root, fp)
+        counts, picks, ctx = _slice4(K, device, root, fp)
         by_path.update(counts)
+        _omp_wait_probe(root, card)
+        for name, c in _obs_one_device(K, disps["slice 2"], device,
+                                       card).items():
+            by_path[f"obs {name}"] = c
+        by_path["obs two devices"] = _obs_two_devices(K, ctx, card)
+        # the predictor may pick only library variants on one workload
+        # (the card's picks after slice 4's refits, say), not on all
+        if not any(c[k] for label, c in by_path.items()
+                   if label.startswith("obs ") for k in HAND):
+            raise RuntimeError("the obs path launched no hand kernel")
     # on the exec path the card's dispatcher decides which kernels run: a
     # pick of a hand variant (pallas_*) launches its kernel at least once,
     # a pick of a library variant launches none of the hand kernels
@@ -1856,7 +2239,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no port beside this script ({src / 'repro_torch'}"
+              " is missing); run it from a checkout of the repo",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    if sys.argv[1:2] == ["--contention-child"]:
+        return contention_child(sys.argv[2])
     from repro_torch.kernels import build
     from repro_torch.kernels.blur import blur as bk
     from repro_torch.kernels.conv2d import conv2d as mc

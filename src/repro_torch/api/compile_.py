@@ -51,9 +51,15 @@ where the operands happen to be.  All work on a card goes to its default
 stream: the dispatcher synchronises the card after every call to time
 it, which waits for copies on it too.
 
-Not ported yet: ``telemetry=`` and ``explain()`` raise until the port's
-obs slice, which also brings the compile-time memory plan and capacity
-check (``last_memory`` stays None).
+Every compiled program carries its memory plan (``obs.memory``): the
+predicted per-device peak from the frozen order, checked at compile time
+against any dispatcher's advertised ``capacity_bytes``, and per call a
+``MemoryLedger`` (``last_memory``) that accounts bound inputs at their
+planned homes from the run's start (a bind copy moves an input there, it
+adds no residency), and each node and planned transfer as it completes.
+``telemetry=`` threads an ``obs.Telemetry`` through the dispatchers, the
+comm model, the refiners and the executor, and ``explain()`` attributes
+the last call's makespan (``obs.explain``).
 
 Input shape specs are *bucketed*: a call whose shapes fall in the same
 ``runtime.cache.shape_class`` as the compiled specs reuses the schedule
@@ -80,11 +86,12 @@ from repro_torch.exec.executor import (AsyncExecutor, ExecTask, LanePool,
                                        StealPolicy)
 from repro_torch.exec.trace import ExecutionTrace
 from repro_torch.kernels import Aval
+from repro_torch.obs.memory import (MemoryLedger, check_capacity, fold_memory,
+                                    memory_plan, predicted_peak_bytes)
 from repro_torch.runtime.cache import shape_bucket, shape_class
 from repro_torch.runtime.online import OnlineConfig, OnlineRefiner
 
 EXECUTORS = ("sequential", "async", "adaptive")
-_OBS = "the port's obs slice (telemetry, explain, the memory plan)"
 
 
 def _resolve_devices(devices, policy) -> dict:
@@ -144,10 +151,16 @@ def compile_program(program: Program, devices=None, policy=None,
     enables execution-time feedback: ``True`` or a
     ``runtime.online.OnlineConfig`` builds one ``OnlineRefiner`` per
     device over that device's tuning cache, fed the actual duration of
-    every completed node.  ``telemetry`` raises until the obs slice."""
+    every completed node.
+
+    ``telemetry`` is a ``repro_torch.obs.Telemetry`` threaded through every
+    decision point of this compiled program: the device dispatchers
+    (decision counters, gate events, per-kernel residuals — attached only
+    where none is set, an explicitly instrumented dispatcher keeps its
+    own), the comm model, the per-device refiners (refit events), the
+    executor (steals, queue depths, transfer waits), and each call's
+    predicted-vs-realized makespan."""
     _check_executor(executor)
-    if telemetry is not None:
-        raise NotImplementedError(f"telemetry= comes with {_OBS}")
     dispatchers = _resolve_devices(devices, policy)
     real = sorted(n for n in dispatchers if lane_device(n) is not None)
     if real and len(dispatchers) > 1 and transfer is None:
@@ -157,6 +170,13 @@ def compile_program(program: Program, devices=None, policy=None,
             "(repro_torch.exec.copy_to_dst)")
     for disp in dispatchers.values():
         program.check(disp.registry)
+    if telemetry is not None:
+        for disp in dispatchers.values():
+            if getattr(disp, "telemetry", None) is None:
+                disp.telemetry = telemetry
+        if hasattr(comm, "comm_fn") and \
+                getattr(comm, "telemetry", None) is None:
+            comm.telemetry = telemetry
     tasks = program.to_kernel_tasks()
     predict = predictor_from_runtime(dispatchers)
     comm_fn = comm.comm_fn() if hasattr(comm, "comm_fn") else comm
@@ -167,18 +187,30 @@ def compile_program(program: Program, devices=None, policy=None,
     if online:
         config = online if isinstance(online, OnlineConfig) else \
             OnlineConfig()
-        refiners = {name: OnlineRefiner(disp.cache, config)
+        refiners = {name: OnlineRefiner(disp.cache, config,
+                                        telemetry=telemetry)
                     for name, disp in dispatchers.items()}
     buffers = plan_buffers(program, assignments, input_homes=homes,
                            topology=topology)
+    order = execution_order(tasks, assignments)
+    # the memory ledger's compile half: derive the accounting plan from
+    # the value homes, replay it over the frozen order for the predicted
+    # per-device peak, and refuse placements that cannot fit a device's
+    # advertised capacity — typed failure now beats an OOM mid-run
+    plan = memory_plan(program, buffers)
+    predicted_peak = predicted_peak_bytes(plan, order, buffers)
+    check_capacity(predicted_peak, dispatchers)
     return CompiledProgram(program=program, dispatchers=dispatchers,
                            assignments=assignments,
                            bindings=dict(bindings or {}),
-                           order=execution_order(tasks, assignments),
+                           order=order,
                            executor=executor, comm=comm_fn,
                            buffers=buffers,
                            transfer=transfer, topology=topology,
-                           steal=steal, refiners=refiners)
+                           steal=steal, refiners=refiners,
+                           telemetry=telemetry,
+                           memory=plan,
+                           predicted_peak_bytes=predicted_peak)
 
 
 def _check_on_lane(name: str, values, lane: str) -> None:
@@ -220,9 +252,14 @@ class CompiledProgram:
     steal: Optional[StealPolicy] = None   # adaptive re-dispatch policy
     refiners: dict = dataclasses.field(default_factory=dict)
     #   device name -> OnlineRefiner; non-empty enables execution feedback
+    telemetry: Optional[object] = None    # obs.Telemetry (or None):
+    #   per-call predicted-vs-realized makespan + executor decision events
+    memory: Optional[object] = None       # obs.memory.MemoryPlan: the
+    #   plan-derived ref-count table both ledger sides account from
+    predicted_peak_bytes: dict = dataclasses.field(default_factory=dict)
+    #   device -> compile-time predicted peak bytes (EFT-order replay)
     last_trace: Optional[ExecutionTrace] = None  # set by every execution
-    last_memory: Optional[object] = None  # the measured memory ledger:
-    #   None until the port's obs slice
+    last_memory: Optional[MemoryLedger] = None   # measured ledger, per call
 
     @property
     def makespan(self) -> float:
@@ -245,7 +282,8 @@ class CompiledProgram:
         predicted duration in *wall* units (sim dispatchers sleep
         ``predicted * time_scale``), and the planned device's fit-time
         error band for the kernel when its cache entry carries one.
-        Built once per compiled program."""
+        Built once per compiled program; ``obs.explain`` reads it back out
+        of the trace."""
         metas = getattr(self, "_task_metas", None)
         if metas is not None:
             return metas
@@ -278,9 +316,13 @@ class CompiledProgram:
         return metas
 
     def explain(self):
-        """Causal critical-path analysis of the last execution: comes with
-        the port's obs slice."""
-        raise NotImplementedError(f"explain() comes with {_OBS}")
+        """Causal critical-path analysis of the last execution (see
+        ``repro_torch.obs.explain.analyze_trace``)."""
+        from repro_torch.obs.explain import analyze_trace
+        if self.last_trace is None or not self.last_trace.events:
+            raise ValueError("no execution recorded yet — call the "
+                             "compiled program first")
+        return analyze_trace(self.last_trace)
 
     def gantt(self) -> list[dict]:
         """Schedule rows (sorted by predicted start) for reports/CSV."""
@@ -366,10 +408,13 @@ class CompiledProgram:
         live = dataclasses.replace(tr, nbytes=value_nbytes(v.shape, v.dtype))
         return self.transfer(v, live)
 
-    def _run_sequential(self, env, tracer: ExecutionTrace) -> None:
+    def _run_sequential(self, env, tracer: ExecutionTrace,
+                        ledger=None) -> None:
         """The reference bridge: frozen start-time order, calling thread;
         each planned transfer is paid once, just before its first
-        consumer."""
+        consumer — the event order the compile-time predicted peak
+        replayed, so sequential measured peaks match the prediction
+        exactly."""
         node_by = {n.name: n for n in self.program.nodes}
         metas = self.task_meta()
         landed: dict = {}               # transfer name -> moved value
@@ -389,6 +434,8 @@ class CompiledProgram:
                                   time.perf_counter(),
                                   deps=(d,) if d in node_by else (),
                                   meta=metas.get(tr.name))
+                    if ledger is not None:
+                        ledger.transfer_done(tr.name)
                 vals.append(landed[tr.name])
             _check_on_lane(task.name, vals, dev)
             t0 = time.perf_counter()
@@ -398,6 +445,8 @@ class CompiledProgram:
                           time.perf_counter(),
                           deps=tuple(d for d in node.deps if d in node_by),
                           meta=metas.get(task.name))
+            if ledger is not None:
+                ledger.node_done(task.name)
 
     # -- adaptive helpers ----------------------------------------------------
     @staticmethod
@@ -583,18 +632,40 @@ class CompiledProgram:
         if pool is not None:
             pool.close()
 
-    def _run_async(self, env, tracer: ExecutionTrace) -> None:
-        results = AsyncExecutor(tracer=tracer).run(
+    @staticmethod
+    def _memory_hook(ledger) -> Optional[Callable]:
+        """Executor ``(task, lane) -> None`` hook routing completions into
+        the run's ledger.  Keyed by task name against the *plan* (stolen
+        tasks account at their planned home — value homes are plan
+        properties, a steal's inline move is extra traffic, not a
+        re-homing)."""
+        if ledger is None:
+            return None
+
+        def hook(task: ExecTask, lane: str) -> None:
+            if task.kind == "transfer":
+                ledger.transfer_done(task.name)
+            else:
+                ledger.node_done(task.name)
+        return hook
+
+    def _run_async(self, env, tracer: ExecutionTrace, ledger=None) -> None:
+        results = AsyncExecutor(tracer=tracer,
+                                telemetry=self.telemetry,
+                                memory=self._memory_hook(ledger)).run(
             self._exec_tasks(env), lane_width=self._lane_widths(),
             pool=self.lane_pool())
         for node in self.program.nodes:
             env[node.name] = results[node.name]
 
-    def _run_adaptive(self, env, tracer: ExecutionTrace) -> None:
+    def _run_adaptive(self, env, tracer: ExecutionTrace,
+                      ledger=None) -> None:
         executor = AsyncExecutor(tracer=tracer,
                                  steal=self.steal or StealPolicy(),
                                  comm=self.comm,
-                                 observe=self._observe_hook())
+                                 observe=self._observe_hook(),
+                                 telemetry=self.telemetry,
+                                 memory=self._memory_hook(ledger))
         results = executor.run(self._exec_tasks(env, adaptive=True),
                                lane_width=self._lane_widths(),
                                pool=self.lane_pool())
@@ -610,17 +681,33 @@ class CompiledProgram:
         mode = _executor or self.executor
         _check_executor(mode)
         env = self._bind(args, named)
+        ledger = None
+        if self.memory is not None:
+            ledger = MemoryLedger(self.memory, telemetry=self.telemetry)
+            self.last_memory = ledger
+            ledger.start()
+        t0 = time.perf_counter()
         tracer = ExecutionTrace()
         # installed up front so a mid-run failure leaves the partial trace
         # (the events up to the dying node), not the previous run's
         self.last_trace = tracer
-        tracer.set_epoch(time.perf_counter())
+        tracer.set_epoch(t0)
         self._place_inputs(env, tracer)
         if mode == "adaptive":
-            self._run_adaptive(env, tracer)
+            self._run_adaptive(env, tracer, ledger)
         elif mode == "async":
-            self._run_async(env, tracer)
+            self._run_async(env, tracer, ledger)
         else:
-            self._run_sequential(env, tracer)
+            self._run_sequential(env, tracer, ledger)
+        fold_memory(self.telemetry, ledger, self.predicted_peak_bytes)
+        if self.telemetry is not None:
+            wall = time.perf_counter() - t0
+            predicted = self.makespan
+            self.telemetry.observe("program.wall_s", wall)
+            self.telemetry.instant(
+                f"makespan:{mode}", cat="makespan", executor=mode,
+                predicted_s=float(predicted), realized_s=float(wall),
+                ape_pct=100.0 * abs(wall - predicted)
+                / max(abs(wall), 1e-12))
         outs = tuple(env[o] for o in self.program.outputs)
         return outs[0] if len(outs) == 1 else outs

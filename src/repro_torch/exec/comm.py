@@ -122,10 +122,15 @@ def _synchronize(*names: str) -> None:
 
 class CommModel:
     """Per-device-pair bytes->seconds predictor backed by a tuning cache.
-    (Prediction counters and histograms come with the port's obs slice.)"""
 
-    def __init__(self, cache: Optional[TuningCache] = None):
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) counts predictions and
+    recorded rows per pair and keeps a predicted-seconds histogram — how
+    often (and how expensively) the scheduler/steal rule priced each
+    link."""
+
+    def __init__(self, cache: Optional[TuningCache] = None, telemetry=None):
         self.cache = cache or TuningCache()
+        self.telemetry = telemetry
 
     def _entry(self, src: str, dst: str):
         return self.cache.entry(transfer_kernel(src, dst),
@@ -139,6 +144,8 @@ class CommModel:
         entry = self._entry(src, dst)
         entry.add_rows(np.asarray([[float(nbytes), float(nbytes)]]),
                        [seconds], shape_bucket({"bytes": nbytes}))
+        if self.telemetry is not None:
+            self.telemetry.count(f"comm.recorded.{src}->{dst}")
 
     def fit(self, src: str, dst: str) -> None:
         entry = self._entry(src, dst)
@@ -185,7 +192,11 @@ class CommModel:
                 "measure_pair (or record+fit) for this device pair first")
         entry = self._entry(src, dst)
         row = np.asarray([[float(nbytes), float(nbytes)]])
-        return float(entry.predict(row)[0])
+        seconds = float(entry.predict(row)[0])
+        if self.telemetry is not None:
+            self.telemetry.count(f"comm.predictions.{src}->{dst}")
+            self.telemetry.observe("comm.predicted_s", seconds)
+        return seconds
 
     def comm_fn(self) -> Callable[[str, str, float], float]:
         """The ``comm(src, dst, nbytes) -> seconds`` callable the EFT

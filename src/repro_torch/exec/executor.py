@@ -47,9 +47,7 @@ lane slot's loop to that slot's thread in a pool.  On a card a thread's
 first library call sets up per-thread state (a cuDNN or cuBLAS handle,
 the current device) that costs milliseconds; a pool that lives across
 runs (each compiled program keeps one) pays it once, not once per run.  A
-run given no pool makes one of its own and closes it at its end.  The
-run-scoped telemetry of the JAX executor (queue depths, waits, steal
-instants) comes with the port's obs slice.
+run given no pool makes one of its own and closes it at its end.
 """
 from __future__ import annotations
 
@@ -236,9 +234,12 @@ class AsyncExecutor:
     prices moves at zero); ``observe(task, device, seconds)`` is called
     after every completed compute task — the online-feedback hook
     ``repro_torch.api`` wires to ``runtime.online.OnlineRefiner.observe``.
-    ``memory(task, lane)`` is called after every completed task, before
-    its dependents fire (the memory ledger's hook; the port's compiled
-    programs leave it None until the obs slice).
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) makes the run
+    observable: per-lane queue-depth gauge series, queue-wait histograms
+    (transfers keyed by their bus/link lane), and steal instants carrying
+    the priced alternatives the decision weighed.  ``memory(task, lane)``
+    is called after every completed task, before its dependents fire (the
+    memory ledger's hook).
     """
 
     def __init__(self, tracer: Optional[ExecutionTrace] = None,
@@ -247,12 +248,14 @@ class AsyncExecutor:
                  comm: Optional[Callable[[str, str, float], float]] = None,
                  observe: Optional[Callable[[ExecTask, str, float],
                                             None]] = None,
+                 telemetry=None,
                  memory: Optional[Callable[[ExecTask, str], None]] = None):
         self.tracer = tracer
         self.clock = clock
         self.steal = steal
         self.comm = comm
         self.observe = observe
+        self.telemetry = telemetry
         # memory-ledger hook: called (task, lane) after EVERY completed
         # task (compute and transfer), before dependents fire — the
         # ordering guarantee the ref-counted accounting relies on (a
@@ -369,8 +372,9 @@ class AsyncExecutor:
 
     def _run(self, tasks: list, lane_width: Optional[Mapping[str, int]],
              pool: LanePool) -> dict:
-        # one run epoch, captured before any work: the Chrome trace and the
-        # Gantt CSV normalize against this single clock value
+        tel = self.telemetry
+        # one run epoch, captured before any work: Chrome trace, Gantt CSV
+        # and telemetry all normalize against this single clock value
         if self.tracer is not None:
             self.tracer.set_epoch(self.clock())
 
@@ -402,6 +406,7 @@ class AsyncExecutor:
         # drained).
         queued: dict = {lane: {} for lane in lanes}   # lane -> {name: est fn}
         running: dict = {}              # task name -> (lane, est fn, t_start)
+        enq_t: dict = {}                # task name -> enqueue clock time
 
         def _est_fn(task: ExecTask, lane: str):
             if task.predict is None:    # transfers / non-adaptive tasks
@@ -426,17 +431,29 @@ class AsyncExecutor:
 
         def enqueue(task: ExecTask) -> None:
             now = self.clock()
+            costs: dict = {}
             with lock:
                 state["seq"] += 1
                 seq = state["seq"]
                 if self.steal is not None:
-                    lane = self.decide_device(task, _load(now))
+                    lane, costs = self.price_decision(task, _load(now))
                 else:
                     lane = task.device
                 queued[lane][task.name] = _est_fn(task, lane)
-            if lane != task.device and self.tracer is not None:
-                self.tracer.record(f"steal:{task.name}", "steal", lane,
-                                   now, now, note=f"{task.device}->{lane}")
+                enq_t[task.name] = now
+                depth = len(queued[lane])
+            if lane != task.device:
+                if self.tracer is not None:
+                    self.tracer.record(f"steal:{task.name}", "steal", lane,
+                                       now, now,
+                                       note=f"{task.device}->{lane}")
+                if tel is not None:
+                    tel.count("exec.steals")
+                    tel.instant(f"steal:{task.name}", cat="steal",
+                                planned=task.device, chosen=lane,
+                                costs_s=costs)
+            if tel is not None:
+                tel.gauge(f"exec.queue_depth.{lane}", depth, t=now)
             queues[lane].put((task.priority, seq, task))
 
         def complete(task: ExecTask, value) -> None:
@@ -485,9 +502,22 @@ class AsyncExecutor:
                 now = self.clock()
                 with lock:
                     est = queued[lane].pop(task.name, None)
+                    t_enq = enq_t.pop(task.name, None)
+                    depth = len(queued[lane])
                     if not abort.is_set():
                         running[task.name] = (lane, est or (lambda: 0.0),
                                               now)
+                if tel is not None:
+                    tel.gauge(f"exec.queue_depth.{lane}", depth, t=now)
+                    if t_enq is not None:
+                        # queue wait: ready (deps resolved) -> lane free.
+                        # Transfers keyed per lane = the per-bus wait
+                        # histogram the contention model is judged by.
+                        wait = now - t_enq
+                        if task.kind == "transfer":
+                            tel.observe(f"exec.transfer_wait_s.{lane}", wait)
+                        else:
+                            tel.observe("exec.task_wait_s", wait)
                 if abort.is_set():
                     # abort cleanup: a skipped task's future must never be
                     # awaited into a hang — cancel it so readers raise
@@ -511,6 +541,8 @@ class AsyncExecutor:
                                        deps=task.deps,
                                        meta=dict(task.meta)
                                        if task.meta else None)
+                if tel is not None:
+                    tel.count(f"exec.{task.kind}_done")
                 if self.observe is not None and task.kind == "compute":
                     try:
                         self.observe(task, lane, t1 - t0)

@@ -18,11 +18,14 @@ side.
 
 All timestamps are raw clock values (``time.perf_counter`` by default)
 normalized at export against one *run epoch*: the executor captures
-``set_epoch(clock())`` once at run start, so the Chrome trace and the
-Gantt CSV share a single time base instead of each export re-deriving its
-own zero from whichever event happened to start first.  Merging run
-telemetry into the Chrome document (``to_chrome(telemetry=...)`` in the
-JAX package) comes with the port's obs slice; until then it raises.
+``set_epoch(clock())`` once at run start, so the Chrome trace, the Gantt
+CSV, and any ``obs.Telemetry`` recorded during the same run share
+a single time base instead of each export re-deriving its own zero from
+whichever event happened to start first.  ``to_chrome(telemetry=...)``
+merges that telemetry in: gauge series become Chrome counter tracks
+("C" events — queue depths, rolling MAPE) and telemetry span/instant
+events land on a dedicated ``telemetry`` thread row, all on the shared
+clock next to the task slices.
 
 Each event also carries its *causality*: ``deps`` (the names of the
 tasks it waited on) and ``meta`` (free-form schedule context — kernel,
@@ -30,9 +33,9 @@ shape bucket, predicted seconds — attached by ``api.compile_``).  The
 Chrome export embeds both in ``args`` and additionally emits flow events
 ("s"/"f" arrow pairs) along every dependency edge, so Perfetto draws the
 critical chain instead of just lanes; ``from_chrome`` rebuilds a trace
-from a saved document, so a trace can be analysed long after the run
-that produced it.  The document has the JAX package's format, so each
-package's ``from_chrome`` reads the other's.
+from a saved document, which is how ``obs.explain`` analyzes traces long
+after the run that produced them.  The document has the JAX package's
+format, so each package's ``from_chrome`` reads the other's.
 """
 from __future__ import annotations
 
@@ -52,7 +55,8 @@ class TraceEvent:
     note: str = ""              # steal annotation ("planned->actual", ...)
     deps: tuple = ()            # names of the tasks this one waited on
     meta: Optional[dict] = None  # schedule context (kernel, shape bucket,
-    #   predicted seconds, ...) — attached by the lowering
+    #   predicted seconds, ...) — attached by the lowering, read by
+    #   obs.explain
 
     @property
     def dur_s(self) -> float:
@@ -70,7 +74,7 @@ class ExecutionTrace:
     def set_epoch(self, t: float) -> None:
         """Pin the run's time base (first caller wins — the executor calls
         this once at run start, before any event is recorded, so every
-        export shares one zero)."""
+        export and merged telemetry stream shares one zero)."""
         if self.epoch is None:
             self.epoch = float(t)
 
@@ -118,16 +122,18 @@ class ExecutionTrace:
         microseconds relative to the run epoch (or the first begin when no
         epoch was pinned).
 
+        ``telemetry`` (an ``obs.Telemetry`` recorded on the same
+        clock) folds in: every gauge series becomes a counter track ("C"
+        events — queue depth, rolling MAPE render as graphs above the
+        lanes) and telemetry instants/spans land on one extra
+        ``telemetry`` thread row (refits, gate rejections next to the
+        steal instants and task slices they explain).
+
         Task events embed ``deps``/``meta`` in ``args`` and every
         dependency edge additionally emits one flow-event pair ("s" at
         the producer's end, "f" with ``bp:"e"`` at the consumer's begin),
         so Perfetto renders the causal arrows and ``from_chrome`` can
-        rebuild the full dependency DAG from the saved file.
-        ``telemetry`` must be None until the port's obs slice."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "merging telemetry into a trace comes with the port's obs "
-                "slice")
+        rebuild the full dependency DAG from the saved file."""
         t0 = self.t0
         lanes = {d: i for i, d in enumerate(self.devices())}
         events = [{"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
@@ -174,6 +180,8 @@ class ExecutionTrace:
                                "bp": "e", "id": flow_id, "pid": 0,
                                "tid": lanes[e.device],
                                "ts": (e.begin_s - t0) * 1e6})
+        if telemetry is not None:
+            events += self._telemetry_events(telemetry, t0, len(lanes))
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     @classmethod
@@ -181,7 +189,7 @@ class ExecutionTrace:
         """Rebuild a trace from a saved Chrome document (epoch 0, times in
         seconds relative to the original run epoch).  Task spans, steal
         instants, deps, and meta round-trip; telemetry counter tracks and
-        instants the JAX package merges into its documents are skipped —
+        instants merged by ``to_chrome(telemetry=...)`` are skipped —
         they are not task events."""
         tid_names = {}
         for ev in doc.get("traceEvents", ()):
@@ -207,6 +215,29 @@ class ExecutionTrace:
                           note=args.get("note", ""))
         return tr
 
+    @staticmethod
+    def _telemetry_events(telemetry, t0: float, tid: int) -> list:
+        events = [{"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
+                   "cat": "__metadata", "args": {"name": "telemetry"}}]
+        for name in telemetry.series_names():
+            for t, v in telemetry.series(name):
+                events.append({"name": name, "ph": "C", "pid": 0,
+                               "ts": (t - t0) * 1e6,
+                               "args": {"value": v}})
+        for e in telemetry.events():
+            if e["ph"] == "instant":
+                ev = {"name": e["name"], "cat": e["cat"], "ph": "i",
+                      "s": "t", "pid": 0, "tid": tid,
+                      "ts": (e["t0"] - t0) * 1e6}
+            else:
+                ev = {"name": e["name"], "cat": e["cat"], "ph": "X",
+                      "pid": 0, "tid": tid, "ts": (e["t0"] - t0) * 1e6,
+                      "dur": (e["t1"] - e["t0"]) * 1e6}
+            if e.get("args"):
+                ev["args"] = dict(e["args"])
+            events.append(ev)
+        return events
+
     def to_gantt_csv(self) -> str:
         """Measured-timeline CSV (task,kind,device,start_s,finish_s) —
         aligned with the predicted-schedule Gantt except that column 2 is
@@ -218,9 +249,9 @@ class ExecutionTrace:
                          f"{e.begin_s - t0:.9f},{e.end_s - t0:.9f}")
         return "\n".join(lines) + "\n"
 
-    def save_chrome(self, path: str) -> None:
+    def save_chrome(self, path: str, telemetry=None) -> None:
         with open(path, "w") as f:
-            json.dump(self.to_chrome(), f, indent=1)
+            json.dump(self.to_chrome(telemetry=telemetry), f, indent=1)
 
     def save_gantt_csv(self, path: str) -> None:
         with open(path, "w") as f:

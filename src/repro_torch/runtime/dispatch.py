@@ -81,7 +81,8 @@ class Selection:
 class Dispatcher:
     def __init__(self, registry: Optional[KernelRegistry] = None,
                  cache: Optional[TuningCache] = None,
-                 policy: Optional[DispatchPolicy] = None):
+                 policy: Optional[DispatchPolicy] = None,
+                 telemetry=None):
         self.registry = registry or default_registry()
         self.cache = cache or TuningCache()
         self.policy = policy or DispatchPolicy()
@@ -89,6 +90,11 @@ class Dispatcher:
             refit_every=self.policy.refit_every,
             refit_epochs=self.policy.refit_epochs)) \
             if self.policy.online else None
+        # run-scoped observability (repro_torch.obs.Telemetry); None costs
+        # one pointer test per dispatch.  The setter mirrors it into the
+        # refiner so refit events land in the same stream, also when it is
+        # attached after construction (after a warm-up, say)
+        self.telemetry = telemetry
         self.n_predicted = 0
         self.n_measured = 0
         self.n_gated = 0
@@ -105,6 +111,16 @@ class Dispatcher:
         self._entries: dict[str, object] = {}
 
     # -- helpers -------------------------------------------------------------
+    @property
+    def telemetry(self):
+        return self._telemetry
+
+    @telemetry.setter
+    def telemetry(self, tel) -> None:
+        self._telemetry = tel
+        if self.refiner is not None:
+            self.refiner.telemetry = tel
+
     def _entry(self, kernel: str):
         e = self._entries.get(kernel)
         if e is None:
@@ -147,6 +163,7 @@ class Dispatcher:
     # -- the dispatch path ---------------------------------------------------
     def dispatch(self, kernel: str, *args, **kwargs):
         t0 = time.perf_counter()
+        tel = self._telemetry
         rk = self.registry.get(kernel)
         params = rk.params_of(*args, **kwargs)
         bucket = shape_bucket(params)
@@ -172,10 +189,15 @@ class Dispatcher:
                 order = np.argsort(pred)
                 gate = self.policy.confidence_gate \
                     and bucket not in entry.buckets
-                if not gate or self._confident(pred, order, kernel, entry):
+                confident, spread, band = (True, None, None) if not gate \
+                    else self._gate_eval(pred, order, kernel, entry)
+                if confident:
                     idx = int(order[0])
                     mode = "predicted"
                     self.n_predicted += 1
+                    if gate and tel is not None:
+                        tel.count("gate.accept")
+                        tel.count(f"gate.by_kernel.{kernel}.accept")
                 else:
                     # unseen shape class + near-tie: measure the top-2
                     cand = [int(i)
@@ -185,6 +207,14 @@ class Dispatcher:
                                                   candidates=cand)
                     mode = "gated"
                     self.n_gated += 1
+                    if tel is not None:
+                        tel.count("gate.reject")
+                        tel.count(f"gate.by_kernel.{kernel}.reject")
+                        tel.instant(f"gate:{kernel}", cat="gate",
+                                    kernel=kernel, reason="near_tie",
+                                    spread_pct=100.0 * spread,
+                                    band_pct=100.0 * band,
+                                    bucket=list(bucket))
                 # memoize either way — a gated dispatch stores the *measured*
                 # winner, so later calls of this shape reuse it instead of
                 # re-trusting the argmin the gate just judged unconfident
@@ -216,6 +246,20 @@ class Dispatcher:
             self.refiner.observe(
                 kernel, rows[idx], bucket, kernel_s,
                 predicted_s=predicted[chosen.name] if predicted else None)
+        if tel is not None:
+            tel.count(f"dispatch.{mode}")
+            # per-kernel decision mix, without touching the bounded
+            # Selection log
+            tel.count(f"dispatch.by_kernel.{kernel}.{mode}")
+            if memo_hit:
+                tel.count("dispatch.memo_hit")
+            tel.observe("dispatch.overhead_s", overhead)
+            tel.observe(f"kernel.{kernel}.s", kernel_s)
+            # drift: predicted-vs-actual for executions whose wall time is
+            # clean of one-off first-call costs (the refiner's rule)
+            if predicted is not None and (mode != "predicted" or memo_hit):
+                tel.residual(kernel, predicted[chosen.name], kernel_s,
+                             fit_band_pct=entry.fit_mape)
         self.selections.append(Selection(
             kernel=kernel, params=params, bucket=bucket, mode=mode,
             chosen=chosen.name, predicted_s=predicted, measured_s=measured,
@@ -224,15 +268,20 @@ class Dispatcher:
 
     __call__ = dispatch
 
-    def _confident(self, pred, order, kernel, entry) -> bool:
-        """Is the predicted best separated from the runner-up by more than
-        the model's error band?  Single-variant kernels are always
-        confident (there is nothing to mis-rank)."""
+    def _gate_eval(self, pred, order, kernel, entry) -> tuple:
+        """``(confident, spread, band)``: is the predicted best separated
+        from the runner-up by more than the model's error band?  Single-
+        variant kernels are always confident (there is nothing to
+        mis-rank)."""
         if len(pred) < 2:
-            return True
+            return True, 0.0, 0.0
         best, second = float(pred[order[0]]), float(pred[order[1]])
         spread = (second - best) / max(abs(best), 1e-12)
-        return spread > self._error_band(kernel, entry)
+        band = self._error_band(kernel, entry)
+        return spread > band, spread, band
+
+    def _confident(self, pred, order, kernel, entry) -> bool:
+        return self._gate_eval(pred, order, kernel, entry)[0]
 
     def _error_band(self, kernel, entry) -> float:
         """Relative model error: rolling MAPE when online observations

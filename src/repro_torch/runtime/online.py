@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.nnc import mape
 from repro_torch.runtime.cache import TRAIN_BUDGET_ROWS, TuningCache
 
 
@@ -41,9 +42,11 @@ class OnlineConfig:
 
 class OnlineRefiner:
     def __init__(self, cache: TuningCache,
-                 config: Optional[OnlineConfig] = None):
+                 config: Optional[OnlineConfig] = None, telemetry=None):
         self.cache = cache
         self.config = config or OnlineConfig()
+        self.telemetry = telemetry      # obs.Telemetry or None: refit
+        #   instants (with before/after model MAPE) + counters
         self._pending = defaultdict(int)       # rows since last refit
         self._apes = defaultdict(
             lambda: deque(maxlen=self.config.window))
@@ -65,6 +68,9 @@ class OnlineRefiner:
         self._pending[kernel] += 1
         if self._pending[kernel] >= self.config.refit_every \
                 and entry.n_rows >= 2:
+            tel = self.telemetry
+            # the before-MAPE model pass only runs when someone is watching
+            before = self._model_mape(entry) if tel is not None else None
             t0 = time.perf_counter()
             if self.config.model_factory is not None:
                 entry.fit(model=self.config.model_factory(),
@@ -78,6 +84,22 @@ class OnlineRefiner:
             self._pending[kernel] = 0
             self.refits[kernel] += 1
             self.refit_s[kernel] += time.perf_counter() - t0
+            if tel is not None:
+                rolling = self.rolling_mape(kernel)
+                tel.count("online.refits")
+                tel.instant(f"refit:{kernel}", cat="refit", kernel=kernel,
+                            before_mape_pct=before,
+                            after_mape_pct=self._model_mape(entry),
+                            rows=int(entry.n_rows),
+                            rolling_mape_pct=float(rolling)
+                            if np.isfinite(rolling) else None)
+
+    @staticmethod
+    def _model_mape(entry) -> Optional[float]:
+        """Model MAPE over the entry's current rows (None when unfitted)."""
+        if entry.model is None or entry.n_rows == 0:
+            return None
+        return float(mape(entry.y, entry.predict(entry.X)))
 
     def rolling_mape(self, kernel: str) -> float:
         """Mean absolute percentage error over the observation window

@@ -20,9 +20,6 @@ Two extensions serve the ``repro_torch.exec`` layer:
   ``CompiledProgram(transfer=...)``; ``measure_into`` runs the link
   through ``CommModel.measure_pair`` so the *measured* pseudo-kernel path
   is exercised end-to-end, not short-circuited with analytic numbers.
-
-The JAX package's ``capacity_bytes`` (a simulated device memory checked
-against the compile-time memory plan) comes with the port's obs slice.
 """
 from __future__ import annotations
 
@@ -42,11 +39,19 @@ from repro_torch.runtime.fingerprint import Fingerprint
 
 class SimDispatcher(Dispatcher):
     """Dispatcher that sleeps each kernel's predicted time before running
-    it — a device that is exactly as fast as its tuning cache claims."""
+    it — a device that is exactly as fast as its tuning cache claims.
 
-    def __init__(self, *args, time_scale: float = 1.0, **kwargs):
+    ``capacity_bytes`` advertises a finite device memory: ``compile_program``
+    checks the plan's predicted per-device peak against it and raises a
+    typed ``obs.memory.MemoryCapacityError`` for placements that cannot
+    fit (None — the default — is unconstrained)."""
+
+    def __init__(self, *args, time_scale: float = 1.0,
+                 capacity_bytes=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.time_scale = time_scale
+        self.capacity_bytes = None if capacity_bytes is None \
+            else int(capacity_bytes)
 
     def dispatch(self, kernel: str, *args, **kwargs):
         params = self.registry.get(kernel).params_of(*args, **kwargs)
@@ -60,10 +65,12 @@ def fake_matmul_device(root: str, name: str, flops_per_s: float,
                        registry, seed: int = 0,
                        simulate_time: bool = False,
                        time_scale: float = 1.0,
-                       policy=None) -> Dispatcher:
+                       policy=None, capacity_bytes=None) -> Dispatcher:
     """A matmul-tuned dispatcher running at ``flops_per_s`` sustained.
     With ``simulate_time`` the returned dispatcher also *takes* the
-    predicted time per dispatch (see ``SimDispatcher``).  The synthetic
+    predicted time per dispatch (see ``SimDispatcher``);
+    ``capacity_bytes`` bounds the simulated device's memory (enforced at
+    compile via the predicted memory peak).  The synthetic
     rows are drawn as the JAX package draws them, so both packages' caches
     predict alike."""
     fp = Fingerprint("sim", name, 1, 1, ("float32",))
@@ -81,8 +88,12 @@ def fake_matmul_device(root: str, name: str, flops_per_s: float,
     cache.save()
     if simulate_time:
         return SimDispatcher(registry=registry, cache=cache, policy=policy,
-                             time_scale=time_scale)
-    return Dispatcher(registry=registry, cache=cache, policy=policy)
+                             time_scale=time_scale,
+                             capacity_bytes=capacity_bytes)
+    disp = Dispatcher(registry=registry, cache=cache, policy=policy)
+    if capacity_bytes is not None:
+        disp.capacity_bytes = int(capacity_bytes)
+    return disp
 
 
 class SkewedSimDispatcher(Dispatcher):
@@ -102,13 +113,30 @@ class SkewedSimDispatcher(Dispatcher):
 
     def dispatch(self, kernel: str, *args, **kwargs):
         params = self.registry.get(kernel).params_of(*args, **kwargs)
-        time.sleep(self.true_time(kernel, params) * self.time_scale)
+        tel = self._telemetry
+        predicted = None
+        if tel is not None:
+            t0 = time.perf_counter()
+            predicted = float(self.predict_time(kernel, params))
+            overhead = time.perf_counter() - t0
+        true_s = self.true_time(kernel, params) * self.time_scale
+        time.sleep(true_s)
         aval = self.registry.out_aval(kernel, *args, **kwargs)
         device = next((a.device for a in args
                        if isinstance(a, torch.Tensor)), None)
-        return torch.zeros(tuple(aval.shape),
-                           dtype=getattr(torch, norm_dtype(aval.dtype)),
-                           device=device)
+        out = torch.zeros(tuple(aval.shape),
+                          dtype=getattr(torch, norm_dtype(aval.dtype)),
+                          device=device)
+        if tel is not None:
+            # predicted-vs-TRUE residuals are this dispatcher's whole
+            # point: the drift monitor flags the lying cache, and the
+            # live-MAPE counter track decays as online refits correct it
+            tel.count("dispatch.predicted")
+            tel.observe("dispatch.overhead_s", overhead)
+            tel.observe(f"kernel.{kernel}.s", true_s)
+            tel.residual(kernel, predicted * self.time_scale, true_s,
+                         fit_band_pct=self._entry(kernel).fit_mape)
+        return out
 
     __call__ = dispatch
 

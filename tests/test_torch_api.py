@@ -22,6 +22,7 @@ from repro.runtime import seed_from_programs as jseed
 from repro.workloads import get_workload as jget_workload
 from repro.workloads import suite_registry as jsuite_registry
 from repro_torch.api import Program, gantt_csv, ops, trace, use_dispatcher
+from repro_torch.obs import MemoryLedger, Telemetry
 from repro_torch.runtime import (Dispatcher, Fingerprint, TuningCache,
                                  current_fingerprint, seed_from_programs)
 from repro_torch.workloads import get_workload, suite_registry
@@ -211,20 +212,29 @@ def test_compile_contract(tmp_path, reg):
     d, (a, b, x) = _seeded(tmp_path, reg)
     with trace(registry=reg) as tb:
         ops.matmul(a, b)
-    # the exec slice's options compile and run; the obs slice's raise
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        tb.program.compile(devices=d, telemetry=object())
+    # every option compiles and runs, telemetry and explain included
     with pytest.raises(ValueError, match="executor must be one of"):
         tb.program.compile(devices=d, executor="threads")
+    tel = Telemetry()
     compiled = tb.program.compile(devices=d, bindings=tb.bindings,
-                                  comm=lambda s, t, n: 0.0, online=True)
+                                  comm=lambda s, t, n: 0.0, online=True,
+                                  telemetry=tel)
+    with pytest.raises(ValueError, match="no execution recorded"):
+        compiled.explain()
     want = compiled()
     for mode in ("async", "adaptive"):
         assert torch.equal(compiled(_executor=mode), want)
         assert [e.name for e in compiled.last_trace.events] == ["matmul_0"]
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        compiled.explain()
-    assert compiled.last_memory is None
+    doc = compiled.explain()
+    assert doc["critical_path"][0]["task"] == "matmul_0"
+    assert abs(doc["bucket_total_s"] - doc["makespan_s"]) \
+        <= 0.01 * doc["makespan_s"]
+    assert isinstance(compiled.last_memory, MemoryLedger)
+    assert compiled.last_memory.peak_bytes() == compiled.predicted_peak_bytes
+    assert d.telemetry is tel
+    assert tel.counters()["dispatch.predicted"] >= 3
+    assert [e["name"] for e in tel.events("makespan")] \
+        == ["makespan:sequential", "makespan:async", "makespan:adaptive"]
     # same shape class reuses the schedule; another class must re-trace
     small = compiled(torch.ones(47, 40), torch.ones(40, 32))
     assert tuple(small.shape) == (47, 32)

@@ -33,6 +33,7 @@ from repro_torch.core.scheduler import makespan, schedule
 from repro_torch.exec import (AsyncExecutor, CommModel, ExecTask,
                               ExecutionTrace, copy_to_dst, plan_buffers,
                               transfer_kernel, value_nbytes)
+from repro_torch.obs import Telemetry
 from repro_torch.runtime import (Dispatcher, DispatchPolicy, Fingerprint,
                                  TuningCache, bucket_dim, default_registry,
                                  seed_from_programs, shape_bucket,
@@ -189,9 +190,41 @@ def test_chrome_traces_round_trip_across_packages(writer):
     assert [e.name for e in back.steals()] == ["steal:b"]
 
 
-def test_port_trace_refuses_telemetry_until_the_obs_slice():
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        ExecutionTrace().to_chrome(telemetry=object())
+def test_port_trace_merges_telemetry_counter_tracks_and_instants():
+    """``to_chrome(telemetry=)`` adds one ``telemetry`` thread row: every
+    gauge point becomes a "C" counter event, instants and spans land on
+    that row, all on the trace's epoch; the task events are unchanged and
+    ``from_chrome`` skips the merged rows."""
+    ticks = iter(range(100))
+    tel = Telemetry(clock=lambda: float(next(ticks)))     # epoch 0.0
+    tr = ExecutionTrace()
+    tr.set_epoch(1.0)
+    tr.record("a", "compute", "d0", 1.0, 3.0)
+    tr.record("b", "compute", "d1", 2.0, 4.0, deps=("a",))
+    tel.gauge("exec.queue_depth.d0", 2)                   # t = 1
+    tel.gauge("exec.queue_depth.d0", 0)                   # t = 2
+    tel.instant("gate:matmul", cat="gate", kernel="matmul")   # t = 3
+    with tel.span("refit", cat="refit"):                  # t = 4 .. 5
+        pass
+    plain = tr.to_chrome()
+    doc = tr.to_chrome(telemetry=tel)
+    merged = doc["traceEvents"][len(plain["traceEvents"]):]
+    assert doc["traceEvents"][:len(plain["traceEvents"])] \
+        == plain["traceEvents"]
+    assert merged[0] == {"name": "thread_name", "ph": "M", "pid": 0,
+                         "tid": 2, "cat": "__metadata",
+                         "args": {"name": "telemetry"}}
+    assert [(e["ph"], e["ts"], e["args"]) for e in merged
+            if e["name"] == "exec.queue_depth.d0"] \
+        == [("C", 0.0, {"value": 2.0}), ("C", 1e6, {"value": 0.0})]
+    gate, = [e for e in merged if e["name"] == "gate:matmul"]
+    assert (gate["ph"], gate["s"], gate["tid"], gate["ts"], gate["args"]) \
+        == ("i", "t", 2, 2e6, {"kernel": "matmul"})
+    span, = [e for e in merged if e["name"] == "refit"]
+    assert (span["ph"], span["ts"], span["dur"]) == ("X", 3e6, 1e6)
+    back = ExecutionTrace.from_chrome(doc)
+    assert [(e.name, e.deps) for e in back.by_start()] \
+        == [("a", ()), ("b", ("a",))]
 
 
 # --------------------------------------------------------------------------
