@@ -104,7 +104,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    exceeds 1), and every hand kernel a path runs must have launched in it.
    cuDNN's TF32 default is left as PyTorch sets it: the port pins fp32
    itself.
-5. times   — each kernel at the workloads' shapes, timed with CUDA events
+5. bench   — the bench layer (``repro_torch.bench``) on the card, with the
+   launch counters zeroed just before and read just after: ``run_bench``
+   at ``large`` over the five workloads on the ``cuda`` config (every
+   variant of every distinct node measured on the card, the NN+C models
+   fitted, then each workload compiled and run under the best, default
+   and worst variant rules), printing the summary, per workload the three
+   walls, both speedups, the dispatch and executor shares, each kernel's
+   MAPE, the attribution buckets and the hand-kernel launches, and the
+   seconds the grid measurement and the fits took; it fails unless the
+   document validates, every wall is above 0, every kernel of a workload
+   has its MAPE and the matmul, matvec, conv2d and maxpool kernels
+   launched.  The speedups are printed, not gated.  Then ``simdev2``
+   quick with the adaptive section (best must beat worst in every
+   workload, adaptive must stay bit-exact), and the CLIs in process over
+   the two documents: ``bench compare`` (0 on itself, 1 against a
+   simulated copy with its best walls 2x slower, 0 for such a copy of the
+   real config, whose speedups are never thresholded), ``bench history``,
+   ``obs report`` over the adaptive telemetry and trace, ``obs cards``
+   (one card per measured kernel) and ``obs dashboard``; every file under
+   a temporary directory.
+6. times   — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -1811,6 +1831,223 @@ def phase_main_path(K, device) -> dict:
     return by_path
 
 
+BENCH_HAND = ("matmul", "matvec", "conv2d", "maxpool")   # dispatch-path
+#   hand kernels: each has pallas_* variants in the bench's registry
+
+
+def _cli(main, argv) -> tuple:
+    """``main(argv)`` in process: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _bench_cuda(K, tmp: Path, card: str) -> tuple:
+    """``run_bench`` over the five workloads at ``large`` on the ``cuda``
+    config.  Returns the document and the launch counts of the run."""
+    import repro_torch.bench.harness as harness
+    from repro_torch.bench import summarize, validate_bench
+    from repro_torch.runtime.cache import CacheEntry
+
+    spent = {"measure": 0.0, "fit": 0.0, "fits": 0}
+    per_workload, picks = {}, {}
+    measure, fit, run_workload = (harness.measure_from_programs,
+                                  CacheEntry.fit, harness._run_workload)
+
+    def timed_measure(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return measure(*args, **kw)
+        finally:
+            spent["measure"] += time.perf_counter() - t0
+
+    def timed_fit(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fit(self, *args, **kw)
+        finally:
+            spent["fit"] += time.perf_counter() - t0
+            spent["fits"] += 1
+
+    def counted_workload(name, built, cfg, *args, **kw):
+        before = launch_counts(K)
+        out = run_workload(name, built, cfg, *args, **kw)
+        after = launch_counts(K)
+        per_workload[name] = {k: after[k] - before[k] for k in BENCH_HAND}
+        # each mode's variant per node (the pinned rule's memoized choice)
+        picks[name] = {}
+        for mode, devmap in cfg["mode_maps"].items():
+            d = devmap["local"]
+            names = {n.kernel: d.registry.variant_names(n.kernel)
+                     for n in built.program.nodes}
+            picks[name][mode] = sorted({
+                f"{n.kernel}:"
+                f"{names[n.kernel][d._choose(n.kernel, n.params)[0]]}"
+                for n in built.program.nodes})
+        return out
+
+    harness.measure_from_programs = timed_measure
+    harness._run_workload = counted_workload
+    CacheEntry.fit = timed_fit
+    try:
+        zero_counts(K)
+        t0 = time.perf_counter()
+        doc = harness.run_bench(size="large", configs=("cuda",),
+                                adaptive=False,
+                                out_path=str(tmp / "bench.json"),
+                                results_dir=str(tmp))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts(K)
+    finally:
+        harness.measure_from_programs = measure
+        harness._run_workload = run_workload
+        CacheEntry.fit = fit
+    validate_bench(doc)
+    for line in summarize(doc):
+        print(f"bench: {line}")
+    print(f"bench: cuda large: run_bench {wall:.2f} s, of which "
+          f"measure_from_programs {spent['measure']:.2f} s (its NN+C fits "
+          f"included), {spent['fits']} NN+C fits {spent['fit']:.2f} s; "
+          f"{card}")
+    for name, w in doc["workloads"].items():
+        r = w["configs"]["cuda"]
+        walls = r["wall_s"]
+        if not all(walls[m] > 0 for m in ("best", "default", "worst")):
+            raise RuntimeError(f"bench {name}: a wall is not above 0: "
+                               f"{walls}")
+        if set(r["mape"]) != set(w["kernels"]):
+            raise RuntimeError(f"bench {name}: MAPE for {sorted(r['mape'])}"
+                               f", kernels {w['kernels']}")
+        att = r["attribution"] or {}
+        print(f"bench: {name} cuda large: walls best "
+              f"{walls['best'] * 1e3:.3f} ms, default "
+              f"{walls['default'] * 1e3:.3f} ms, worst "
+              f"{walls['worst'] * 1e3:.3f} ms; speedup vs default "
+              f"{r['speedup_vs_default']:.3f}x, vs worst "
+              f"{r['speedup_vs_worst']:.3f}x; dispatch_frac "
+              f"{r['overhead']['dispatch_frac']:.4f}, executor_frac "
+              f"{r['overhead']['executor_frac']:.4f}; MAPE "
+              + json.dumps({k: round(v, 2) for k, v in r["mape"].items()})
+              + "; attribution buckets "
+              + json.dumps({b: f"{v * 1e6:.0f} us"
+                            for b, v in att.get("buckets", {}).items()})
+              + f" (top {att.get('top_bottleneck')}); hand-kernel launches "
+              + json.dumps(per_workload.get(name, {})) + "; variants by mode "
+              + json.dumps(picks.get(name, {})) + f"; {card}")
+    print("bench: cuda config device MAPE (grid): " + json.dumps(
+        {k: f"{m['mape_pct']:.2f}% over {m['n_rows']} rows" for k, m in
+         doc["configs"]["cuda"]["device_mape"]["local"].items()}))
+    for kernel in BENCH_HAND:
+        if counts[kernel] <= 0:
+            raise RuntimeError(f"{kernel}: the bench path never launched "
+                               "its hand kernel")
+    print(f"bench: hand-kernel launches over the run: {json.dumps(counts)}")
+    return doc, counts
+
+
+def _bench_sim(tmp: Path) -> dict:
+    """``run_bench`` quick over ``simdev2`` with its adaptive section: the
+    reference's structural invariants."""
+    from repro_torch.bench import run_bench, summarize
+
+    t0 = time.perf_counter()
+    doc = run_bench(quick=True, configs=("simdev2",),
+                    out_path=str(tmp / "sim.json"), results_dir=str(tmp))
+    wall = time.perf_counter() - t0
+    for line in summarize(doc):
+        print(f"bench: {line}")
+    for name, w in doc["workloads"].items():
+        walls = w["configs"]["simdev2"]["wall_s"]
+        if not walls["best"] < walls["worst"]:
+            raise RuntimeError(f"bench simdev2 {name}: best {walls['best']}"
+                               f" s does not beat worst {walls['worst']} s")
+    ad = doc["adaptive"]["workloads"]
+    if not all(w["bit_exact"] for w in ad.values()):
+        raise RuntimeError(f"bench adaptive: bit-exactness lost: {ad}")
+    print(f"bench: simdev2 quick with the adaptive section {wall:.2f} s: "
+          "best beats worst in every workload, adaptive bit-exact")
+    return doc
+
+
+def _bench_clis(doc, sim, tmp: Path) -> None:
+    """The bench and obs CLIs in process over this run's documents."""
+    import copy
+
+    from repro_torch.bench.__main__ import main as bench_main
+    from repro_torch.obs.report import main as obs_main
+
+    cuda_path, sim_path = str(tmp / "bench.json"), str(tmp / "sim.json")
+    rcs = {}
+    rcs["compare cuda cuda"] = _cli(bench_main,
+                                    ["compare", cuda_path, cuda_path])[0]
+    # best walls 2x slower, with the speedups and geomeans they give: a
+    # simulated config's speedups are held to the tolerance, a real
+    # config's are never thresholded (host noise), so only the sim copy
+    # regresses
+    for label, src, cfg, want in (("sim", sim, "simdev2", 1),
+                                  ("cuda", doc, "cuda", 0)):
+        slow = copy.deepcopy(src)
+        for w in slow["workloads"].values():
+            r = w["configs"][cfg]
+            r["wall_s"]["best"] *= 2
+            for key, mode in (("speedup_vs_default", "default"),
+                              ("speedup_vs_worst", "worst")):
+                r[key] = r["wall_s"][mode] / r["wall_s"]["best"]
+        for key in ("speedup_vs_default", "speedup_vs_worst"):
+            slow["geomean"][cfg][key] /= 2
+        path = str(tmp / f"{label}_slow.json")
+        Path(path).write_text(json.dumps(slow))
+        base = sim_path if label == "sim" else cuda_path
+        rc, out = _cli(bench_main, ["compare", base, path])
+        rcs[f"compare {label} vs best 2x slower"] = rc
+        if rc != want:
+            raise RuntimeError(f"bench compare {label} against 2x slower "
+                               f"best walls: exit {rc}, want {want}: {out}")
+    rcs["history"], out = _cli(bench_main, ["history", cuda_path, sim_path])
+    print("bench: " + "\nbench: ".join(out.rstrip().splitlines()))
+    ad = sim["adaptive"]
+    rcs["obs report"], out = _cli(obs_main, ["report", ad["telemetry_path"],
+                                             "--trace", ad["trace_path"]])
+    # the real config's cache lies under its device type's name
+    cache_root = str(tmp / "bench_devices" / doc["host_fingerprint"]
+                     ["backend"].removeprefix("torch-"))
+    rcs["obs cards"], out = _cli(obs_main, [
+        "cards", "--json", "--root", cache_root, "--telemetry",
+        str(tmp / "telemetry_*.json")])
+    cards = json.loads(out) if rcs["obs cards"] == 0 else []
+    measured = sorted(doc["configs"]["cuda"]["device_mape"]["local"])
+    if sorted(c["kernel"] for c in cards) != measured:
+        raise RuntimeError(f"obs cards: {[c['kernel'] for c in cards]}, "
+                           f"measured kernels {measured}")
+    html = tmp / "dashboard.html"
+    rcs["obs dashboard"], _ = _cli(obs_main, ["dashboard", "-o", str(html),
+                                              "--results-dir", str(tmp)])
+    if not html.exists() or html.stat().st_size == 0:
+        raise RuntimeError("obs dashboard wrote no page")
+    print(f"bench: CLI exit codes {json.dumps(rcs)}; {len(cards)} model "
+          f"cards; dashboard {html.stat().st_size} bytes")
+    if any(rc != 0 for label, rc in rcs.items()
+           if not label.startswith("compare sim")):
+        raise RuntimeError(f"bench CLIs: exit codes {rcs}")
+
+
+def phase_bench(K, card: str) -> dict:
+    """The bench layer on the card: ``run_bench`` at ``large`` over the
+    ``cuda`` config, ``simdev2`` quick with the adaptive section, then
+    the bench and obs CLIs over their documents.  Returns path label ->
+    launch counts of the ``cuda`` run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        doc, counts = _bench_cuda(K, Path(tmp), card)
+        sim = _bench_sim(Path(tmp))
+        _bench_clis(doc, sim, Path(tmp))
+    return {"bench": counts}
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -2271,6 +2508,7 @@ def main() -> int:
     phase_build(build)
     worst = phase_kernels(K, device)
     by_path = phase_main_path(K, device)
+    by_path.update(phase_bench(K, line))
     records = phase_times(K, device, name, worst, by_path)
     print(line)
     print(json.dumps({"kernels": records}))

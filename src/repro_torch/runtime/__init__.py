@@ -19,7 +19,8 @@ from repro_torch.runtime.registry import (ATTENTION_SCHEDULE_GRID,
                                           ATTENTION_SCHEDULES, KernelRegistry,
                                           RegisteredKernel, Variant,
                                           attention_flops, default_registry)
-from repro_torch.runtime.seeding import seed_from_programs, variant_skews
+from repro_torch.runtime.seeding import (measure_from_programs,
+                                         seed_from_programs, variant_skews)
 
 __all__ = ["CacheEntry", "TuningCache", "bucket_dim", "shape_bucket",
            "shape_class", "TRAIN_BUDGET_ROWS", "DispatchPolicy", "Dispatcher",
@@ -27,4 +28,5 @@ __all__ = ["CacheEntry", "TuningCache", "bucket_dim", "shape_bucket",
            "current_fingerprint", "OnlineConfig", "OnlineRefiner",
            "ATTENTION_SCHEDULE_GRID", "ATTENTION_SCHEDULES", "KernelRegistry",
            "RegisteredKernel", "Variant", "attention_flops",
-           "default_registry", "seed_from_programs", "variant_skews"]
+           "default_registry", "measure_from_programs", "seed_from_programs",
+           "variant_skews"]

@@ -37,7 +37,9 @@ def test_port_files_exist():
                    "runtime/dispatch.py", "api/compile_.py",
                    "workloads/library.py", "kernels/blur/blur.py",
                    "exec/__init__.py", "exec/trace.py", "exec/buffers.py",
-                   "exec/comm.py", "exec/executor.py", "runtime/simdev.py"):
+                   "exec/comm.py", "exec/executor.py", "runtime/simdev.py",
+                   "bench/harness.py", "bench/schema.py", "obs/report.py",
+                   "obs/dashboard.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -61,6 +63,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.api, repro_torch.runtime, repro_torch.workloads\n"
         "import repro_torch.exec, repro_torch.runtime.simdev\n"
+        "import repro_torch.bench, repro_torch.obs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
