@@ -73,8 +73,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    probe (``contention_probe``: a card lane's chain of dispatched 384^3
    matmuls beside a cpu lane's 384^3 matmuls, each side alone and
    together, under a spinning and a yielding wait and three cpu-lane
-   thread counts), and what ``torch.set_num_threads`` on a lane worker
-   changes; then the blur kernels
+   thread counts), the same probe with the cpu lane's work in turns the
+   matmuls, a pure-Python loop, a 256 MB copy and a cache-resident sin,
+   on every core and on one (which of them slows the card op names fault
+   1's cause), and what
+   ``torch.set_num_threads`` on a lane worker changes; then the blur
+   kernels
    (both tiles, fused and separable) on the plane each workload's blur
    node took, against that node's output, with the counters zeroed just
    before; the contention probe again in child processes (today's
@@ -124,7 +128,24 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``obs report`` over the adaptive telemetry and trace, ``obs cards``
    (one card per measured kernel) and ``obs dashboard``; every file under
    a temporary directory.
-6. times   — each kernel at the workloads' shapes, timed with CUDA events
+6. paper   — the paper's experiments (``repro_torch.paper``) on the card,
+   with the launch counters zeroed just before the card combos are
+   measured and read just after: the 9 card combos (the registry's
+   matmul, matvec, conv2d and maxpool variants, library and hand kernels)
+   generated at 500 instances each from Table 2's samplers into a
+   temporary cache, then NN+C and the four baselines fitted on 250 and
+   scored on the 250 held out (4000 epochs); per combo the five MAEs and
+   MAPEs, NN+C's weights, the targets' range and the seconds measured
+   and fitted, Table 8's ``CARD`` row and NN+C's wins over NN; it fails
+   unless every NN+C has at most 75 weights, every MAPE is finite, the
+   four hand kernels launched, and every card variant agrees with the
+   host numpy variant in fp32 on the first 5 instances of each kernel
+   within 1e-4 relative to the output's largest magnitude above 1.  Then
+   Fig. 4 (the five blur schedules on cuda:0, the predictor's pick
+   against the best and the default schedule; every time above 0) and
+   the runtime overhead on the blur axis (``quick``).  The MAPEs and
+   speedups are printed, not gated.
+7. times   — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -153,6 +174,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 FP32_TOL = 1e-4       # the JAX package's kernel-test tolerance for fp32
@@ -1175,6 +1197,13 @@ def _thread_cost(device) -> None:
 CONTENTION_CHAIN = 100    # dispatched card matmuls in one timed chain
 CONTENTION_HOST = 10      # host matmuls in one timed run
 CONTENTION_ROUNDS = 5     # rounds per measurement; the median is printed
+CONTENTION_WINDOW = 0.05  # seconds of a timed run of the other host work
+# the cpu lane's work in the probe of fault 1's cause, in turns: today's
+# 384^3 matmuls; a pure-Python loop holding the interpreter lock; a copy
+# of 256 MB that releases the lock and loads the memory bus; sin over a
+# [512, 512] plane (2 MB in and out, cache-resident) that releases the
+# lock and leaves the bus idle
+CONTENTION_WORK = ("matmul", "python", "copy", "cache")
 
 
 def _lane_threads(threads: int) -> dict:
@@ -1202,7 +1231,7 @@ def _lane_threads(threads: int) -> dict:
 
 
 def contention_probe(card, host, device, waits=("spin", "yield"),
-                     thread_counts=None) -> dict:
+                     thread_counts=None, works=("matmul",)) -> dict:
     """Fault 1's fixed probe, independent of placement: a ``LanePool`` with
     a ``cuda:0`` lane and a ``cpu`` lane; the cpu lane runs 384^3 fp32
     matmuls through the host dispatcher ``host`` (mixed_dag's products)
@@ -1212,9 +1241,12 @@ def contention_probe(card, host, device, waits=("spin", "yield"),
     ``torch.cuda.synchronize``, a yielding blocking event) and each
     intra-op thread count of the cpu lane's worker (by default: the
     process default, 2 fewer, half).  The yielding wait replaces the
-    dispatcher's ``synchronize`` for the probe alone.  Returns (wait, threads) -> microseconds per op, the
-    median of CONTENTION_ROUNDS rounds: card alone, card beside the host,
-    host alone, host beside the card."""
+    dispatcher's ``synchronize`` for the probe alone.  ``works`` names the
+    cpu lane's work (CONTENTION_WORK), each in turn within a round; a work
+    other than the matmuls runs for CONTENTION_WINDOW seconds.  Returns
+    (wait, threads, work) -> microseconds per op, the median of
+    CONTENTION_ROUNDS rounds: card alone, card beside the host, host
+    alone, host beside the card."""
     from repro_torch.api.compile_ import _bind_lane_device
     from repro_torch.exec import LanePool
 
@@ -1251,6 +1283,33 @@ def contention_probe(card, host, device, waits=("spin", "yield"),
         return per_op(lambda: host.dispatch("matmul", ha, hb),
                       CONTENTION_HOST)
 
+    def windowed(fn) -> float:
+        """Microseconds per call of ``fn`` over CONTENTION_WINDOW."""
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < CONTENTION_WINDOW:
+            fn()
+            n += 1
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def python_loop():
+        def block():               # 10^4 bytecode additions, lock held
+            s = 0
+            for i in range(10_000):
+                s += i
+            return s
+        return windowed(block)
+
+    big = small = None
+    if "copy" in works:
+        big = [torch.empty(1 << 26) for _ in range(2)]       # 256 MB each
+        big[0].fill_(1.0)
+    if "cache" in works:
+        small = [torch.rand(512, 512) for _ in range(2)]
+    host_jobs = {"matmul": host_mm, "python": python_loop,
+                 "copy": lambda: windowed(lambda: big[1].copy_(big[0])),
+                 "cache": lambda: windowed(
+                     lambda: torch.sin(small[0], out=small[1]))}
+
     def run(pool, slots, jobs) -> dict:
         """Each job on its lane's worker, all at once; job -> its result."""
         boxes = {k: [] for k in jobs}
@@ -1278,20 +1337,22 @@ def contention_probe(card, host, device, waits=("spin", "yield"),
             dispatch.synchronize = yielding if wait == "yield" else spin
             try:
                 pool.reserve(slots.values())
-                rounds = []
+                rounds = {work: [] for work in works}
                 for _ in range(CONTENTION_ROUNDS):
-                    alone = {**run(pool, slots, {"card": chain}),
-                             **run(pool, slots, {"host": host_mm})}
-                    both = run(pool, slots, {"card": chain, "host": host_mm})
-                    rounds.append((alone["card"], both["card"],
-                                   alone["host"], both["host"]))
+                    for work in works:
+                        job = host_jobs[work]
+                        alone = {**run(pool, slots, {"card": chain}),
+                                 **run(pool, slots, {"host": job})}
+                        both = run(pool, slots, {"card": chain, "host": job})
+                        rounds[work].append((alone["card"], both["card"],
+                                             alone["host"], both["host"]))
             finally:
                 dispatch.synchronize = spin
                 pool.close()
                 torch.set_num_threads(default)   # the process default back
-            results[(wait, threads)] = tuple(
-                sorted(r[i] for r in rounds)[len(rounds) // 2]
-                for i in range(4))
+            for work, rs in rounds.items():
+                results[(wait, threads, work)] = tuple(
+                    sorted(r[i] for r in rs)[len(rs) // 2] for i in range(4))
     return results
 
 
@@ -1299,11 +1360,24 @@ def _print_contention(card, host, device) -> None:
     print("main: slice 4 intra-op threads set on a lane worker: "
           + json.dumps(_lane_threads(2)))
     results = contention_probe(card, host, device)
-    for (wait, threads), (ca, cb, ha, hb) in results.items():
+    for (wait, threads, _), (ca, cb, ha, hb) in results.items():
         print(f"main: slice 4 lane contention probe, card lane {wait}, cpu "
               f"lane {threads} threads: card 384^3 dispatch alone {ca:.1f} "
               f"us, beside the host matmul {cb:.1f} us ({cb / ca:.2f}x); "
               f"host 384^3 matmul alone {ha:.1f} us, beside the card chain "
+              f"{hb:.1f} us ({hb / ha:.2f}x)")
+    # fault 1's cause: the same probe with the cpu lane's work in turns,
+    # on every core and on one (core contention would fade on one)
+    what = {"matmul": "384^3 matmul", "python": "python loop of 10^4 adds",
+            "copy": "256 MB copy", "cache": "sin over [512,512]"}
+    for (_, threads, work), (ca, cb, ha, hb) in contention_probe(
+            card, host, device, waits=("spin",),
+            thread_counts=(torch.get_num_threads(), 1),
+            works=CONTENTION_WORK).items():
+        print(f"main: slice 4 contention by cpu-lane work, {work} "
+              f"({what[work]}, {threads} threads): card 384^3 dispatch "
+              f"alone {ca:.1f} us, beside it {cb:.1f} us ({cb / ca:.2f}x); "
+              f"the host op alone {ha:.1f} us, beside the card chain "
               f"{hb:.1f} us ({hb / ha:.2f}x)")
 
 
@@ -2048,6 +2122,180 @@ def phase_bench(K, card: str) -> dict:
     return {"bench": counts}
 
 
+# the paper's experiments on the card: the 9 card combos through Tables
+# 4-8's protocol, Fig. 4 and the runtime overhead on cuda:0
+PAPER_EPOCHS = 4000    # benchmarks/run.py --quick
+PAPER_CHECK = 5        # timed instances a card combo holds against the host
+PAPER_HOST = {"mm": "blas", "mv": "blas", "mc": "window", "mp": "window"}
+# shapes every card variant is held at besides the timed ones: m, n, k at 1
+# and 1024, each conv2d r and maxpool (r, s) of Table 2's samplers, on the
+# vector (even n) and the staged (odd n) path
+PAPER_EDGES = {
+    "mm": [{"m": m, "n": n, "k": k} for m, n, k in (
+        (1, 1, 1), (1, 1024, 1), (1024, 1, 1024), (1, 1024, 1024),
+        (1024, 1024, 1), (1024, 1024, 1024), (333, 517, 1023))],
+    "mv": [{"m": m, "n": n} for m, n in (
+        (1, 1), (1, 1024), (1024, 1), (1024, 1024), (1023, 517))],
+    "mc": [{"m": m, "n": n, "r": r} for r in (3, 5, 7)
+           for m, n in ((1024, 1024), (517, 1023), (r, r), (r, 1024))],
+    "mp": [{"m": m, "n": n, "r": r, "s": s_} for r in (2, 3, 4, 5)
+           for s_ in (1, 2)
+           for m, n in ((1024, 1024), (517, 1023), (r, r))],
+}
+
+
+def _hold_card_variant(kernel: str, names, p: dict, ops, device,
+                       worst: dict) -> None:
+    """The named card variants of ``kernel`` on ``make_inputs``' operands
+    ``ops`` against the host numpy variant in fp32, within FP32_TOL
+    relative to the output's largest magnitude above 1; the worst error
+    of each goes into ``worst``."""
+    from repro_torch.perfdata import measure
+
+    host = PAPER_HOST[kernel]
+    want = measure.HOST_VARIANTS[kernel][host](
+        p, *(None if x is None else x.astype(np.float32) for x in ops))
+    args = measure.to_device(*ops, device)
+    scale = max(1.0, float(np.abs(want).max()))
+    for name in names:
+        out = measure.card_call(kernel, name, p, *args).cpu().numpy()
+        if out.shape != want.shape:
+            raise RuntimeError(f"paper {kernel}|{name}: shape {out.shape} "
+                               f"for {want.shape} at {p}")
+        err = float(np.abs(out - want).max()) / scale
+        if not err <= FP32_TOL:
+            raise RuntimeError(f"paper {kernel}|{name}|cuda at {p}: error "
+                               f"{err:.3g} over the host {host} variant")
+        key = f"{kernel}|{name}|cuda"
+        worst[key] = max(worst.get(key, 0.0), err)
+
+
+def _check_card_variants(combos, X: dict, device) -> tuple:
+    """Every card combo's variant on the first PAPER_CHECK instances it
+    timed (drawn anew from its own generator, each one's feature row held
+    equal to the dataset's), then every card variant at PAPER_EDGES, all
+    against the host variant (``_hold_card_variant``).  Returns the worst
+    error of each combo key on the timed instances and at the edges."""
+    from repro_torch.core.features import KERNELS as SPECS, feature_vector
+    from repro_torch.perfdata import datasets, measure
+
+    timed, edges = {}, {}
+    for combo in combos:
+        rng = datasets.instance_rng(combo, 0)
+        for i in range(PAPER_CHECK):
+            p = SPECS[combo.kernel].sample(rng)
+            if not np.array_equal(feature_vector(combo.kernel, p),
+                                  X[combo.key][i]):
+                raise RuntimeError(f"paper {combo.key}: instance {i} is not "
+                                   "the one that was timed")
+            ops = measure.make_inputs(combo.kernel, p, rng)
+            _hold_card_variant(combo.kernel, [combo.variant], p, ops, device,
+                               timed)
+    rng = np.random.RandomState(0)
+    for kernel, cases in PAPER_EDGES.items():
+        for p in cases:
+            ops = measure.make_inputs(kernel, p, rng)
+            _hold_card_variant(kernel, measure.card_variants(kernel), p, ops,
+                               device, edges)
+    return timed, edges
+
+
+def phase_paper(K, card: str) -> dict:
+    """The paper's experiments on the card: each card combo generated at
+    500 instances (``tables.run_combo``'s), seed 0, into a temporary
+    cache (the launch counters zeroed just before, read just after), then
+    the five methods fitted and scored on the held-out half; Table 8's
+    rows; each card variant held against the host variant on its timed
+    instances and at PAPER_EDGES; Fig. 4 and the runtime overhead on
+    cuda:0.  Returns path label -> launch counts of the measurement."""
+    from repro_torch.paper import runtime_overhead, tables, variant_selection
+    from repro_torch.perfdata import datasets
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = str(Path(tmp) / "perfdata")
+        combos = datasets.card_combos("cuda")
+        measured = {}
+        zero_counts(K)
+        for combo in combos:
+            t0 = time.perf_counter()
+            X, y, _ = datasets.generate(combo, n=500, seed=0,
+                                        cache_dir=cache)
+            measured[combo.key] = (time.perf_counter() - t0, X, y)
+        counts = launch_counts(K)
+        print(f"paper: card combos measured (500 instances each) in "
+              f"{sum(t for t, _, _ in measured.values()):.1f} s; hand-kernel "
+              f"launches {json.dumps({k: counts[k] for k in BENCH_HAND})}")
+        for kernel in BENCH_HAND:
+            if counts[kernel] <= 0:
+                raise RuntimeError(f"{kernel}: the paper path never launched "
+                                   "its hand kernel")
+        results = {}
+        for combo in combos:
+            t0 = time.perf_counter()
+            row = results[combo.key] = tables.run_combo(
+                combo, PAPER_EPOCHS, cache_dir=cache)
+            fit_s = time.perf_counter() - t0
+            mapes = [row[m]["mape"] for m in tables.METHODS]
+            if not all(np.isfinite(mapes)):
+                raise RuntimeError(f"paper {combo.key}: a MAPE is not "
+                                   f"finite: {mapes}")
+            if not 0 < row["nnc"]["n_params"] <= 75:
+                raise RuntimeError(f"paper {combo.key}: NN+C has "
+                                   f"{row['nnc']['n_params']} weights")
+            t_meas, _, y = measured[combo.key]
+            print(f"paper: {combo.key}: held-out MAE "
+                  + ", ".join(f"{m} {row[m]['mae'] * 1e6:.2f} us"
+                              for m in tables.METHODS)
+                  + "; MAPE " + ", ".join(f"{m} {row[m]['mape']:.1f}%"
+                                          for m in tables.METHODS)
+                  + f"; NN+C {row['nnc']['n_params']} weights; targets "
+                  f"{np.min(y) * 1e6:.1f} / {np.median(y) * 1e6:.1f} / "
+                  f"{np.max(y) * 1e6:.1f} us (min / median / max); "
+                  f"measured {t_meas:.1f} s, fitted {fit_s:.1f} s; {card}")
+        for line in tables.summarize(results):
+            if line.strip() and not line.startswith(("--", "combo", "==")) \
+                    and "|" not in line:
+                print(f"paper: {line.strip()} ({card})")
+        timed, edges = _check_card_variants(
+            combos, {k: X for k, (_, X, _) in measured.items()},
+            torch.device("cuda", 0))
+        for what, worst in ((f"its first {PAPER_CHECK} timed instances",
+                             timed),
+                            (f"{sum(map(len, PAPER_EDGES.values()))} edge "
+                             f"shapes (every conv2d r, maxpool (r, s), m, n, "
+                             f"k at 1 and 1024, even and odd n)", edges)):
+            print(f"paper: each card variant against the host variant on "
+                  f"{what}, max abs err over max(1, |out|): " + json.dumps(
+                      {k: float(f"{v:.3g}") for k, v in worst.items()}))
+        t0 = time.perf_counter()
+        vs = variant_selection.run(out_path=str(Path(tmp) / "vs.json"),
+                                   device="cuda")
+        vs_s = time.perf_counter() - t0
+        for size, r in vs["cases"].items():
+            if not all(t > 0 for t in r["times"].values()):
+                raise RuntimeError(f"paper Fig. 4 {size}: a time is not "
+                                   f"above 0: {r['times']}")
+        for line in variant_selection.summarize(vs):
+            print(f"paper: {line}")
+        for size, r in vs["cases"].items():
+            print(f"paper: Fig. 4 on cuda:0 {size}: " + ", ".join(
+                f"{k} {t * 1e6:.1f} us" for k, t in r["times"].items())
+                + f"; {card}")
+        print(f"paper: Fig. 4 on cuda:0 in {vs_s:.1f} s")
+        t0 = time.perf_counter()
+        rt = runtime_overhead.run(quick=True,
+                                  out_path=str(Path(tmp) / "rt.json"),
+                                  cache_root=str(Path(tmp) / "tunecache"),
+                                  device="cuda")
+        for line in runtime_overhead.summarize(rt):
+            print(f"paper: {line}")
+        print(f"paper: runtime overhead on cuda:0 in "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+    print(f"paper: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"paper": counts}
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -2509,6 +2757,7 @@ def main() -> int:
     worst = phase_kernels(K, device)
     by_path = phase_main_path(K, device)
     by_path.update(phase_bench(K, line))
+    by_path.update(phase_paper(K, line))
     records = phase_times(K, device, name, worst, by_path)
     print(line)
     print(json.dumps({"kernels": records}))

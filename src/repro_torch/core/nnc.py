@@ -447,6 +447,10 @@ def slice_features(X: np.ndarray, uses_c) -> np.ndarray:
     return X[:, :-1]
 
 
+def mae(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    return float(np.mean(np.abs(y_true - y_pred)))
+
+
 def mape(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     denom = np.maximum(np.abs(y_true), 1e-12)
     return float(100.0 * np.mean(np.abs(y_true - y_pred) / denom))

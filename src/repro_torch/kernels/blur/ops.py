@@ -15,10 +15,13 @@ JAX package.
 """
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import Aval, cudnn_fp32
+from repro_torch.kernels import Aval, cudnn_fp32, resolve_device
 from repro_torch.kernels.blur import blur as _kernel
 from repro_torch.kernels.blur import ref as _ref
 
@@ -90,3 +93,29 @@ SCHEDULE_FEATURES = {
     "blocked64": (0.0, 0.0, 64.0),
     "blocked256": (0.0, 0.0, 256.0),
 }
+
+
+def host_blur_time(schedule: str, m: int, n: int,
+                   rng: np.random.RandomState, reps: int = 3,
+                   device="cuda") -> float:
+    """Best of ``reps`` wall-clock seconds of one host schedule on an
+    [m, n] fp32 plane drawn ``rng.rand(m, n)`` on ``device`` (the card
+    unless the caller asks for the CPU), after one warm-up call; each call
+    synchronises the device before the clock is read, as the JAX package's
+    ``block_until_ready`` does."""
+    device = resolve_device(device)
+    a = torch.as_tensor(rng.rand(m, n), dtype=torch.float32, device=device)
+    fn = HOST_SCHEDULES[schedule]
+
+    def call():
+        fn(a)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    call()                                 # warm
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        best = min(best, time.perf_counter() - t0)
+    return best

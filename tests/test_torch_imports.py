@@ -39,7 +39,14 @@ def test_port_files_exist():
                    "exec/__init__.py", "exec/trace.py", "exec/buffers.py",
                    "exec/comm.py", "exec/executor.py", "runtime/simdev.py",
                    "bench/harness.py", "bench/schema.py", "obs/report.py",
-                   "obs/dashboard.py"):
+                   "obs/dashboard.py", "core/selection.py",
+                   "perfdata/simulate.py", "perfdata/datasets.py",
+                   "perfdata/measure.py", "paper/__init__.py",
+                   "paper/__main__.py", "paper/tables.py",
+                   "paper/unconstrained.py", "paper/omitted_kernels.py",
+                   "paper/variant_selection.py",
+                   "paper/runtime_overhead.py",
+                   "paper/executor_overlap.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -64,6 +71,12 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.api, repro_torch.runtime, repro_torch.workloads\n"
         "import repro_torch.exec, repro_torch.runtime.simdev\n"
         "import repro_torch.bench, repro_torch.obs\n"
+        "import repro_torch.paper.__main__, repro_torch.paper.tables\n"
+        "import repro_torch.paper.unconstrained, "
+        "repro_torch.paper.omitted_kernels\n"
+        "import repro_torch.paper.variant_selection, "
+        "repro_torch.paper.runtime_overhead\n"
+        "import repro_torch.paper.executor_overlap\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
