@@ -37,10 +37,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    workloads' planes 4 bytes off alignment (their staged path, maxpool
    with a NaN), exactly; the four flash-attention kernels over
    the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
-   window), at full width (``attention_block``'s q/k/v and one attention
-   layer each of yi-9b and gemma3-1b at 4096 tokens, B = 1 of the train_4k
-   shape's global batch of 256) and at two shapes whose backward tiles are
-   wholly visible (D = 128) or end in a sk_orig tail (D = 256), at 1e-4
+   window), at full width (``attention_block``'s q/k/v, one attention
+   layer of yi-9b and gemma3-1b's local and global layers at 4096 tokens,
+   B = 1 of the train_4k shape's global batch of 256) and at two shapes
+   whose backward tiles are wholly visible (D = 128) or end in a sk_orig
+   tail (D = 256), at 1e-4
    (fp32) and 3e-2 (bf16), gradients relative to their largest magnitude
    above 1, each kernel launched twice and held equal bit for bit.
 4. main path — four paths, each over fresh tuning caches (the card's
@@ -145,7 +146,30 @@ Phases, each of which fails the run (non-zero exit) on error:
    against the best and the default schedule; every time above 0) and
    the runtime overhead on the blur axis (``quick``).  The MAPEs and
    speedups are printed, not gated.
-7. times   — each kernel at the workloads' shapes, timed with CUDA events
+7. models  — the model stack (``repro_torch.models``) on the card, the
+   launch counters zeroed just before and read just after: gemma3-1b
+   uncut (26 layers, full width) and yi-9b at full width cut to 2 of its
+   48 layers, fp32 parameters from a seeded ``torch.Generator``.  Each
+   model's ``forward`` at B = 1, S = 4096 (train_4k, the batch cut to 1)
+   through the hand flash-attention kernel and through the plain
+   ``attend_chunked`` (``use_kernel=False``), in fp32 compute and in the
+   config's bf16: the kernel's launches rise by one a layer
+   (``flash_attention``; the lse forward by none) and the logits agree
+   within MODEL_TOL relative to their largest magnitude, top-1 agreement
+   printed.  Then serving: ``prefill`` of two 2048-token prompts into a
+   cache of 2048 + 32 (one launch a layer), its logits and every cache
+   leaf held against the plain prefill's, and 32 greedy ``decode_step``s
+   (no launch), in fp32 — the decode logits held against ``forward``'s
+   at the same positions, that forward (2080 tokens, a ragged length the
+   kernel pads) against its plain twin — and in bf16 with a bf16 cache.
+   Each model's weights are freed before the next one's are made.  Last
+   (outside the counted window, the weights made anew from the same
+   seed) each forward timed by CUDA events, with an event pair around
+   every kernel launch: the kernel's share of the forward's wall; the
+   serving run twice, the second timed (prefill wall, decode tokens/s,
+   peak device memory over it); and a planted fault (gemma3-1b's window
+   dropped, yi-9b's causal mask) that must land above MODEL_TOL.
+8. times   — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -155,7 +179,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``F.avg_pool2d``, with the host schedules'
    times for information, and beside each blur, maxpool and conv2d time
    the device-memory rate it reached as a share of the card's peak; the
-   flash-attention kernels at the three
+   flash-attention kernels at the four
    attention shapes, forward and backward, beside
    ``scaled_dot_product_attention`` forward, backward (its forward+backward
    less its forward) and forward+backward, their bounds on the tensor
@@ -237,13 +261,14 @@ FA_BF16_TOL = 3e-2    # the JAX flash-attention tests' bf16 tolerance
 FA_GRID = [(h, kv, causal, window) for h, kv in ((8, 2), (4, 4), (6, 1))
            for causal, window in ((True, 0), (False, 0), (True, 16))]
 # (label, B, H, KV, S, D, causal, window) at full width: attention_block
-# large, and one attention layer each of yi-9b (src/repro/configs/yi_9b.py)
-# and gemma3-1b (src/repro/configs/gemma3_1b.py, a local layer) at the
-# train_4k sequence of 4096 (src/repro/configs/base.py), B = 1 of its
-# global batch of 256
+# large, and one attention layer of yi-9b (src/repro/configs/yi_9b.py) and
+# both kinds of gemma3-1b's (src/repro/configs/gemma3_1b.py: 22 local
+# layers, window 512, and 4 global ones) at the train_4k sequence of 4096
+# (src/repro/configs/base.py), B = 1 of its global batch of 256
 FA_SHAPES = (("attention_block", 4, 8, 8, 512, 32, True, 0),
              ("yi-9b", 1, 32, 4, 4096, 128, True, 0),
-             ("gemma3-1b", 1, 4, 1, 4096, 256, True, 512))
+             ("gemma3-1b", 1, 4, 1, 4096, 256, True, 512),
+             ("gemma3-1b-global", 1, 4, 1, 4096, 256, True, 0))
 # (label, B, H, KV, S, D, causal, window, sk_orig) the backward tiles meet
 # otherwise: every tile visible (no mask evaluated) at D = 128, and a key
 # tail past sk_orig that ends inside a 16-row tile at D = 256
@@ -2296,6 +2321,328 @@ def phase_paper(K, card: str) -> dict:
     return {"paper": counts}
 
 
+# the model path: (arch, layers kept or None for all, the planted fault) —
+# gemma3-1b uncut and yi-9b at full width cut to 2 of 48 layers (0.87 B
+# parameters, 3.5 GB in fp32); a forward over MODEL_SEQ tokens at B = 1
+# (train_4k, the batch cut to 1), serving SERVE_BATCH prompts of
+# SERVE_PROMPT tokens then SERVE_STEPS greedy decode steps.  The fault is
+# given to every kernel launch of one more forward, which MODEL_TOL must
+# catch: gemma3-1b's local layers lose their window, yi-9b (no window)
+# its causal mask
+MODELS = (("gemma3-1b", None, {"window": 0}), ("yi-9b", 2, {"causal": False}))
+MODEL_SEQ = 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 2048, 32
+# kernel against plain logits (and prefill caches), relative to their
+# largest magnitude.  fp32: 3xTF32 products and another summation order
+# than attend_chunked's, about 1e-6 a layer, carried through 26 layers, so
+# 1e-3 leaves two orders of margin.  bf16: attend_chunked rounds scores and
+# probabilities to bf16 (the reference's order) where the kernel keeps
+# them in fp32, and an ulp of 2**-9 in one layer's output moves every later
+# layer.  Sound bf16 readings on an H100 reach 2.0e-2 (gemma3-1b's prefill
+# cache; a 26-layer reduced-width gemma pattern gives up to 2.3e-2 on the
+# CPU), the planted faults 1.23-1.27, so 5e-2 lies between
+MODEL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _tree_err(got: dict, want: dict) -> float:
+    """The largest _rel_err over the leaves of two trees of one layout."""
+    from repro_torch.models import module
+
+    a, b = module.leaves(got), module.leaves(want)
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise RuntimeError("models: two cache trees of different layouts")
+    return max(_rel_err(x, y) for x, y in zip(a, b))
+
+
+def _fa_delta(fa, before: dict) -> dict:
+    return {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+
+
+def _gate(name, what, err, dtype) -> str:
+    if err > MODEL_TOL[dtype]:
+        raise RuntimeError(f"models {name} {dtype}: {what} {err:.3g}, "
+                           f"above {MODEL_TOL[dtype]}")
+    return f"{what} {err:.3g}"
+
+
+def _model_forward_check(name, model, params, batch, fa, layers,
+                         card) -> None:
+    """One forward through the kernel (exactly one ``flash_attention``
+    launch a layer, no other kernel) and one through the plain
+    attend_chunked; the logits within MODEL_TOL of each other."""
+    dtype = model.cfg.compute_dtype
+    before = dict(fa.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, aux = model.forward(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = _fa_delta(fa, before)
+    want_delta = dict.fromkeys(delta, 0)
+    want_delta["flash_attention"] = layers
+    if delta != want_delta:
+        raise RuntimeError(f"models {name} {dtype}: a forward launched "
+                           f"{delta}, not {want_delta}")
+    want, _ = model.forward(params, batch, use_kernel=False)
+    torch.cuda.synchronize()
+    if _fa_delta(fa, before) != want_delta:
+        raise RuntimeError(f"models {name}: the plain forward launched a "
+                           "kernel")
+    b, s = batch["tokens"].shape
+    if tuple(got.shape) != (b, s, model.cfg.vocab_size) \
+            or not bool(torch.isfinite(got).all()) \
+            or not bool(torch.isfinite(aux)):
+        raise RuntimeError(f"models {name} {dtype}: logits "
+                           f"{tuple(got.shape)}, not all finite")
+    err = _rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"models: {name} {dtype} forward B={b} S={s}: kernel against "
+          f"plain attend_chunked, max |diff| / max |logit| {err:.3g} "
+          f"(bound {MODEL_TOL[dtype]}), top-1 agreement {top1:.4f}; "
+          f"flash launches {delta['flash_attention']} ({layers} layers); "
+          f"first-call wall {wall * 1e3:.1f} ms; {card}")
+    _gate(name, "kernel logits from plain", err, dtype)
+
+
+def _serve_check(name, model, params, prompts, fa, layers, cache_dtype,
+                 card) -> None:
+    """prefill then SERVE_STEPS greedy decode steps: the prefill launches
+    the kernel once a layer, decode never.  The prefill's logits and every
+    cache leaf are held against the plain prefill's; in fp32 the decode
+    logits against forward's at the same positions, and that forward (a
+    ragged length, the kernel's key padding) against its plain twin."""
+    b, s = prompts.shape
+    dtype = model.cfg.compute_dtype
+    batch = {"tokens": prompts}
+    before = dict(fa.LAUNCHES)
+    logits, cache = model.prefill(params, batch, max_seq=s + SERVE_STEPS,
+                                  cache_dtype=cache_dtype)
+    prefill_launches = _fa_delta(fa, before)["flash_attention"]
+    want, want_cache = model.prefill(params, batch, max_seq=s + SERVE_STEPS,
+                                     cache_dtype=cache_dtype,
+                                     use_kernel=False)
+    plain_launches = sum(_fa_delta(fa, before).values()) - prefill_launches
+    checks = [_gate(name, "prefill logits from plain", _rel_err(logits, want),
+                    dtype),
+              _gate(name, "prefill cache from plain",
+                    _tree_err(cache, want_cache), dtype)]
+    del want, want_cache
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    del logits
+    toks, outs = [tok], []
+    before = dict(fa.LAUNCHES)
+    for t in range(SERVE_STEPS):
+        lg, cache = model.decode_step(params, cache, tok, s + t)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        outs.append(lg)
+        toks.append(tok)
+    decode_launches = sum(_fa_delta(fa, before).values())
+    if prefill_launches != layers or plain_launches or decode_launches:
+        raise RuntimeError(f"models {name} {dtype} serving: prefill "
+                           f"launched {prefill_launches} (want {layers}), "
+                           f"the plain prefill {plain_launches} and decode "
+                           f"{decode_launches} (want 0)")
+    dec = torch.cat(outs, dim=1)
+    if not bool(torch.isfinite(dec).all()):
+        raise RuntimeError(f"models {name} {dtype}: non-finite decode logits")
+    if dtype == "float32":
+        seq = {"tokens": torch.cat([prompts] + toks[:-1], dim=1)}
+        got, _ = model.forward(params, seq)
+        want, _ = model.forward(params, seq, use_kernel=False)
+        checks.append(_gate(name, f"forward S={seq['tokens'].shape[1]} "
+                            "from plain", _rel_err(got, want), dtype))
+        del want
+        checks.append(_gate(name, f"decode at positions {s}.."
+                            f"{s + SERVE_STEPS - 1} from forward",
+                            _rel_err(dec, got[:, s:]), dtype))
+    print(f"models: {name} {dtype} serving {b} x {s} tokens, cache "
+          f"{str(cache_dtype).removeprefix('torch.')} of {s + SERVE_STEPS}: "
+          f"prefill {prefill_launches} flash launches, {SERVE_STEPS} decode "
+          f"steps {decode_launches}; max |diff| / max |value|: "
+          f"{', '.join(checks)} (bound {MODEL_TOL[dtype]}); {card}")
+
+
+def _serve_time(model, params, prompts, cache_dtype) -> dict:
+    """One prefill and SERVE_STEPS greedy decode steps, timed, the peak
+    device memory taken over them alone."""
+    b, s = prompts.shape
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_seq=s + SERVE_STEPS,
+                                  cache_dtype=cache_dtype)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del logits
+    t0 = time.perf_counter()
+    for t in range(SERVE_STEPS):
+        lg, cache = model.decode_step(params, cache, tok, s + t)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"prefill_ms": prefill_s * 1e3,
+            "decode_tokens_s": b * SERVE_STEPS / decode_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident}
+
+
+def _planted_fault(name, model, params, batch, fa, fault, card) -> float:
+    """A forward whose every kernel launch gets ``fault``, against the plain
+    forward: MODEL_TOL must catch it.  Returns its error."""
+    dtype = model.cfg.compute_dtype
+    want, _ = model.forward(params, batch, use_kernel=False)
+    real = fa.flash_attention
+    fa.flash_attention = lambda *args, **kw: real(*args, **{**kw, **fault})
+    try:
+        got, _ = model.forward(params, batch)
+    finally:
+        fa.flash_attention = real
+    err = _rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"models: {name} {dtype} planted fault {fault} on every launch: "
+          f"max |diff| / max |logit| {err:.3g} (bound {MODEL_TOL[dtype]}), "
+          f"top-1 agreement {top1:.4f}; {card}")
+    if not err > MODEL_TOL[dtype]:
+        raise RuntimeError(f"models {name} {dtype}: the bound "
+                           f"{MODEL_TOL[dtype]} misses the planted fault "
+                           f"{fault} ({err:.3g})")
+    return err
+
+
+def _kernel_share(model, params, batch, fa, reps: int = 2) -> dict:
+    """The forward timed by CUDA events, and each flash-attention launch
+    in it by an event pair around the wrapper: (the fastest of ``reps``
+    forwards) its wall, the kernel's summed time and its share."""
+    real = fa.flash_attention
+    spans = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    best = None
+    fa.flash_attention = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.forward(params, batch)
+            end.record()
+            end.synchronize()
+            wall = start.elapsed_time(end)
+            kernel = sum(a.elapsed_time(b) for a, b in spans)
+            if best is None or wall < best[0]:
+                best = (wall, kernel, len(spans))
+    finally:
+        fa.flash_attention = real
+    return {"forward_ms": best[0], "flash_ms": best[1],
+            "flash_launches": best[2], "share": best[1] / best[0]}
+
+
+def phase_models(K, device, card: str) -> tuple:
+    """The model stack on the card (module docstring, phase 7).  Returns
+    (path label -> launch counts of the counted run, "<model> <dtype>" ->
+    the forward's wall and the kernel's share of it, the serving walls and
+    memory, the planted fault's error)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, module
+
+    fa = K["flash_attention"]
+    t_phase = time.perf_counter()
+
+    def params_of(models):
+        # the same seed each time: one model's weights on the card at once
+        return models["float32"].init_params(
+            torch.Generator().manual_seed(0), device=device)
+
+    runs = []
+    zero_counts(K)
+    for name, layers, fault in MODELS:
+        cfg = get_arch(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        layers = cfg.n_layers
+        models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
+                  for dt in ("float32", "bfloat16")}
+        t0 = time.perf_counter()
+        params = params_of(models)
+        torch.cuda.synchronize()
+        print(f"models: {name}: {layers} layers, d_model {cfg.d_model}, "
+              f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}: "
+              f"{module.count_params(params) / 1e9:.3f} B fp32 parameters "
+              f"({module.param_bytes(params) / 2**30:.2f} GiB) initialised "
+              f"on the card in {time.perf_counter() - t0:.1f} s; {card}")
+        gen = torch.Generator(device=device).manual_seed(1)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, MODEL_SEQ),
+                                         generator=gen, device=device)}
+        prompts = torch.randint(1, cfg.vocab_size,
+                                (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                                device=device)
+        with torch.no_grad():
+            for dt, model in models.items():
+                _model_forward_check(name, model, params, batch, fa, layers,
+                                     card)
+                _serve_check(name, model, params, prompts, fa, layers,
+                             getattr(torch, dt), card)
+        del params
+        torch.cuda.empty_cache()
+        runs.append((name, fault, models, batch, prompts))
+    counts = launch_counts(K)
+    print(f"models: launches of the model path "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    if counts["flash_attention"] <= 0:
+        raise RuntimeError("models: the flash-attention kernel never "
+                           "launched")
+    timing = {}
+    with torch.no_grad():
+        for name, fault, models, batch, prompts in runs:
+            params = params_of(models)
+            for dt, model in models.items():
+                rec = _kernel_share(model, params, batch, fa)
+                _serve_time(model, params, prompts, getattr(torch, dt))
+                rec.update(_serve_time(model, params, prompts,
+                                       getattr(torch, dt)))
+                rec["planted_fault_err"] = _planted_fault(
+                    name, model, params, batch, fa, fault, card)
+                timing[f"{name} {dt}"] = rec
+                print(f"models: {name} {dt} forward B=1 S={MODEL_SEQ}: "
+                      f"{rec['forward_ms']:.2f} ms by events, the flash "
+                      f"kernel {rec['flash_ms']:.2f} ms over "
+                      f"{rec['flash_launches']} launches = "
+                      f"{100 * rec['share']:.1f}% of it; serving "
+                      f"{SERVE_BATCH} x {SERVE_PROMPT} (the second run): "
+                      f"prefill {rec['prefill_ms']:.1f} ms, "
+                      f"{SERVE_STEPS} decode steps at "
+                      f"{rec['decode_tokens_s']:.1f} tokens/s, peak "
+                      f"{rec['peak_bytes'] / 2**30:.2f} GiB "
+                      f"({rec['resident_bytes'] / 2**30:.2f} GiB resident "
+                      f"before the prefill); {card}")
+            del params
+            torch.cuda.empty_cache()
+    print(f"models: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"models": counts}, timing
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -2758,7 +3105,12 @@ def main() -> int:
     by_path = phase_main_path(K, device)
     by_path.update(phase_bench(K, line))
     by_path.update(phase_paper(K, line))
+    counts, model_timing = phase_models(K, device, line)
+    by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["models"] = model_timing
     print(line)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,14 @@ def test_port_files_exist():
                    "paper/unconstrained.py", "paper/omitted_kernels.py",
                    "paper/variant_selection.py",
                    "paper/runtime_overhead.py",
-                   "paper/executor_overlap.py"):
+                   "paper/executor_overlap.py", "configs/__init__.py",
+                   "configs/base.py", "configs/gemma3_1b.py",
+                   "configs/yi_9b.py", "dist/__init__.py",
+                   "dist/sharding.py", "models/__init__.py",
+                   "models/module.py", "models/layers.py",
+                   "models/attention.py", "models/ssm.py",
+                   "models/xlstm.py", "models/moe.py",
+                   "models/transformer.py", "models/registry.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -77,6 +84,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.paper.variant_selection, "
         "repro_torch.paper.runtime_overhead\n"
         "import repro_torch.paper.executor_overlap\n"
+        "import repro_torch.configs, repro_torch.dist, repro_torch.models\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm, "
+        "repro_torch.models.xlstm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
