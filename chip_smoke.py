@@ -169,7 +169,36 @@ Phases, each of which fails the run (non-zero exit) on error:
    serving run twice, the second timed (prefill wall, decode tokens/s,
    peak device memory over it); and a planted fault (gemma3-1b's window
    dropped, yi-9b's causal mask) that must land above MODEL_TOL.
-8. times   — each kernel at the workloads' shapes, timed with CUDA events
+8. serve   — the serving slice (``repro_torch.serve``, ``bench serve``,
+   ``launch.serve``, ``checkpoint``) at gemma3-1b uncut, the launch
+   counters zeroed just before and read just after.  ``generate`` at the
+   models phase's serving shape (2 x 2048 + 32 new) in fp32 and bf16: one
+   flash launch a layer in the prefill and none in decode, counted per
+   call; in fp32 its tokens held to the same loop over the plain prefill
+   (``use_kernel=False``), token for token or, at the first token that
+   differs, the plain run's top-2 logit margin there within
+   MODEL_TOL["float32"]; a second run timed (prefill, decode tokens/s,
+   peak memory).  ``ServeEngine`` (bf16, 4 slots of 256) over ``bench
+   serve``'s protocol at the full vocabulary: a FIFO warm-up over
+   ``poisson_trace(8, rate=0.5)`` recording rows, ``LinearModel`` fits,
+   then a fresh engine per trace (``bursty_trace(2, burst_gap=16)``,
+   ``poisson_trace(8, rate=0.4)``) and policy (FIFO, SJF): every request
+   completes, no flash launch, the telemetry contract holds (histograms,
+   counters, instants and spans per request and step); TTFT and token
+   latency p50/p99, goodput, steps, occupancy, the ``serve_step`` mean
+   against its seeded prior, and one more step timed and profiled (the
+   card's busy share, its launches).  In fp32 the engine's tokens over
+   the bursty trace held to each request alone through
+   ``ContinuousBatcher(max_slots=1)`` under the same margin rule.
+   ``launch.serve.main`` in process at the serving shape, then through a
+   checkpoint of the same weights saved and restored by the port's
+   ``CheckpointManager``: the same tokens.  ``run_serve(quick=False)``
+   (reduced yi-9b) on the card merged into a copy of the committed bench
+   document and validated, and ``bench serve --quick`` in process.  Last,
+   outside the counted window, TTFT by prefill design: a prompt of the
+   traces' lengths times one engine step (piggyback) beside its batched
+   prefill at B = 1, by events.
+9. times   — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -2643,6 +2672,529 @@ def phase_models(K, device, card: str) -> tuple:
     return {"models": counts}, timing
 
 
+# serving on the card (phase 8): gemma3-1b uncut.  generate and the
+# launcher at phase_models' SERVE_* shapes; the engine at 4 slots of 256
+# over the bench serve protocol's traces drawn at the full vocabulary
+SERVE_ARCH = "gemma3-1b"
+ENGINE_SLOTS, ENGINE_SEQ = 4, 256
+ENGINE_STEP_PRIOR_S = 1e-4 + 1e-8 * ENGINE_SLOTS * ENGINE_SEQ   # the seeded
+#   serve_step prior (serve.engine._seed_serve_step_entry) at this shape
+ENGINE_TIMED_STEPS = 5    # unprofiled steps timed for the busy share
+PIGGYBACK_PROMPTS = (2, 4, 8, 24)   # the traces' prompt lengths
+
+
+def _engine_traces(vocab: int) -> dict:
+    """bench serve's traces and seeds (``seed`` 0), at ``vocab``."""
+    from repro_torch.serve import bursty_trace, poisson_trace
+
+    return {"bursty": lambda: bursty_trace(2, seed=2, burst_gap=16,
+                                           vocab=vocab),
+            "poisson": lambda: poisson_trace(8, seed=1, rate=0.4,
+                                             vocab=vocab)}
+
+
+class _Counted:
+    """A model for ``generate`` whose prefill and decode steps count the
+    flash-attention launches they make and time themselves (synchronised
+    before and after each call)."""
+
+    def __init__(self, model, fa):
+        self.model, self.fa = model, fa
+        self.launches = {"prefill": {}, "decode": {}}
+        self.seconds = {"prefill": 0.0, "decode": 0.0}
+
+    def _run(self, kind, fn, *args, **kw):
+        before = dict(self.fa.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds[kind] += time.perf_counter() - t0
+        for k, n in _fa_delta(self.fa, before).items():
+            if n:
+                self.launches[kind][k] = self.launches[kind].get(k, 0) + n
+        return out
+
+    def prefill(self, *args, **kw):
+        return self._run("prefill", self.model.prefill, *args, **kw)
+
+    def decode_step(self, *args, **kw):
+        return self._run("decode", self.model.decode_step, *args, **kw)
+
+
+def _margin(logits: torch.Tensor) -> float:
+    """The top-2 gap of one row of logits over its largest magnitude."""
+    top = logits.float().topk(2).values
+    return ((top[0] - top[1]) / logits.float().abs().max()).item()
+
+
+def _hold_tokens(label, got, want, logits_at) -> str:
+    """Hold token rows ``got`` to ``want`` (lists of lists): equal, or at
+    the first token where a row differs the plain run's top-2 margin there
+    (``logits_at(row, j)``) within MODEL_TOL["float32"] — a near tie that
+    another summation order may break.  Returns a note for the print."""
+    notes = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        j = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None and len(g) == len(w):
+            continue
+        if j is None:
+            raise RuntimeError(f"{label}: row {b} has {len(g)} tokens, the "
+                               f"plain run {len(w)}")
+        margin = _margin(logits_at(b, j))
+        notes.append(f"row {b} first differs at token {j}, the plain run's "
+                     f"top-2 margin there {margin:.3g}")
+        if margin > MODEL_TOL["float32"]:
+            raise RuntimeError(f"{label}: {notes[-1]}, above "
+                               f"{MODEL_TOL['float32']}: not a near tie")
+    return "; ".join(notes) if notes else "equal token for token"
+
+
+def _plain_generate(model, params, prompts, steps: int) -> tuple:
+    """``generate``'s loop with the plain prefill (``use_kernel=False``):
+    (tokens [B, steps], the logits each token was taken from, [B, V] a
+    step)."""
+    b, s = prompts.shape
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_seq=s + steps, use_kernel=False)
+    rows = [logits[:, -1].float()]
+    del logits
+    tok = rows[0].argmax(-1, keepdim=True).to(torch.int32)
+    toks = [tok]
+    for i in range(steps - 1):
+        lg, cache = model.decode_step(params, cache, tok, s + i)
+        rows.append(lg[:, -1].float())
+        tok = rows[-1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    return torch.cat(toks, dim=1), rows
+
+
+def _serve_generate(models, params, prompts, fa, layers, card) -> dict:
+    """``generate`` in each dtype: one flash launch a layer in the prefill,
+    none in decode; in fp32 its tokens held to the plain prefill's run;
+    then a second, timed run.  Returns dtype -> timings."""
+    from repro_torch.serve.decode import generate
+
+    b, s = prompts.shape
+    out = {}
+    for dt, model in models.items():
+        counted = _Counted(model, fa)
+        toks = generate(counted, params, prompts, SERVE_STEPS,
+                        s + SERVE_STEPS)
+        if counted.launches != {"prefill": {"flash_attention": layers},
+                                "decode": {}}:
+            raise RuntimeError(f"serve: generate {dt} launched "
+                               f"{counted.launches}, not {layers} in the "
+                               "prefill and none in decode")
+        if tuple(toks.shape) != (b, SERVE_STEPS) \
+                or toks.dtype != torch.int32 \
+                or not bool(((toks >= 0) & (toks < model.cfg.vocab_size))
+                            .all()):
+            raise RuntimeError(f"serve: generate {dt} gave {toks.dtype} "
+                               f"{tuple(toks.shape)} out of the vocabulary")
+        note = "not held (bf16)"
+        if dt == "float32":
+            with torch.inference_mode():
+                want, rows = _plain_generate(model, params, prompts,
+                                             SERVE_STEPS)
+            note = _hold_tokens(f"serve: generate {dt}", toks.tolist(),
+                                want.tolist(), lambda r, j: rows[j][r])
+            del rows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = _Counted(model, fa)
+        again = generate(timed, params, prompts, SERVE_STEPS,
+                         s + SERVE_STEPS)
+        if not torch.equal(again, toks):
+            raise RuntimeError(f"serve: generate {dt} gave other tokens on "
+                               "its second run")
+        rec = {"prefill_ms": timed.seconds["prefill"] * 1e3,
+               "decode_tokens_s": b * (SERVE_STEPS - 1)
+               / timed.seconds["decode"],
+               "decode_step_ms": timed.seconds["decode"] * 1e3
+               / (SERVE_STEPS - 1),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        out[dt] = rec
+        print(f"serve: generate {SERVE_ARCH} {dt} {b} x {s} tokens + "
+              f"{SERVE_STEPS} new: flash launches {counted.launches} "
+              f"({layers} layers); against the plain prefill's run: {note}; "
+              f"the second run: prefill {rec['prefill_ms']:.1f} ms, "
+              f"{SERVE_STEPS - 1} decode steps at "
+              f"{rec['decode_step_ms']:.2f} ms = "
+              f"{rec['decode_tokens_s']:.1f} tokens/s, peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB; {card}")
+    return out
+
+
+def _serve_launcher(fa, layers, device, card) -> None:
+    """``launch.serve.main`` in process at phase_models' serving shape
+    (the config's bf16 compute), then through a checkpoint of the same
+    weights saved and restored by the port's manager: the same tokens,
+    one flash launch a layer each."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build_model
+
+    argv = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new",
+            str(SERVE_STEPS), "--seed", "0", "--device", str(device)]
+    before = fa.LAUNCHES["flash_attention"]
+    plain, text = _cli(launch.main, argv)
+    plain = plain.cpu()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        params = build_model(get_arch(SERVE_ARCH)).init_params(
+            torch.Generator().manual_seed(0), device=device)
+        t0 = time.perf_counter()
+        CheckpointManager(tmp).save(7, {"params": params})
+        save_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored, restored_text = _cli(launch.main,
+                                       argv + ["--checkpoint-dir", tmp])
+        restore_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"] - before
+    if "[serve] restored checkpoint step 7" not in restored_text:
+        raise RuntimeError("serve: launch.serve did not restore the "
+                           "checkpoint")
+    if not torch.equal(restored.cpu(), plain) or launches != 2 * layers:
+        raise RuntimeError(f"serve: launch.serve through the checkpoint "
+                           f"gave other tokens, or {launches} flash "
+                           f"launches in two runs (want {2 * layers})")
+    said = [ln for ln in (text + restored_text).splitlines()
+            if ln.startswith("[serve] generated")]
+    print(f"serve: launch.serve {SERVE_ARCH} {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"+ {SERVE_STEPS}: {said}; through a checkpoint saved in "
+          f"{save_s:.1f} s, restored and served in {restore_s:.1f} s: the "
+          f"same tokens; flash launches {launches} in the two runs; {card}")
+
+
+def _bare_step_ms(model, params, device) -> float:
+    """The model's decode step alone at the engine's batch, over a cache of
+    its own (median of ENGINE_TIMED_STEPS, each synchronised)."""
+    cache = model.init_cache(ENGINE_SLOTS, ENGINE_SEQ, device=device)
+    tokens = torch.ones((ENGINE_SLOTS, 1), dtype=torch.int32, device=device)
+    start = torch.zeros(ENGINE_SLOTS, dtype=torch.int32, device=device)
+    walls = []
+    with torch.inference_mode():
+        for i in range(ENGINE_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, tokens, i,
+                                          start=start)
+            lg.argmax(-1).cpu()
+            walls.append(time.perf_counter() - t0)
+    return float(np.median(walls[1:])) * 1e3
+
+
+def _profiled_step(eng) -> dict:
+    """One engine with a request in flight: ENGINE_TIMED_STEPS steps timed
+    by the host's clock (each ends synchronised), then one step under the
+    profiler: its device time, its kernels and its copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeRequest
+
+    eng.submit(ServeRequest(rid=10**6, prompt=[1, 2, 3],
+                            max_new=ENGINE_TIMED_STEPS + 4))
+    eng.step()
+    walls = []
+    for _ in range(ENGINE_TIMED_STEPS):
+        t0 = time.perf_counter()
+        eng.step()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in cuda)
+    step_s = float(np.median(walls))
+    busy = sum(e.device_time_total for e in cuda) / 1e6
+    return {"step_ms": step_s * 1e3, "busy_ms": busy * 1e3,
+            "busy_share": busy / step_s, "launches": len(cuda) - copies,
+            "copies": copies}
+
+
+def _hold_telemetry(label, tel, stats, n) -> int:
+    """The engine's telemetry contract (serve.engine's docstring).  Returns
+    the iterations that ran the model (``engine_steps`` also counts the
+    steps the clock skipped while the engine stood idle)."""
+    s = tel.summary()["histograms"]
+    c = tel.counters()
+    tokens = stats["tokens_generated"]
+    steps = len(tel.events(cat="serve.step"))
+    checks = {
+        "model steps within engine_steps": (
+            0 < steps <= stats["engine_steps"], True),
+        "serve.ttft_s count": (s["serve.ttft_s"]["count"], n),
+        "serve.token_latency_s count": (s["serve.token_latency_s"]["count"],
+                                        tokens - n),
+        "kernel.serve_step.s count": (s["kernel.serve_step.s"]["count"],
+                                      steps),
+        "serve.requests_completed": (c.get("serve.requests_completed"), n),
+        "serve.tokens_generated": (c.get("serve.tokens_generated"), tokens),
+        "dispatch.predicted": (c.get("dispatch.predicted"), steps),
+        "dispatch.measured": (c.get("dispatch.measured", 0), 0),
+        "admission instants": (len(tel.events(cat="admission")), n),
+        "request.done instants": (sum(
+            e["name"].startswith("request.done:")
+            for e in tel.events(cat="serve.request")), n)}
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    for name in ("serve.queue_depth", "serve.goodput_tok_s",
+                 "serve.kv_cache_bytes", "serve.kv_live_bytes"):
+        if not tel.series(name):
+            bad[name] = "no series"
+    if bad:
+        raise RuntimeError(f"serve: {label}: telemetry contract broken: "
+                           f"{bad}")
+    return steps
+
+
+def _serve_engine(model, params, fa, device, card) -> dict:
+    """bench serve's protocol at gemma3-1b: a FIFO warm-up recording rows,
+    a LinearModel fit, then fresh engines per trace and policy.  Every
+    request completes, no flash launch, the telemetry contract holds."""
+    from repro_torch.core.nnc import LinearModel
+    from repro_torch.obs.telemetry import Telemetry
+    from repro_torch.runtime import TuningCache, current_fingerprint
+    from repro_torch.serve import ServeEngine, fit_cost_entries
+    from repro_torch.serve import poisson_trace
+
+    vocab = model.cfg.vocab_size
+    out = {"bare_step_ms": _bare_step_ms(model, params, device)}
+    before = sum(fa.LAUNCHES.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = TuningCache(root=tmp, fingerprint=current_fingerprint(device))
+        warm = ServeEngine(model, cache, params=params,
+                           max_slots=ENGINE_SLOTS, max_seq=ENGINE_SEQ,
+                           admission="fifo")
+        t0 = time.perf_counter()
+        ws = warm.run_trace(poisson_trace(8, seed=0, rate=0.5, vocab=vocab))
+        warm_s = time.perf_counter() - t0
+        fitted = fit_cost_entries(cache, model_factory=LinearModel,
+                                  save=False)
+        prefill_ms = fitted.prefill_seconds(24) * 1e3
+        token_ms = fitted.decode_seconds_per_token(32) * 1e3
+        print(f"serve: engine {SERVE_ARCH} {model.cfg.compute_dtype} "
+              f"{ENGINE_SLOTS} slots x {ENGINE_SEQ}: FIFO warm-up "
+              f"{ws['completed']} requests in {ws['engine_steps']} steps, "
+              f"{warm_s:.2f} s; fitted prefill {prefill_ms:.1f} ms at "
+              f"prompt 24, decode {token_ms:.2f} ms a token at ctx 32 "
+              f"(fit MAPE, the worse entry, {fitted.fit_band_pct:.1f}%); "
+              f"{card}")
+        if ws["completed"] != 8:
+            raise RuntimeError(f"serve: the warm-up completed {ws}")
+        for tname, mk in _engine_traces(vocab).items():
+            for policy in ("fifo", "sjf"):
+                tel = Telemetry()
+                eng = ServeEngine(model, cache, params=params,
+                                  max_slots=ENGINE_SLOTS,
+                                  max_seq=ENGINE_SEQ, admission=policy,
+                                  telemetry=tel, record_rows=False)
+                reqs = mk()
+                stats = eng.run_trace(reqs)
+                label = f"engine {tname} {policy}"
+                if stats["completed"] != len(reqs) or stats["rejected"] \
+                        or stats["policy"] != policy \
+                        or not all(r.done and len(r.generated) == r.max_new
+                                   for r in reqs):
+                    raise RuntimeError(f"serve: {label}: {stats}")
+                ran = _hold_telemetry(label, tel, stats, len(reqs))
+                h = tel.summary()["histograms"]
+                step = _profiled_step(eng)
+                rec = {"ttft_ms": (h["serve.ttft_s"]["p50"] * 1e3,
+                                   h["serve.ttft_s"]["p99"] * 1e3),
+                       "token_ms": (h["serve.token_latency_s"]["p50"] * 1e3,
+                                    h["serve.token_latency_s"]["p99"] * 1e3),
+                       "goodput_tok_s": stats["goodput_tok_s"],
+                       "engine_steps": stats["engine_steps"],
+                       "model_steps": ran,
+                       "occupancy": stats["occupancy"],
+                       "step_s_mean": h["kernel.serve_step.s"]["mean"],
+                       **step}
+                out[f"{tname} {policy}"] = rec
+                print(f"serve: {label} ({len(reqs)} requests): TTFT p50 "
+                      f"{rec['ttft_ms'][0]:.1f} / p99 {rec['ttft_ms'][1]:.1f}"
+                      f" ms, token latency p50 {rec['token_ms'][0]:.2f} / "
+                      f"p99 {rec['token_ms'][1]:.2f} ms, goodput "
+                      f"{rec['goodput_tok_s']:.1f} tokens/s, "
+                      f"{rec['engine_steps']} engine steps ({ran} ran the "
+                      f"model), occupancy "
+                      f"{rec['occupancy']:.3f}; kernel.serve_step.s mean "
+                      f"{rec['step_s_mean'] * 1e3:.2f} ms against the "
+                      f"seeded prior {ENGINE_STEP_PRIOR_S * 1e3:.3f} ms; one "
+                      f"step {step['step_ms']:.2f} ms by the host's clock, "
+                      f"the card busy {step['busy_ms']:.2f} ms of it = "
+                      f"{100 * step['busy_share']:.1f}%, "
+                      f"{step['launches']} kernels and {step['copies']} "
+                      f"copies; the model's decode step alone "
+                      f"{out['bare_step_ms']:.2f} ms; {card}")
+    flash = sum(fa.LAUNCHES.values()) - before
+    if flash:
+        raise RuntimeError(f"serve: the engine launched {flash} "
+                           "flash-attention kernels (its steps decode)")
+    return out
+
+
+def _serve_engine_exact(model, params, device, card) -> None:
+    """fp32: the engine's tokens for the bursty trace against each request
+    run alone through ContinuousBatcher(max_slots=1), under the margin
+    rule (batches of other sizes may sum in another order)."""
+    from repro_torch.runtime import TuningCache, current_fingerprint
+    from repro_torch.serve import ContinuousBatcher, ServeEngine
+
+    class Solo(ContinuousBatcher):
+        """The plain batcher, keeping each step's slot-0 logits."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.rows = []
+
+            def step(params, cache, tokens, index, start):
+                with torch.inference_mode():
+                    lg, cache = self.model.decode_step(
+                        params, cache, tokens, index, start=start)
+                self.rows.append(lg[0, -1].float())
+                return lg.argmax(-1).to(torch.int32), cache
+            self._step = step
+
+    trace = _engine_traces(model.cfg.vocab_size)["bursty"]
+    reqs = trace()
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = ServeEngine(model, TuningCache(
+            root=tmp, fingerprint=current_fingerprint(device)),
+            params=params, max_slots=ENGINE_SLOTS, max_seq=ENGINE_SEQ,
+            admission="fifo")
+        eng.run_trace(reqs)
+    notes = []
+    for req, alone in zip(reqs, trace()):
+        solo = Solo(model, params, max_slots=1, max_seq=ENGINE_SEQ)
+        solo.submit(alone)
+        solo.run()
+        first = len(alone.prompt) - 1       # the step of generated token 0
+        note = _hold_tokens(
+            f"serve: engine fp32 request {req.rid}", [req.generated],
+            [alone.generated], lambda r, j: solo.rows[first + j])
+        if note != "equal token for token":
+            notes.append(f"request {req.rid}: {note}")
+    print(f"serve: engine {SERVE_ARCH} float32 bursty trace ({len(reqs)} "
+          f"requests) against each request alone: "
+          f"{'; '.join(notes) or 'equal token for token'}; {card}")
+
+
+def _piggyback(model, params, engine: dict, device, card) -> None:
+    """TTFT under piggyback prefill (about prompt x one engine step)
+    beside generate's batched prefill of the same prompt at B = 1."""
+    step_ms = engine["bursty fifo"]["step_ms"]
+    parts = []
+    with torch.inference_mode():
+        for p in PIGGYBACK_PROMPTS:
+            toks = torch.ones((1, p), dtype=torch.int32, device=device)
+            model.prefill(params, {"tokens": toks}, max_seq=p + 1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.prefill(params, {"tokens": toks}, max_seq=p + 1)
+            end.record()
+            end.synchronize()
+            parts.append(f"prompt {p}: {p} x {step_ms:.2f} = "
+                         f"{p * step_ms:.1f} ms piggyback, "
+                         f"{start.elapsed_time(end):.2f} ms batched")
+    print(f"serve: {SERVE_ARCH} {model.cfg.compute_dtype} TTFT by prefill "
+          f"design: {'; '.join(parts)}; {card}")
+
+
+def _serve_bench(device, card) -> None:
+    """``run_serve(quick=False)`` on the card (reduced yi-9b), merged into
+    a copy of the committed bench document and validated; then
+    ``python -m repro_torch.bench serve --quick`` in process."""
+    import shutil
+
+    from repro_torch.bench.__main__ import main as bench_main
+    from repro_torch.bench.schema import load_bench, validate_bench
+    from repro_torch.bench.serve_trace import (run_serve, summarize_serve,
+                                               write_serve)
+
+    sample = Path(__file__).resolve().parent / "benchmarks" \
+        / "sample_results" / "bench.json"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        section = run_serve(quick=False, results_dir=tmp, device=device)
+        wall = time.perf_counter() - t0
+        shutil.copy(sample, Path(tmp) / "bench.json")
+        written = write_serve(section, out_path=str(Path(tmp) / "bench.json"),
+                              results_dir=tmp)
+        validate_bench(load_bench(written))
+        for line in summarize_serve(section):
+            print(f"serve bench: {line}; {card}")
+        done = {(t, p): r["completed"] == section["traces"][t]["n_requests"]
+                for t, tr in section["traces"].items()
+                for p, r in tr["policies"].items()}
+        if not all(done.values()):
+            raise RuntimeError(f"serve bench: requests left over: {done}")
+        rc, text = _cli(bench_main, [
+            "serve", "--quick", "--results-dir", f"{tmp}/cli",
+            "--out", f"{tmp}/cli/bench.json", "--device", str(device)])
+        if rc not in (0, 1) or not (Path(tmp) / "cli"
+                                    / "bench_serve.json").exists():
+            raise RuntimeError(f"serve bench: the CLI exited {rc}")
+    print(f"serve bench: run_serve(quick=False) on {device} in {wall:.1f} s, "
+          f"sjf_beats_fifo_bursty {section['sjf_beats_fifo_bursty']}, the "
+          f"document validates; bench serve --quick exited {rc} "
+          f"({text.splitlines()[-2].strip()}); {card}")
+
+
+def phase_serve(K, device, card: str) -> tuple:
+    """Serving on the card (module docstring, phase 8).  Returns (path
+    label -> launch counts of the counted run, the serving numbers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    fa = K["flash_attention"]
+    t_phase = time.perf_counter()
+    cfg = get_arch(SERVE_ARCH)
+    layers = cfg.n_layers
+    models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
+              for dt in ("float32", "bfloat16")}
+    zero_counts(K)
+    params = models["float32"].init_params(torch.Generator().manual_seed(0),
+                                           device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompts = torch.randint(1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=device, dtype=torch.int32)
+    timing = {"generate": _serve_generate(models, params, prompts, fa,
+                                          layers, card)}
+    timing["engine"] = _serve_engine(models["bfloat16"], params, fa, device,
+                                     card)
+    _serve_engine_exact(models["float32"], params, device, card)
+    del params
+    torch.cuda.empty_cache()
+    _serve_launcher(fa, layers, device, card)
+    _serve_bench(device, card)
+    counts = launch_counts(K)
+    print(f"serve: launches of the serving path "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    # generate twice in each dtype, the launcher twice: a launch a layer
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = 6 * layers
+    if counts != want:
+        raise RuntimeError(f"serve: launches {counts}, not {want}")
+    params = models["bfloat16"].init_params(
+        torch.Generator().manual_seed(0), device=device)
+    _piggyback(models["bfloat16"], params, timing["engine"], device, card)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"serve": counts}, timing
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -3107,10 +3659,13 @@ def main() -> int:
     by_path.update(phase_paper(K, line))
     counts, model_timing = phase_models(K, device, line)
     by_path.update(counts)
+    counts, serve_timing = phase_serve(K, device, line)
+    by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
     for rec in records:
         if rec["name"] == "flash_attention":
             rec["models"] = model_timing
+            rec["serve"] = serve_timing
     print(line)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

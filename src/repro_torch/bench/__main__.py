@@ -1,11 +1,11 @@
-"""CLI: ``python -m repro_torch.bench {run,adaptive,compare,history}``, the
-port of ``repro.bench``'s (the JAX package's ``serve`` subcommand waits
-for the port's serve engine).
+"""CLI: ``python -m repro_torch.bench {run,adaptive,serve,compare,history}``,
+the port of ``repro.bench``'s.
 
     PYTHONPATH=src python -m repro_torch.bench run --quick
     PYTHONPATH=src python -m repro_torch.bench run --quick \\
         --configs cpu,simdev2
     PYTHONPATH=src python -m repro_torch.bench adaptive --quick
+    PYTHONPATH=src python -m repro_torch.bench serve --quick [--device cpu]
     PYTHONPATH=src python -m repro_torch.bench compare \\
         benchmarks/baseline_bench.json results/bench.json --only-kind sim
     PYTHONPATH=src python -m repro_torch.bench history
@@ -55,6 +55,24 @@ def main(argv=None) -> int:
     adp.add_argument("--results-dir", default="results")
     adp.add_argument("--workloads", default=None)
     adp.add_argument("--size", choices=SIZES, default=None)
+
+    svp = sub.add_parser("serve",
+                         help="run the serving-engine arrival-trace "
+                              "scenario (FIFO vs cost-aware SJF "
+                              "admission) and merge it into bench.json "
+                              "as the schema-4 'serve' section; exit 1 "
+                              "when SJF fails to beat FIFO on the "
+                              "bursty trace")
+    svp.add_argument("--quick", action="store_true")
+    svp.add_argument("--out", default="results/bench.json",
+                     help="bench document to merge into when it exists "
+                          "(a standalone bench_serve.json is always "
+                          "written)")
+    svp.add_argument("--results-dir", default="results")
+    svp.add_argument("--seed", type=int, default=0)
+    svp.add_argument("--device", default="cuda",
+                     help="where the engines run: the card (default) or "
+                          "cpu")
 
     hp = sub.add_parser("history",
                         help="list saved bench.json documents (schema "
@@ -121,6 +139,19 @@ def main(argv=None) -> int:
         print(f"adaptive geomean speedup vs static replay: {g:.2f}x")
         print(f"merged adaptive section into {args.out}")
         return 0 if g > 1.0 else 1
+    if args.cmd == "serve":
+        from repro_torch.bench.serve_trace import (run_serve,
+                                                   summarize_serve,
+                                                   write_serve)
+        section = run_serve(quick=args.quick, results_dir=args.results_dir,
+                            seed=args.seed, device=args.device)
+        written = write_serve(section, out_path=args.out,
+                              results_dir=args.results_dir,
+                              quick=args.quick)
+        for line in summarize_serve(section):
+            print(line)
+        print(f"wrote serve section to {written}")
+        return 0 if section["sjf_beats_fifo_bursty"] else 1
     if args.cmd == "history":
         paths = discover(tuple(args.paths) if args.paths
                          else DEFAULT_PATTERNS)

@@ -53,7 +53,13 @@ def test_port_files_exist():
                    "models/module.py", "models/layers.py",
                    "models/attention.py", "models/ssm.py",
                    "models/xlstm.py", "models/moe.py",
-                   "models/transformer.py", "models/registry.py"):
+                   "models/transformer.py", "models/registry.py",
+                   "serve/__init__.py", "serve/policy.py",
+                   "serve/continuous.py", "serve/request.py",
+                   "serve/decode.py", "serve/engine.py",
+                   "bench/serve_trace.py", "checkpoint/__init__.py",
+                   "checkpoint/manager.py", "launch/__init__.py",
+                   "launch/serve.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -87,6 +93,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs, repro_torch.dist, repro_torch.models\n"
         "import repro_torch.models.moe, repro_torch.models.ssm, "
         "repro_torch.models.xlstm\n"
+        "import repro_torch.serve, repro_torch.bench.serve_trace\n"
+        "import repro_torch.checkpoint, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
