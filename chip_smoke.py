@@ -198,7 +198,35 @@ Phases, each of which fails the run (non-zero exit) on error:
    outside the counted window, TTFT by prefill design: a prompt of the
    traces' lengths times one engine step (piggyback) beside its batched
    prefill at B = 1, by events.
-9. times   — each kernel at the workloads' shapes, timed with CUDA events
+9. train   — the training slice (``repro_torch.{data,optim,train}``,
+   ``launch.train``) at gemma3-1b uncut, B = 2, S = 2048 (past the 512
+   window: the local layers banded, the 4 global ones full causal),
+   seed-0 fp32 weights, batches from ``data.pipeline.batch_at``.  (a)
+   ``make_loss_fn``'s value and gradients through the kernels against its
+   ``use_kernel=False`` twin, fp32 and bf16 compute: the loss and every
+   gradient leaf (relative to that leaf's largest magnitude) within
+   MODEL_TOL; (b) the same with the dq and dk/dv kernels launched with
+   ``window=0`` (the forward right) must land above the bound; (c) the
+   counters zeroed just before, one ``make_train_step`` step (remat, bf16)
+   launches the lse forward 50 times (26, and 24 again in the recompute of
+   the 4 checkpointed periods of 6 layers; the 2 tail layers are not
+   checkpointed), dq and dk/dv 26 times each, the forward without lse
+   never; (d) ``launch.train.main`` in process, 8 steps (``--warmup 2``):
+   every loss and grad norm finite, the last loss below the first, the
+   same launches a step; the warm steps' time and tokens/s, the peak
+   device memory; the counters read just after.  Then, outside the
+   counted window, one step by the host's clock and under the profiler
+   (the card's busy share, its kernels, the flash kernels' device time by
+   name) and one by CUDA events with an event pair around every flash
+   launch, beside the resident bytes of params, grads and both moments;
+   (e) ``launch.train`` in child processes (``--train-child``: the
+   launcher with the arch cut to 2 of 26 layers at full width, so a
+   checkpoint of params and two fp32 moments is 3.6 GB, not 12): an
+   uninterrupted run, one that crashes at step 5 (exit 42, after the
+   step-4 checkpoint) and one that resumes from it; the resumed steps'
+   losses equal the uninterrupted run's bit for bit, or within 1e-6
+   relative (which held is printed).
+10. times  — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -3195,6 +3223,404 @@ def phase_serve(K, device, card: str) -> tuple:
     return {"serve": counts}, timing
 
 
+# training on the card (phase 9): gemma3-1b uncut.  The gradient gate, the
+# planted backward fault, the counted step and the launcher at TRAIN_*; the
+# crash-and-resume children at 2 of 26 layers (a checkpoint of params and
+# both moments in fp32 near 3.6 GB, against 12 GB uncut)
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+RESUME_LAYERS, RESUME_SEQ, RESUME_STEPS = 2, 1024, 6
+RESUME_EVERY, RESUME_FAIL = 4, 5
+# one training step with remat: the lse forward once a layer (26), again in
+# the recompute of the 4 checkpointed periods of 6 layers (24; the 2 tail
+# layers are not checkpointed), the dq and dk/dv kernels once a layer
+TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_fwd": 50,
+                  "flash_attention_bwd_dq": 26,
+                  "flash_attention_bwd_dkv": 26}
+# the training path's wrappers and the names of the kernels they launch
+FA_KERNEL_NAMES = {"flash_attention_fwd": "fa_fwd_kernel",
+                   "flash_attention_bwd_dq": "fa_bwd_dq_kernel",
+                   "flash_attention_bwd_dkv": "fa_bwd_dkv_kernel"}
+TRAIN_KERNELS = tuple(FA_KERNEL_NAMES)
+
+
+def _grads(model, params, batch, use_kernel: bool) -> tuple:
+    """make_loss_fn's (loss, grads) at the step's config, through the
+    kernels or the plain attend_chunked."""
+    from repro_torch.train.step import (TrainStepConfig, _value_and_grad,
+                                        make_loss_fn)
+
+    fn = _value_and_grad(make_loss_fn(model, TrainStepConfig(),
+                                      use_kernel=use_kernel))
+    (loss, _), grads = fn(params, batch)
+    return loss, grads
+
+
+def _grad_errs(got, want) -> tuple:
+    """(the loss's relative error, the largest leaf error of the grads, its
+    leaf): each leaf's max |diff| over that leaf's largest magnitude."""
+    (loss, grads), (loss_w, grads_w) = got, want
+    errs = {path: _rel_err(g, w)
+            for (path, g), (_, w) in zip(_paths(grads), _paths(grads_w))}
+    leaf = max(errs, key=errs.get)
+    return abs(loss.item() - loss_w.item()) / abs(loss_w.item()), \
+        errs[leaf], leaf
+
+
+def _paths(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in _paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _train_gate(models, params, batch, fa, card) -> dict:
+    """(a) and (b): the loss and every gradient leaf through the kernels
+    against the plain twin, fp32 and bf16, within MODEL_TOL; then a fault
+    planted in the backward kernels alone (the local layers' window
+    dropped) must land above the bound."""
+    out = {}
+    for dt, model in models.items():
+        t0 = time.perf_counter()
+        want = _grads(model, params, batch, use_kernel=False)
+        got = _grads(model, params, batch, use_kernel=True)
+        torch.cuda.synchronize()
+        loss_err, grad_err, leaf = _grad_errs(got, want)
+        out[dt] = {"loss_err": loss_err, "grad_err": grad_err}
+        print(f"train: {TRAIN_ARCH} {dt} value-and-grad B={TRAIN_BATCH} "
+              f"S={TRAIN_SEQ}: loss {got[0].item():.6f} through the kernels, "
+              f"{want[0].item():.6f} plain, relative {loss_err:.3g}; the "
+              f"worst gradient leaf {leaf} {grad_err:.3g} of its largest "
+              f"magnitude (bound {MODEL_TOL[dt]}); both in "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+        _gate(TRAIN_ARCH, "train loss from plain", loss_err, dt)
+        _gate(TRAIN_ARCH, f"train gradient {leaf} from plain", grad_err, dt)
+        real = {k: getattr(fa, k) for k in ("flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv")}
+        for k, fn in real.items():
+            setattr(fa, k, lambda *a, _fn=fn, **kw: _fn(*a, **{**kw,
+                                                             "window": 0}))
+        try:
+            bad = _grads(model, params, batch, use_kernel=True)
+        finally:
+            for k, fn in real.items():
+                setattr(fa, k, fn)
+        loss_err, grad_err, leaf = _grad_errs(bad, want)
+        out[dt]["planted_fault_err"] = grad_err
+        print(f"train: {TRAIN_ARCH} {dt} planted fault: the dq and dk/dv "
+              f"kernels launched with window=0 on every layer, the forward "
+              f"right: loss relative {loss_err:.3g}, the worst gradient leaf "
+              f"{leaf} {grad_err:.3g} (bound {MODEL_TOL[dt]}); {card}")
+        if not grad_err > MODEL_TOL[dt]:
+            raise RuntimeError(f"train {dt}: the bound {MODEL_TOL[dt]} "
+                               f"misses the planted backward fault "
+                               f"({grad_err:.3g})")
+        del want, got, bad
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fresh_step(model, device) -> tuple:
+    """make_train_step at the default config over seed-0 weights: (the
+    step, params, AdamW state, the step-0 batch at TRAIN_*)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=device)
+    opt = AdamW(learning_rate=1e-4)
+    batch = batch_at(DataConfig(model.cfg.vocab_size, TRAIN_SEQ,
+                                TRAIN_BATCH), 0, device=device)
+    return (make_train_step(model, opt, TrainStepConfig()), params,
+            opt.init(params), batch)
+
+
+def _train_step_counted(model, device, fa, card) -> None:
+    """(c): one training step (remat) from fresh weights: TRAIN_LAUNCHES
+    exactly."""
+    cfg = model.cfg
+    step, params, state, batch = _fresh_step(model, device)
+    before = dict(fa.LAUNCHES)
+    params, state, metrics = step(params, state, batch)
+    loss = metrics["loss"].item()
+    delta = _fa_delta(fa, before)
+    print(f"train: {TRAIN_ARCH} {cfg.compute_dtype} one step (remat) B="
+          f"{TRAIN_BATCH} S={TRAIN_SEQ}: loss {loss:.4f}, grad norm "
+          f"{metrics['grad_norm'].item():.4f}; flash launches "
+          f"{json.dumps(delta)}; {card}")
+    if delta != TRAIN_LAUNCHES or not np.isfinite(loss):
+        raise RuntimeError(f"train: one step launched {delta}, not "
+                           f"{TRAIN_LAUNCHES} (loss {loss})")
+
+
+def _train_launcher(fa, device, card) -> dict:
+    """(d): launch.train.main in process, TRAIN_STEPS steps: every loss
+    and grad norm finite, the last loss below the first, TRAIN_LAUNCHES a
+    step; the warm steps' time, tokens/s and the peak device memory."""
+    from repro_torch.launch import train as launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "metrics.json"
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                "--warmup", str(TRAIN_WARMUP), "--device", str(device),
+                "--metrics-out", str(out)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        log, text = _cli(launch.main, argv)
+        wall = time.perf_counter() - t0
+        delta = _fa_delta(fa, before)
+        peak = torch.cuda.max_memory_allocated()
+        if json.loads(out.read_text()) != log:
+            raise RuntimeError("train: --metrics-out differs from the log")
+    losses = [m["loss"] for m in log]
+    norms = [m["grad_norm"] for m in log]
+    want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    if len(log) != TRAIN_STEPS or not np.all(np.isfinite(losses + norms)) \
+            or not losses[-1] < losses[0] or delta != want:
+        raise RuntimeError(f"train: the launcher gave losses {losses}, grad "
+                           f"norms {norms}, flash launches {delta} (want "
+                           f"{want})")
+    warm = [m["step_time_s"] for m in log[1:]]
+    step_s = float(np.median(warm))
+    rec = {"losses": losses, "first_step_s": log[0]["step_time_s"],
+           "step_ms": step_s * 1e3,
+           "tokens_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_bytes": peak, "wall_s": wall}
+    print(f"train: launch.train {TRAIN_ARCH} --seq-len {TRAIN_SEQ} --batch "
+          f"{TRAIN_BATCH} --steps {TRAIN_STEPS} --warmup {TRAIN_WARMUP}: "
+          f"{[ln for ln in text.splitlines() if ln.startswith('[train]')]}; "
+          f"losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; first step "
+          f"{rec['first_step_s']:.2f} s, the warm steps' median "
+          f"{rec['step_ms']:.1f} ms ({min(warm) * 1e3:.1f}-"
+          f"{max(warm) * 1e3:.1f}) = {rec['tokens_s']:.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; flash launches "
+          f"{json.dumps(delta)}; {wall:.1f} s in all; {card}")
+    return rec
+
+
+def _pct(share) -> str:
+    return "not measured" if share is None else f"{100 * share:.1f}%"
+
+
+def _event_step(step, params, state, batch, fa) -> tuple:
+    """One step by CUDA events, an event pair around every flash launch:
+    (its ms, per kernel the summed ms of its spans and their count, the
+    params and state)."""
+    spans = {k: [] for k in TRAIN_KERNELS}
+    real = {k: getattr(fa, k) for k in TRAIN_KERNELS}
+
+    def timed(name):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    for k in TRAIN_KERNELS:
+        setattr(fa, k, timed(k))
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, _ = step(params, state, batch)
+        end.record()
+        end.synchronize()
+    finally:
+        for k, fn in real.items():
+            setattr(fa, k, fn)
+    flash = {k: (sum(a.elapsed_time(b) for a, b in v), len(v))
+             for k, v in spans.items()}
+    return start.elapsed_time(end), flash, params, state
+
+
+def _train_profile(model, device, fa, card) -> dict:
+    """A warm step by the host's clock; one under the profiler (the
+    card's busy share, its kernels, the flash kernels' device time by
+    name, the kernels that take most of it); two by CUDA events with an
+    event pair around every flash launch (the faster kept: the kernels'
+    share by events); the resident bytes of params, grads and both
+    moments beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import module
+
+    cfg = model.cfg
+    step, params, state, batch = _fresh_step(model, device)
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    m["loss"].item()
+    host_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in cuda)
+    busy_s = sum(e.device_time_total for e in cuda) / 1e6
+    by_name = {}
+    for e in cuda:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    device_ms = {k: sum(ms for n, ms in by_name.items() if kernel in n)
+                 for k, kernel in FA_KERNEL_NAMES.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    best = None
+    for _ in range(2):
+        ms, flash, params, state = _event_step(step, params, state, batch,
+                                               fa)
+        if best is None or ms < best[0]:
+            best = (ms, flash)
+    step_ms, flash = best
+    flash_ms = sum(v[0] for v in flash.values())
+    rec = {"host_step_ms": host_s * 1e3, "busy_ms": busy_s * 1e3,
+           "busy_share": busy_s / host_s, "launches": len(cuda) - copies,
+           "copies": copies, "flash_device_ms": device_ms,
+           "flash_device_share": sum(device_ms.values()) / (busy_s * 1e3)
+           if busy_s > 0 else None,
+           "event_step_ms": step_ms,
+           "flash_ms": {k: v[0] for k, v in flash.items()},
+           "flash_launches": {k: v[1] for k, v in flash.items()},
+           "flash_share": flash_ms / step_ms,
+           "resident_bytes": 4 * module.param_bytes(params)}
+    print(f"train: {TRAIN_ARCH} {cfg.compute_dtype} a warm step B="
+          f"{TRAIN_BATCH} S={TRAIN_SEQ}: {rec['host_step_ms']:.1f} ms by the "
+          f"host's clock, the card busy {rec['busy_ms']:.1f} ms of it = "
+          f"{100 * rec['busy_share']:.1f}% over {rec['launches']} kernels "
+          f"and {copies} copies (profiled step), the flash kernels' device "
+          f"time " + ", ".join(f"{k} {v:.2f} ms" for k, v in device_ms.items())
+          + f" = {_pct(rec['flash_device_share'])} of the busy time; "
+          f"most device time: " + "; ".join(f"{n[:48]} {ms:.1f} ms"
+                                           for n, ms in top)
+          + f"; by events (the faster of two steps) {step_ms:.1f} ms, the "
+          f"flash spans " + ", ".join(
+              f"{k} {v[0]:.2f} ms ({v[1]})" for k, v in flash.items())
+          + f" = {100 * rec['flash_share']:.1f}% of it; params + grads + "
+          f"mu + nu resident {rec['resident_bytes'] / 2**30:.2f} GiB; "
+          f"{card}")
+    return rec
+
+
+def train_child(argv) -> int:
+    """``python3 chip_smoke.py --train-child LAYERS ARGS...``:
+    ``launch.train.main(ARGS)`` with the arch cut to LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.launch import train as launch
+
+    layers, args = int(argv[0]), argv[1:]
+    full = launch.get_arch
+    launch.get_arch = lambda name: dataclasses.replace(full(name),
+                                                       n_layers=layers)
+    launch.main(args)
+    return 0
+
+
+def _train_resume(card) -> dict:
+    """(e): launch.train in child processes at full width, RESUME_LAYERS
+    layers: one run uninterrupted, one crashing at RESUME_FAIL (exit 42,
+    after the checkpoint at RESUME_EVERY), one resuming from it; the
+    resumed steps' losses against the uninterrupted run's."""
+    def child(*extra):
+        argv = [sys.executable, str(Path(__file__).resolve()),
+                "--train-child", str(RESUME_LAYERS), "--arch", TRAIN_ARCH,
+                "--steps", str(RESUME_STEPS), "--seq-len", str(RESUME_SEQ),
+                "--batch", str(TRAIN_BATCH), "--warmup", str(TRAIN_WARMUP),
+                *extra]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=300)
+        return run, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = ["--checkpoint-dir", str(tmp / "ckpt"), "--checkpoint-every",
+                str(RESUME_EVERY)]
+        whole, whole_s = child("--metrics-out", str(tmp / "whole.json"))
+        crash, crash_s = child(*ckpt, "--fail-at-step", str(RESUME_FAIL))
+        resume, resume_s = child(*ckpt, "--metrics-out",
+                                 str(tmp / "resumed.json"))
+        for run, rc in ((whole, 0), (crash, 42), (resume, 0)):
+            if run.returncode != rc:
+                raise RuntimeError(f"train: a launcher child exited "
+                                   f"{run.returncode}, not {rc}: "
+                                   f"{run.stdout[-1500:]} {run.stderr[-3000:]}")
+        if f"resumed from step {RESUME_EVERY}" not in resume.stdout:
+            raise RuntimeError(f"train: no resume: {resume.stdout[-1500:]}")
+        a = json.loads((tmp / "whole.json").read_text())[RESUME_EVERY:]
+        b = json.loads((tmp / "resumed.json").read_text())
+    got = [m["loss"] for m in b]
+    want = [m["loss"] for m in a]
+    if [m["step"] for m in a] != [m["step"] for m in b]:
+        raise RuntimeError(f"train: resumed steps {b}, want {a}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    exact = got == want
+    print(f"train: crash and resume, {TRAIN_ARCH} full width at "
+          f"{RESUME_LAYERS} layers, {TRAIN_BATCH} x {RESUME_SEQ}, "
+          f"{RESUME_STEPS} steps: the crash at step {RESUME_FAIL} exited 42 "
+          f"({crash_s:.1f} s), the next run resumed from step "
+          f"{RESUME_EVERY} ({resume_s:.1f} s); losses of steps "
+          f"{[m['step'] for m in b]} {got} against the uninterrupted run's "
+          f"{want} ({whole_s:.1f} s): "
+          f"{'bit-equal' if exact else f'relative {rel:.3g}'}; {card}")
+    if not exact and not rel <= 1e-6:
+        raise RuntimeError(f"train: resumed losses {got} differ from "
+                           f"{want} by {rel:.3g}")
+    return {"resume_exact": exact, "resume_rel": rel}
+
+
+def phase_train(K, device, card: str) -> tuple:
+    """Training on the card (module docstring, phase 9).  Returns (path
+    label -> launch counts of the counted run, the training numbers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import build_model
+
+    fa = K["flash_attention"]
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
+              for dt in ("float32", "bfloat16")}
+    params = models["float32"].init_params(torch.Generator().manual_seed(0),
+                                           device=device)
+    batch = batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
+                     device=device)
+    timing = {"gate": _train_gate(models, params, batch, fa, card)}
+    del params
+    torch.cuda.empty_cache()
+    zero_counts(K)
+    _train_step_counted(models[cfg.compute_dtype], device, fa, card)
+    torch.cuda.empty_cache()
+    timing["launcher"] = _train_launcher(fa, device, card)
+    counts = launch_counts(K)
+    print(f"train: launches of the training path "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    want = {k: 0 for k in counts}
+    want.update({k: (TRAIN_STEPS + 1) * v for k, v in TRAIN_LAUNCHES.items()})
+    if counts != want:
+        raise RuntimeError(f"train: launches {counts}, not {want}")
+    torch.cuda.empty_cache()
+    timing["step"] = _train_profile(models[cfg.compute_dtype], device, fa,
+                                    card)
+    torch.cuda.empty_cache()
+    timing.update(_train_resume(card))
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train": counts}, timing
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -3632,6 +4058,8 @@ def main() -> int:
     sys.path.insert(0, str(src))
     if sys.argv[1:2] == ["--contention-child"]:
         return contention_child(sys.argv[2])
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child(sys.argv[2:])
     from repro_torch.kernels import build
     from repro_torch.kernels.blur import blur as bk
     from repro_torch.kernels.conv2d import conv2d as mc
@@ -3661,11 +4089,16 @@ def main() -> int:
     by_path.update(counts)
     counts, serve_timing = phase_serve(K, device, line)
     by_path.update(counts)
+    counts, train_timing = phase_train(K, device, line)
+    by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
     for rec in records:
         if rec["name"] == "flash_attention":
             rec["models"] = model_timing
             rec["serve"] = serve_timing
+        if rec["name"] in TRAIN_KERNELS:
+            rec["train"] = {"launches": by_path["train"][rec["name"]],
+                            **train_timing}
     print(line)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Layout:  <dir>/step_<N>/arrays.npz + manifest.json, written to a temp dir
 and atomically renamed — a crash mid-write can never corrupt the latest
 checkpoint.  Arrays are saved as host numpy under the keys the reference
 gives its leaves (``"a/b/0"``: dict keys in sorted order, list and tuple
-indices) and restored onto the devices of the ``like`` tree's leaves.  A
-content checksum in the manifest guards torn reads.
+indices; ``"opt/.mu/a"``: a NamedTuple's fields by name) and restored
+onto the devices of the ``like`` tree's leaves.  A content checksum in
+the manifest guards torn reads.
 
 bfloat16 leaves are written as the reference writes them: 2-byte raw
 records (``|V2`` in the npz, numpy having no bfloat16) under the dtype name
@@ -37,12 +38,22 @@ from repro_torch.dist.sharding import DIST_SLICE, active_mesh
 _BF16_RECORD = np.dtype("V2")     # how numpy stores a bfloat16 leaf
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _items(tree, prefix: str = ""):
-    """(key, leaf) pairs in the reference's flattening order: dict keys
-    sorted, list and tuple entries by index, None an empty subtree."""
+    """(key, leaf) pairs in the reference's flattening order and under its
+    key names (``tree_flatten_with_path``): dict keys sorted, a
+    NamedTuple's fields in order as ``.<field>`` (an optimizer state's
+    ``opt/.mu/...``), list and tuple entries by index, None an empty
+    subtree."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], f"{prefix}{k}/")
+    elif _is_namedtuple(tree):
+        for field, v in zip(tree._fields, tree):
+            yield from _items(v, f"{prefix}.{field}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, f"{prefix}{i}/")
@@ -55,6 +66,8 @@ def _unflatten(tree, leaves):
     ``leaves`` in ``_items`` order."""
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(v, leaves) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     return None if tree is None else next(leaves)

@@ -59,7 +59,11 @@ def test_port_files_exist():
                    "serve/decode.py", "serve/engine.py",
                    "bench/serve_trace.py", "checkpoint/__init__.py",
                    "checkpoint/manager.py", "launch/__init__.py",
-                   "launch/serve.py"):
+                   "launch/serve.py", "data/__init__.py",
+                   "data/pipeline.py", "optim/__init__.py",
+                   "optim/adamw.py", "optim/schedules.py",
+                   "optim/compression.py", "train/__init__.py",
+                   "train/step.py", "launch/train.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -95,6 +99,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.models.xlstm\n"
         "import repro_torch.serve, repro_torch.bench.serve_trace\n"
         "import repro_torch.checkpoint, repro_torch.launch.serve\n"
+        "import repro_torch.data.pipeline, repro_torch.optim\n"
+        "import repro_torch.optim.compression, repro_torch.train.step\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
