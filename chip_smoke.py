@@ -226,7 +226,34 @@ Phases, each of which fails the run (non-zero exit) on error:
    step-4 checkpoint) and one that resumes from it; the resumed steps'
    losses equal the uninterrupted run's bit for bit, or within 1e-6
    relative (which held is printed).
-10. times  — each kernel at the workloads' shapes, timed with CUDA events
+10. dist   — the dist slice (``repro_torch.dist``, the shard_map MoE,
+   ``launch.train --data-parallel``) on ``torch.distributed``.  (1)-(3)
+   run in DIST_RANKS child processes (``--dist-child``) that share
+   ``cuda:0`` over gloo, their CUDA tensors staged through host memory
+   (NCCL refuses two ranks on one card; ``tools/dist_probe.py``): (1)
+   gemma3-1b uncut, seed-0 fp32 weights (their checksum equal on every
+   rank), the forward at B = 1, S = 4096 with ``ring=True`` under a
+   4-rank ``("model",)`` mesh and ``train_rules(seq_parallel=True)``:
+   the logits within MODEL_TOL["float32"] of the one-process forward
+   through the flash kernel (rank 0), bit-equal on every rank, no flash
+   launch in a ring layer; a planted fault (every rotation the wrong way
+   round) must land above the bound; per rank the wall, the bytes staged
+   through the host and their seconds, the peak device memory; (2)
+   prefill 2048 tokens and 32 decode steps with ``stream_kv`` under
+   ``serve_rules(long_context=True)`` (the cache's sequence over the 4
+   ranks): the fp32 tokens equal the one-process run's (or a top-2
+   margin within 1e-3); (3) the shard_map MoE (qwen3-moe reduced, fp32,
+   capacity factor 8) on a (2, 2) ``("data", "model")`` mesh: the output
+   within 1e-5 of ``moe_reference``, the expert gradients within 1e-5 of
+   the global dispatch's.  (4) ``launch.train --data-parallel``: in
+   process on a world of one over NCCL with phase 9's launcher argv, the
+   losses within 1e-6 of that run's, the warm step and tokens/s beside
+   its, the gradient all-reduce by events; then two ranks over gloo on
+   ``cuda:0`` (``--dp-child``, torchrun's environment) and one process,
+   2 of 26 layers at fp32 compute, the losses within 1e-5.  The counters
+   are zeroed just before; every rank and child reports its launches,
+   and their sum is the ``dist`` path's.
+11. times  — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -3621,6 +3648,486 @@ def phase_train(K, device, card: str) -> tuple:
     return {"train": counts}, timing
 
 
+DIST_ARCH = "gemma3-1b"
+DIST_DEVICE = "cuda:0"   # the one card the ranks share
+DIST_RANKS = 4           # ranks sharing DIST_DEVICE over gloo
+DIST_SEQ = 4096          # the ring forward, B = 1
+DIST_PROMPT, DIST_STEPS = 2048, 32   # the decode ring: max_seq 2080 = 4 x 520
+DIST_MOE = "qwen3-moe-235b-a22b"     # reduced(): the full model is 470 GB
+DIST_MOE_TOL = 1e-5      # the JAX package's own bounds (test_moe_shardmap)
+DP_LAYERS, DP_STEPS = 2, 3           # the two gloo ranks of --data-parallel
+DP_TOL = {"nccl": 1e-6, "gloo": 1e-5}
+DIST_DEADLINE_S = 300    # each group of child processes, from its start
+DIST_GROUP_TIMEOUT_S = 120.0   # a collective no peer answers fails the rank
+
+
+def _kernels() -> dict:
+    """Kernel name -> the module of its wrapper (and launch counter)."""
+    from repro_torch.kernels.blur import blur as bk
+    from repro_torch.kernels.conv2d import conv2d as mc
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.matvec import matvec as mv
+    from repro_torch.kernels.maxpool import maxpool as mp
+
+    return {"matmul": mm, "matvec": mv, "conv2d": mc, "maxpool": mp,
+            "blur": bk, "flash_attention": fa}
+
+
+def _delta(K, before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts(K).items()
+            if v != before[k]}
+
+
+def _checksum(tensors) -> str:
+    """One hex fingerprint of a sequence of tensors' bits."""
+    from repro_torch.dist import collectives
+
+    total = 0
+    for t in tensors:
+        total = (total * 1000003 + collectives.fingerprint(t)) % (1 << 64)
+    return f"{total:016x}"
+
+
+def _same_on_ranks(label, value) -> None:
+    from repro_torch.dist import collectives
+
+    got = collectives.all_ranks(value)
+    if any(v != got[0] for v in got):
+        raise RuntimeError(f"dist: {label} differs between ranks: {got}")
+
+
+def _dist_ring(model, params, batch, mesh, K, rank) -> dict:
+    """(1) gemma3-1b's forward with ring=True under the 4-rank model mesh;
+    on rank 0 also the one-process forward through the flash kernel and
+    the planted fault (every rotation the wrong way round)."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import train_rules, use_mesh
+
+    link, rules = mesh.transport, train_rules(seq_parallel=True)
+
+    def ring():
+        with torch.no_grad(), use_mesh(mesh, rules):
+            return model.forward(params, batch, remat=False, ring=True)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    t0 = time.perf_counter()
+    logits = ring()
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "flash": _delta(K, before)}
+    prints = collectives.all_ranks(collectives.fingerprint(logits))
+    rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
+    if rank == 0:
+        before = launch_counts(K)
+        with torch.no_grad():
+            want, _ = model.forward(params, batch, remat=False)
+        torch.cuda.synchronize()
+        rec["one_process_flash"] = _delta(K, before)
+        rec["err"] = _rel_err(logits, want)
+        rec["logit_max"] = want.abs().max().item()
+    del logits
+    real = collectives.ppermute
+    collectives.ppermute = lambda t, m, name, perm: real(
+        t, m, name, [(d, s) for s, d in perm])
+    try:
+        bad = ring()
+    finally:
+        collectives.ppermute = real
+    if rank == 0:
+        rec["fault_err"] = _rel_err(bad, want)
+    return rec
+
+
+def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
+    """(2) prefill DIST_PROMPT tokens and DIST_STEPS decode steps with
+    stream_kv under serve_rules(long_context=True) (the cache's sequence
+    over the 4 ranks); on rank 0 the same in one process, and the tokens
+    held to it."""
+    from repro_torch.dist.sharding import serve_rules, use_mesh
+
+    def generate():
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      max_seq=DIST_PROMPT + DIST_STEPS,
+                                      cache_dtype=torch.float32)
+        rows = [logits[:, -1].float()]
+        del logits
+        toks = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
+        for i in range(DIST_STEPS):
+            lg, cache = model.decode_step(params, cache, toks[-1],
+                                          DIST_PROMPT + i, stream_kv=True)
+            rows.append(lg[:, -1].float())
+            toks.append(rows[-1].argmax(-1, keepdim=True).to(torch.int32))
+        return torch.cat(toks, dim=1), rows
+
+    link = mesh.transport
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh, serve_rules(long_context=True)):
+        toks, _ = generate()
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1], "flash": _delta(K, before),
+           "tokens": toks.tolist()}
+    _same_on_ranks("the decode ring's tokens", rec["tokens"])
+    if rank == 0:
+        with torch.no_grad():
+            want, rows = generate()
+        rec["want"] = want.tolist()
+        rec["note"] = _hold_tokens("dist decode ring", rec["tokens"],
+                                   rec["want"], lambda b, j: rows[j][b])
+    return rec
+
+
+def _dist_moe(device) -> dict:
+    """(3) the shard_map MoE on a (2, 2) ("data", "model") mesh: output
+    against moe_reference, expert-weight gradients against the global
+    dispatch's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import compat
+    from repro_torch.dist.sharding import train_rules, use_mesh
+    from repro_torch.models import module
+    from repro_torch.models.moe import moe_apply, moe_reference, moe_spec
+
+    cfg = dataclasses.replace(get_arch(DIST_MOE).reduced(),
+                              compute_dtype="float32", capacity_factor=8.0,
+                              moe_dispatch="shardmap")
+    mesh = compat.make_mesh((2, 2), ("data", "model"), device=device)
+    params = module.init(torch.Generator().manual_seed(0), moe_spec(cfg),
+                         device=device)
+    x = (torch.randn(4, 8, cfg.d_model, generator=torch.Generator()
+                     .manual_seed(0)) * 0.3).to(device)
+    keys = ("w_gate", "w_up", "w_down")
+
+    def run(dispatch, on_mesh):
+        live = module.tree_map(lambda p: p.detach().requires_grad_(), params)
+        c = dataclasses.replace(cfg, moe_dispatch=dispatch)
+        with use_mesh(mesh if on_mesh else None,
+                      train_rules() if on_mesh else None):
+            y, aux = moe_apply(c, live, x)
+        (y ** 2).sum().backward()
+        return y.detach(), aux.detach(), [live[k].grad for k in keys]
+
+    y, aux, grads = run("shardmap", True)
+    _, _, want = run("global", False)
+    with torch.no_grad():
+        ref = moe_reference(cfg, params, x)
+    _same_on_ranks("the shard_map MoE's output",
+                   [_checksum([y, aux]), _checksum(grads)])
+    return {"transport": mesh.transport.describe(),
+            "err": (y - ref).abs().max().item(), "aux": aux.item(),
+            "grad_err": {k: (g - w).abs().max().item()
+                         for k, g, w in zip(keys, grads, want)}}
+
+
+def dist_child(argv) -> int:
+    """``python3 chip_smoke.py --dist-child RANK WORLD URL OUT``: one rank
+    of phase_dist's (1)-(3) on cuda:0, joined over gloo at URL; writes its
+    report to OUT.RANK.json."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import compat
+    from repro_torch.models import build_model, module
+
+    rank, world, url, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    K = _kernels()
+    device = compat.init_process_group(
+        DIST_DEVICE, backend="gloo", init_method=url, rank=rank,
+        world_size=world, timeout_s=DIST_GROUP_TIMEOUT_S)
+    mesh = compat.make_mesh((world,), ("model",), device=device)
+    cfg = dataclasses.replace(get_arch(DIST_ARCH), compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=device)
+    checksum = _checksum(module.leaves(params))
+    _same_on_ranks("the params' checksum", checksum)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, DIST_SEQ), generator=gen,
+                           dtype=torch.int32).to(device)
+    rep = {"rank": rank, "params_checksum": checksum,
+           "transport": mesh.transport.describe()}
+    rep["ring"] = _dist_ring(model, params, {"tokens": tokens}, mesh, K,
+                             rank)
+    torch.cuda.empty_cache()
+    rep["decode"] = _dist_decode(model, params, tokens[:, :DIST_PROMPT],
+                                 mesh, K, rank)
+    del params
+    torch.cuda.empty_cache()
+    rep["moe"] = _dist_moe(device)
+    rep["launches"] = launch_counts(K)
+    Path(f"{out}.{rank}.json").write_text(json.dumps(rep))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_child(argv) -> int:
+    """``python3 chip_smoke.py --dp-child LAYERS ARGS...``:
+    ``launch.train.main(ARGS)`` with the arch cut to LAYERS layers at fp32
+    compute; prints a ``DP_CHILD {json}`` line: its flash launches and,
+    under --data-parallel, the mesh's transport and host staging."""
+    import dataclasses
+
+    from repro_torch.dist import compat
+    from repro_torch.launch import train as launch
+
+    K = _kernels()
+    layers, args = int(argv[0]), argv[1:]
+    full, make = launch.get_arch, compat.make_mesh
+    launch.get_arch = lambda name: dataclasses.replace(
+        full(name), n_layers=layers, compute_dtype="float32")
+    meshes = []
+
+    def made(*a, **kw):
+        meshes.append(make(*a, **kw))
+        return meshes[-1]
+
+    compat.make_mesh = made
+    launch.main(args)
+    rep = {"launches": launch_counts(K)}
+    if meshes:
+        link = meshes[0].transport
+        rep.update(transport=link.describe(), host_bytes=link.host_bytes,
+                   host_s=link.host_s)
+    print("DP_CHILD " + json.dumps(rep))
+    return 0
+
+
+def _children(argvs, envs, label) -> list:
+    """Run child processes of this script together; kill them all at the
+    first failure or at the deadline, and fail the phase then.  Returns
+    their standard outputs."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               *argv], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, env in zip(argvs, envs)]
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = [(p.wait(), p.stdout.read(), p.stderr.read()) for p in procs]
+    for i, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise RuntimeError(f"dist: {label} child {i} exited {rc}: "
+                               f"{out[-1500:]} {err[-3000:]}")
+    return [out for _, out, _ in outs]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] += v
+
+
+def _dist_ranks(counts, card) -> dict:
+    """(1)-(3) in DIST_RANKS children on cuda:0 over gloo."""
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rank"
+        argvs = [["--dist-child", str(r), str(DIST_RANKS),
+                  f"file://{tmp}/rendezvous", out]
+                 for r in range(DIST_RANKS)]
+        t0 = time.perf_counter()
+        _children(argvs, [dict(os.environ)] * DIST_RANKS, "ring")
+        wall = time.perf_counter() - t0
+        reps = [json.loads(Path(f"{out}.{r}.json").read_text())
+                for r in range(DIST_RANKS)]
+    for rep in reps:
+        _add(counts, rep["launches"])
+    r0 = reps[0]
+    print(f"dist: {DIST_RANKS} ranks on {DIST_DEVICE} in {wall:.1f} s, "
+          f"transport {sorted({r['transport'] for r in reps})}; {DIST_ARCH} "
+          f"seed-0 "
+          f"fp32 params checksum {r0['params_checksum']} on every rank; "
+          f"{card}")
+    for rep in reps:
+        ring = rep["ring"]
+        print(f"dist: ring forward rank {rep['rank']}: B=1 S={DIST_SEQ} "
+              f"wall {ring['wall_s']:.2f} s, {ring['host_bytes']} bytes "
+              f"staged through the host in {ring['host_s']:.3f} s, peak "
+              f"device memory {ring['peak_bytes'] / 2**30:.2f} GiB, flash "
+              f"launches {json.dumps(ring['flash'])}; {card}")
+        if any(ring["flash"].values()):
+            raise RuntimeError(f"dist: the ring forward launched "
+                               f"{ring['flash']}")
+    ring = r0["ring"]
+    print(f"dist: ring logits against the one-process forward through the "
+          f"flash kernel ({json.dumps(ring['one_process_flash'])}): "
+          f"{ring['err']:.3g} of the largest logit {ring['logit_max']:.4g} "
+          f"(bound {MODEL_TOL['float32']}); the 4 ranks' logits "
+          f"{'bit-equal' if ring['ranks_bit_equal'] else 'DIFFER'}; "
+          f"planted fault (every rotation the wrong way round) "
+          f"{ring['fault_err']:.3g}; {card}")
+    _gate(DIST_ARCH, "ring logits from the flash forward", ring["err"],
+          "float32")
+    if not ring["ranks_bit_equal"]:
+        raise RuntimeError("dist: the ranks' ring logits differ")
+    if not ring["fault_err"] > MODEL_TOL["float32"]:
+        raise RuntimeError(f"dist: the bound misses the planted rotation "
+                           f"fault ({ring['fault_err']:.3g})")
+    dec = r0["decode"]
+    print(f"dist: decode ring, prefill {DIST_PROMPT} + {DIST_STEPS} steps "
+          f"with stream_kv, cache_seq over {DIST_RANKS} ranks: rank 0 wall "
+          f"{dec['wall_s']:.2f} s, {dec['host_bytes']} bytes staged in "
+          f"{dec['host_s']:.3f} s, flash launches "
+          f"{json.dumps(dec['flash'])}; fp32 tokens against one process: "
+          f"{dec['note']}; {card}")
+    moe = r0["moe"]
+    worst = max(moe["grad_err"].values())
+    print(f"dist: shard_map MoE {DIST_MOE} reduced on (2, 2) ('data', "
+          f"'model'), transport {moe['transport']}: output {moe['err']:.3g} "
+          f"from moe_reference, expert gradients from the global dispatch "
+          f"{json.dumps(moe['grad_err'])} (bound {DIST_MOE_TOL}); aux "
+          f"{moe['aux']:.6f}; {card}")
+    if not (moe["err"] <= DIST_MOE_TOL and worst <= DIST_MOE_TOL):
+        raise RuntimeError(f"dist: the shard_map MoE {moe}")
+    return {"ring_wall_s": [r["ring"]["wall_s"] for r in reps],
+            "ring_host_bytes": [r["ring"]["host_bytes"] for r in reps],
+            "ring_err": ring["err"], "fault_err": ring["fault_err"],
+            "decode_wall_s": dec["wall_s"], "moe_err": moe["err"],
+            "moe_grad_err": worst}
+
+
+def _dist_dp_nccl(K, device, card, launcher) -> dict:
+    """(4a) launch.train --data-parallel in process, a world of one on
+    NCCL, phase 9's launcher argv: the losses against that run's, the warm
+    step and tokens/s beside its, the grad all-reduce's time by events."""
+    from repro_torch.dist import collectives, compat
+    from repro_torch.launch import train as launch
+
+    spans, meshes = [], []
+    reduce, make = collectives.reduce_sum_, compat.make_mesh
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reduce(*a, **kw)
+        end.record()
+        spans.append((start, end))
+
+    def made(*a, **kw):
+        meshes.append(make(*a, **kw))
+        return meshes[-1]
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--warmup",
+            str(TRAIN_WARMUP), "--device", str(device), "--data-parallel"]
+    collectives.reduce_sum_, compat.make_mesh = timed, made
+    try:
+        log, _ = _cli(launch.main, argv)
+    finally:
+        collectives.reduce_sum_, compat.make_mesh = reduce, make
+    torch.cuda.synchronize()
+    reduce_ms = [s.elapsed_time(e) for s, e in spans]
+    losses = [m["loss"] for m in log]
+    want = launcher["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, want))
+    step_s = float(np.median([m["step_time_s"] for m in log[1:]]))
+    print(f"dist: launch.train --data-parallel, a world of one, transport "
+          f"{meshes[0].transport.describe()}: {TRAIN_ARCH} B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} {TRAIN_STEPS} steps, losses "
+          f"{[round(x, 6) for x in losses]} against the plain launcher's: "
+          f"{'bit-equal' if losses == want else f'relative {rel:.3g}'} "
+          f"(bound {DP_TOL['nccl']}); warm step {step_s * 1e3:.1f} ms = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s against "
+          f"{launcher['step_ms']:.1f} ms = {launcher['tokens_s']:.0f}; the "
+          f"grad all-reduce {np.median(reduce_ms):.3f} ms a step by events "
+          f"({len(reduce_ms)} calls); {card}")
+    if len(losses) != len(want) or not rel <= DP_TOL["nccl"]:
+        raise RuntimeError(f"dist: --data-parallel losses {losses}, the "
+                           f"plain launcher's {want}")
+    return {"dp_nccl_rel": rel, "dp_nccl_step_ms": step_s * 1e3,
+            "dp_allreduce_ms": float(np.median(reduce_ms))}
+
+
+def _dist_dp_gloo(counts, card) -> dict:
+    """(4b) two --data-parallel ranks over gloo on cuda:0 (torchrun's
+    environment) and one process, DP_LAYERS layers at fp32 compute, the
+    same global batch: the losses within DP_TOL['gloo']."""
+    import os
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", TRAIN_ARCH, "--steps", str(DP_STEPS), "--seq-len",
+                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--warmup",
+                str(TRAIN_WARMUP), "--device", DIST_DEVICE]
+        dp = args + ["--data-parallel", "--dist-backend", "gloo",
+                     "--metrics-out", f"{tmp}/dp.json"]
+        one = args + ["--metrics-out", f"{tmp}/one.json"]
+        envs = [{**os.environ, "MASTER_ADDR": "localhost",
+                 "MASTER_PORT": str(port), "RANK": str(r),
+                 "WORLD_SIZE": "2", "LOCAL_RANK": "0"} for r in range(2)]
+        t0 = time.perf_counter()
+        outs = _children([["--dp-child", str(DP_LAYERS), *dp]] * 2
+                         + [["--dp-child", str(DP_LAYERS), *one]],
+                         envs + [dict(os.environ)], "data-parallel")
+        wall = time.perf_counter() - t0
+        got = [m["loss"] for m in json.loads(Path(f"{tmp}/dp.json")
+                                             .read_text())]
+        want = [m["loss"] for m in json.loads(Path(f"{tmp}/one.json")
+                                              .read_text())]
+    reps = [json.loads(next(ln for ln in out.splitlines()
+                            if ln.startswith("DP_CHILD "))[9:])
+            for out in outs]
+    for rep in reps:
+        _add(counts, rep["launches"])
+    rel = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    print(f"dist: launch.train --data-parallel, 2 ranks on {DIST_DEVICE}, "
+          f"transport {reps[0]['transport']}, {reps[0]['host_bytes']} bytes "
+          f"staged through the host in {reps[0]['host_s']:.2f} s (rank 0): "
+          f"{TRAIN_ARCH} at {DP_LAYERS} of 26 layers, fp32, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} {DP_STEPS} steps, losses {got} against one "
+          f"process's {want}: relative {rel:.3g} (bound {DP_TOL['gloo']}); "
+          f"{wall:.1f} s for the three children; {card}")
+    if len(got) != DP_STEPS or not rel <= DP_TOL["gloo"]:
+        raise RuntimeError(f"dist: 2-rank losses {got}, one process {want}")
+    return {"dp_gloo_rel": rel}
+
+
+def phase_dist(K, device, card: str, launcher: dict) -> tuple:
+    """The dist slice on the card (module docstring, phase 10).  Returns
+    (path label -> launch counts of the path's run, the numbers)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    zero_counts(K)
+    counts = launch_counts(K)
+    timing = _dist_ranks(counts, card)
+    torch.cuda.empty_cache()
+    timing.update(_dist_dp_nccl(K, device, card, launcher))
+    _add(counts, launch_counts(K))
+    torch.cuda.empty_cache()
+    timing.update(_dist_dp_gloo(counts, card))
+    print(f"dist: launches of the dist path (every rank and child) "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    print(f"dist: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"dist": counts}, timing
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -4060,18 +4567,15 @@ def main() -> int:
         return contention_child(sys.argv[2])
     if sys.argv[1:2] == ["--train-child"]:
         return train_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(sys.argv[2:])
     from repro_torch.kernels import build
-    from repro_torch.kernels.blur import blur as bk
-    from repro_torch.kernels.conv2d import conv2d as mc
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.matmul import matmul as mm
-    from repro_torch.kernels.matvec import matvec as mv
-    from repro_torch.kernels.maxpool import maxpool as mp
 
     # TF32 stays at PyTorch's defaults (off for matmul, on for cuDNN): the
     # port pins fp32 around its own cuDNN calls
-    K = {"matmul": mm, "matvec": mv, "conv2d": mc, "maxpool": mp,
-         "blur": bk, "flash_attention": fa}
+    K = _kernels()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
@@ -4091,11 +4595,15 @@ def main() -> int:
     by_path.update(counts)
     counts, train_timing = phase_train(K, device, line)
     by_path.update(counts)
+    counts, dist_timing = phase_dist(K, device, line,
+                                     train_timing["launcher"])
+    by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
     for rec in records:
         if rec["name"] == "flash_attention":
             rec["models"] = model_timing
             rec["serve"] = serve_timing
+            rec["dist"] = dist_timing
         if rec["name"] in TRAIN_KERNELS:
             rec["train"] = {"launches": by_path["train"][rec["name"]],
                             **train_timing}

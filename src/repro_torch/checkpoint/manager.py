@@ -17,8 +17,9 @@ the reference itself reads the name ``|V2`` back and fails its checksum on
 any checkpoint with a bf16 leaf.
 
 ``restore`` takes a ``shardings`` tree of devices (one per leaf) on one
-host; under an active sharding mesh it raises, as ``dist.sharding``'s
-``constrain`` does, until the port's dist slice.
+host; under an active mesh it places every leaf, whole, on this rank's
+device (the port's global view, ``dist.collectives``), where the reference
+reshards each leaf with ``device_put``.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import DIST_SLICE, active_mesh
+from repro_torch.dist.sharding import active_mesh
 
 _BF16_RECORD = np.dtype("V2")     # how numpy stores a bfloat16 leaf
 
@@ -184,10 +185,13 @@ class CheckpointManager:
                 shardings: Any = None) -> tuple[Any, dict]:
         """``like``: tree giving the structure and, for tensor leaves, the
         device each leaf goes to (values ignored; other leaves come back
-        as CPU tensors).  ``shardings``: optional matching tree of devices
-        that overrides those placements."""
-        if shardings is not None and active_mesh() is not None:
-            raise NotImplementedError(DIST_SLICE)
+        as CPU tensors).  ``shardings``: optional matching tree that
+        overrides those placements — of devices with no mesh active; under
+        an active mesh (``dist.tree_shardings``' records, or any matching
+        tree) every leaf goes to this rank's device (``mesh.transport``),
+        whole: the global view's counterpart of the reference's reshard
+        onto another mesh."""
+        mesh = active_mesh()
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -195,13 +199,16 @@ class CheckpointManager:
             arrays = {k: z[k] for k in z.files}
         if _checksum(arrays) != manifest["checksum"]:
             raise IOError(f"checkpoint {path} failed checksum (torn write?)")
+        on_mesh = shardings is not None and mesh is not None
         places = [dev for _, dev in _items(shardings)] \
-            if shardings is not None else None
+            if shardings is not None and not on_mesh else None
         leaves = []
         for idx, (key, leaf) in enumerate(_items(like)):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing key {key}")
-            if places is not None:
+            if on_mesh:
+                device = mesh.transport.device
+            elif places is not None:
                 device = places[idx]
             elif isinstance(leaf, torch.Tensor):
                 device = leaf.device

@@ -17,27 +17,38 @@ or a tuple of names) where the reference returns a ``PartitionSpec``.
 
 With no mesh active, or under ``use_mesh(None, None)``, ``constrain`` is an
 exact no-op, as in the reference: the model code is annotated throughout
-and runs unchanged on one device.  A mesh that actually shards over
-``torch.distributed`` — ``constrain`` under an active mesh,
-``tree_shardings``/``batch_shardings``, ring attention and the shard_map
-MoE — waits for the dist slice and raises ``NotImplementedError`` here.
+and runs unchanged on one device.  Under an active mesh (a ``DeviceMesh``
+from ``dist.compat.make_mesh``) it resolves the spec, checks the rank and
+returns ``x`` itself: ``with_sharding_constraint`` never changes values,
+and the port keeps the *global view* — outside the SPMD regions
+(``dist.collectives``: the ring, the decode ring, the shard_map MoE, the
+data-parallel step) every rank holds the whole tensor, so per-rank memory
+is the whole model's (a recorded departure; a sharded layout is an open
+item).  ``tree_shardings``/``batch_shardings`` give per leaf the resolved
+spec and its DTensor placements.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
-from typing import Mapping, Optional, Sequence, Union
+from typing import Any, Mapping, NamedTuple, Optional, Sequence, Union
+
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.dist.collectives import names_of
 
 # A rule value: no sharding, one mesh axis, or an ordered tuple of mesh axes.
 Physical = Union[None, str, tuple]
 
-DIST_SLICE = ("sharding over a device mesh waits for the port's dist slice "
-              "(torch.distributed); one device runs with no mesh active")
 
 
 def _axis_sizes(mesh) -> dict:
-    """{axis_name: size} for anything mesh-shaped (incl. test fakes)."""
+    """{axis_name: size} for a ``DeviceMesh`` (``mesh_dim_names``, its
+    shape) or anything JAX-mesh-shaped (``axis_names``,
+    ``devices.shape``: the test fakes)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(tuple(mesh.mesh_dim_names), tuple(mesh.shape)))
     return dict(zip(tuple(mesh.axis_names), tuple(mesh.devices.shape)))
 
 
@@ -178,8 +189,8 @@ def active_rules() -> Optional[ShardingRules]:
 
 
 def constrain(x, *logical_axes: Optional[str]):
-    """``x`` itself with no mesh active; under an active mesh the axes are
-    checked and the sharding raises (the dist slice)."""
+    """``x`` itself: with no mesh active at once; under an active mesh
+    after the rank check and the spec's resolution (module docstring)."""
     mesh = active_mesh()
     rules = active_rules()
     if mesh is None or rules is None:
@@ -187,4 +198,63 @@ def constrain(x, *logical_axes: Optional[str]):
     if len(logical_axes) != x.ndim:
         raise ValueError(f"constrain: {len(logical_axes)} logical axes for "
                          f"rank-{x.ndim} tensor {tuple(x.shape)}")
-    raise NotImplementedError(DIST_SLICE)
+    rules.spec(logical_axes, shape=x.shape, mesh=mesh)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Tree / batch shardings
+# --------------------------------------------------------------------------
+
+class Sharding(NamedTuple):
+    """One leaf's layout on a mesh: ``spec``, the entries of the
+    reference's ``NamedSharding.spec``, and ``placements``, the DTensor
+    placement per mesh dimension (``Shard(i)`` where tensor dim i uses
+    that axis, else ``Replicate()``)."""
+
+    spec: tuple
+    placements: tuple
+
+
+def _sharding(axes, shape, mesh, rules: ShardingRules) -> Sharding:
+    spec = rules.spec(axes, shape=shape, mesh=mesh)
+    dim_of = {}
+    for dim, entry in enumerate(spec):
+        for name in names_of(entry):
+            dim_of[name] = dim
+    placements = tuple(Shard(dim_of[name]) if name in dim_of else Replicate()
+                       for name in _axis_sizes(mesh))
+    return Sharding(spec, placements)
+
+
+def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
+    """A :class:`Sharding` per leaf of a ParamSpec tree (params, optimizer
+    state, caches)."""
+    from repro_torch.models.module import tree_map
+
+    def one(spec):
+        axes = spec.logical_axes or (None,) * len(spec.shape)
+        return _sharding(axes, spec.shape, mesh, rules)
+
+    return tree_map(one, tree)
+
+
+# Logical axes of the model-input tensors, by input name.
+_BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "patches": ("batch", "seq", "embed"),
+    "frames": ("batch", "seq", "embed"),
+}
+
+
+def batch_shardings(batch_specs: Mapping[str, Any], mesh,
+                    rules: ShardingRules) -> dict:
+    """A :class:`Sharding` per model input, from anything with a
+    ``.shape`` (tensors, or shape-only stand-ins)."""
+    out = {}
+    for key, sds in batch_specs.items():
+        shape = tuple(sds.shape)
+        axes = _BATCH_AXES.get(key, ("batch",) + (None,) * (len(shape) - 1))
+        out[key] = _sharding(tuple(axes[:len(shape)]), shape, mesh, rules)
+    return out

@@ -18,8 +18,22 @@ weights come from ``torch.Generator().manual_seed(seed)`` (the reference's
     ``straggler_factor x`` the running median are logged and counted;
   * optional int8 error-feedback gradient compression (--compress-grads).
 The step updates params and optimizer state in place, where the reference
-donates them to its jitted step.  ``--data-parallel`` needs a device mesh
-and raises until the port's dist slice.
+donates them to its jitted step.
+
+``--data-parallel`` joins a process group (``dist.compat``: ``torchrun``'s
+environment, ``--dist-init URL`` with ``RANK``/``WORLD_SIZE``, or a world of
+one when started plainly, as ``jax.device_count()`` is one on one card),
+builds a 1-D ``("data",)`` mesh over it with ``train_rules()`` and runs each
+step under it: every rank makes the same params (their fingerprints are
+checked equal across ranks) and draws the same global batch, takes its
+block, and the token-weighted gradients are summed over ``data`` before
+AdamW (``train.step``).  Rank 0 alone writes checkpoints, ``--metrics-out``
+and the log.  The backend is NCCL on the card and gloo on the CPU unless
+``--dist-backend`` says otherwise (gloo for ranks sharing one card, its
+CUDA tensors staged through host memory).
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch yi-9b --reduced --data-parallel --device cpu
 """
 from __future__ import annotations
 
@@ -32,13 +46,16 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, DataState, Pipeline
-from repro_torch.dist.sharding import DIST_SLICE
+from repro_torch.dist import collectives, compat
+from repro_torch.dist.sharding import train_rules, use_mesh
 from repro_torch.kernels import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.module import leaves
 from repro_torch.optim import compression as comp_mod
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedules import warmup_cosine
@@ -79,7 +96,7 @@ def main(argv=None):
                     help="failure injection: crash at this step")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard the batch over all local devices "
+                    help="shard the batch over the process group's ranks "
                          "(1-D 'data' mesh + train_rules)")
     ap.add_argument("--async-checkpoint", action="store_true",
                     help="serialize checkpoints on a background thread")
@@ -87,11 +104,37 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where to train: the card (default) or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="--data-parallel's backend (default: nccl on the "
+                         "card, gloo on the cpu)")
+    ap.add_argument("--dist-init", default=None,
+                    help="--data-parallel's rendezvous URL (e.g. file://...,"
+                         " with RANK and WORLD_SIZE set); default torchrun's "
+                         "environment, or a world of one")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError(DIST_SLICE)
     device = resolve_device(args.device)
+    if not args.data_parallel:
+        return _train(args, device, None)
+    with compat.process_group(device, backend=args.dist_backend,
+                              init_method=args.dist_init) as device:
+        mesh = compat.make_mesh((dist.get_world_size(),), ("data",),
+                                device=device)
+        return _train(args, device, mesh)
+
+
+def _same_on_every_rank(params) -> None:
+    """Raise unless every rank made bit-equal params."""
+    prints = [collectives.fingerprint(p) for p in leaves(params)]
+    if any(other != prints for other in collectives.all_ranks(prints)):
+        raise RuntimeError("--data-parallel: the ranks' initial params "
+                           "differ")
+
+
+def _train(args, device, mesh):
+    """The training loop; ``mesh`` is the data-parallel mesh or None."""
+    writer = mesh is None or dist.get_rank() == 0
+    log = print if writer else (lambda *a, **kw: None)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -101,10 +144,20 @@ def main(argv=None):
                                ce_seq_chunk=min(512, args.seq_len))
     optimizer = AdamW(learning_rate=warmup_cosine(args.lr, args.warmup,
                                                   args.steps))
-    train_step = make_train_step(model, optimizer, step_cfg)
+    base_step = make_train_step(model, optimizer, step_cfg)
+    if mesh is not None:
+        rules = train_rules()
+
+        def train_step(*step_args):
+            with use_mesh(mesh, rules):
+                return base_step(*step_args)
+    else:
+        train_step = base_step
 
     params = model.init_params(torch.Generator().manual_seed(args.seed),
                                device=device)
+    if mesh is not None:
+        _same_on_every_rank(params)
     opt_state = optimizer.init(params)
     comp_state = comp_mod.init(params) if args.compress_grads else None
     data_cfg = DataConfig(vocab_size=arch.vocab_size, seq_len=args.seq_len,
@@ -128,10 +181,10 @@ def main(argv=None):
                 params, opt_state = tree["params"], tree["opt"]
                 pipeline.state = DataState.from_dict(extra["data"])
                 start_step = step
-                print(f"[train] resumed from step {step}")
+                log(f"[train] resumed from step {step}")
 
     def save(step):
-        if ckpt is None:
+        if ckpt is None or not writer:
             return
         tree = {"params": params, "opt": opt_state}
         extra = {"data": pipeline.state.to_dict(), "arch": arch.name}
@@ -139,7 +192,7 @@ def main(argv=None):
             ckpt.save_async(step, tree, extra=extra)
         else:
             ckpt.save(step, tree, extra=extra)
-        print(f"[train] checkpoint @ step {step}")
+        log(f"[train] checkpoint @ step {step}")
 
     interrupted = {"flag": False}
 
@@ -168,26 +221,26 @@ def main(argv=None):
         metrics.update(step=step + 1, step_time_s=dt, slow=bool(slow))
         metrics_log.append(metrics)
         if slow:
-            print(f"[train] STRAGGLER step {step+1}: {dt:.2f}s "
-                  f"(x{monitor.factor} median)")
+            log(f"[train] STRAGGLER step {step+1}: {dt:.2f}s "
+                f"(x{monitor.factor} median)")
         if (step + 1) % 10 == 0 or step == start_step:
-            print(f"[train] step {step+1}/{args.steps} "
-                  f"loss={metrics['loss']:.4f} ce={metrics['ce']:.4f} "
-                  f"gnorm={metrics['grad_norm']:.2f} {dt:.2f}s")
+            log(f"[train] step {step+1}/{args.steps} "
+                f"loss={metrics['loss']:.4f} ce={metrics['ce']:.4f} "
+                f"gnorm={metrics['grad_norm']:.2f} {dt:.2f}s")
         if ckpt and (step + 1) % args.checkpoint_every == 0:
             save(step + 1)
         if interrupted["flag"]:
-            print("[train] preemption signal: checkpointing and exiting")
+            log("[train] preemption signal: checkpointing and exiting")
             save(step + 1)
             sys.exit(143)
     save(args.steps)
     if ckpt is not None:
         ckpt.wait()
-    if args.metrics_out:
+    if args.metrics_out and writer:
         with open(args.metrics_out, "w") as f:
             json.dump(metrics_log, f)
-    print(f"[train] done: final loss {metrics_log[-1]['loss']:.4f}, "
-          f"straggler steps: {monitor.slow_steps}")
+    log(f"[train] done: final loss {metrics_log[-1]['loss']:.4f}, "
+        f"straggler steps: {monitor.slow_steps}")
     return metrics_log
 
 

@@ -16,7 +16,11 @@ reference, runs on a CUDA tensor through the hand flash-attention kernel
 kernel the reference names as the TPU hot path), with k and v un-expanded:
 the kernel does GQA itself.  On a CPU tensor, or with ``use_kernel=False``,
 it is the port's ``attend_chunked``.  There is no fallback: a kernel that
-fails to build or launch, or a head dim it does not take, raises.
+fails to build or launch, or a head dim it does not take, raises.  With
+``ring=True`` under a mesh whose ``model`` axis splits the sequence, the
+branch is ``dist.ring_attention.ring_attention`` instead (k and v
+expanded), and the decode step with ``stream_kv`` reads the cache through
+``ring_decode``, as in the reference.
 
 The torch paths keep the JAX order of work: scores in q's type, then fp32;
 the probabilities cast back to q's type before the product with v.
@@ -33,8 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.masking import NEG_INF, PAD_SENTINEL, mask_bias
-from repro_torch.dist.sharding import (DIST_SLICE, _axis_sizes, active_mesh,
-                                       constrain)
+from repro_torch.dist.ring_attention import ring_attention, ring_decode
+from repro_torch.dist.sharding import _axis_sizes, active_mesh, constrain
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import rope
@@ -276,12 +280,15 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
             k.shape[1], device=x.device)[None, :]
         k = rope(k, kv_pos, cfg.rope_theta)
     kv = (k, v)
+    ring_mesh = _ring_mesh(s) if ring and kv_src is None else None
     if local_block and window > 0 and causal and s > window:
         out = attend_local(q, _expand_kv(k, cfg.n_heads),
                            _expand_kv(v, cfg.n_heads), window=window)
+    elif ring_mesh is not None:
+        out = ring_attention(q, _expand_kv(k, cfg.n_heads),
+                             _expand_kv(v, cfg.n_heads), mesh=ring_mesh,
+                             axis_name="model", causal=causal, window=window)
     else:
-        if ring and kv_src is None and _ring_mesh(s) is not None:
-            raise NotImplementedError(f"ring attention: {DIST_SLICE}")
         if use_kernel and on_cuda(q, k, v):
             out = _attend_kernel(q, k, v, causal=causal, window=window)
         else:
@@ -306,8 +313,10 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
     With ``update_cache`` the new token's k and v are written into
     ``cache["k"]``/``cache["v"]`` at ``cache_index`` in place, and the same
     dict is returned.  ``stream_kv`` reads the cache through the decode
-    ring in the reference; with no mesh active that is the dense
-    ``attend_decode``, as there."""
+    ring (``dist.ring_attention.ring_decode``): with ``serve_rules(
+    long_context=True)`` each rank reads its ``cache_seq`` shard and only
+    softmax stats travel; with no mesh active it is the dense
+    ``attend_decode``, as in the reference."""
     dtype = x.dtype
     index = int(cache_index)
     q = _project(x, params["wq"])
@@ -331,9 +340,11 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
         # one token slice of each cache, written in place
         k_cache[:, index:index + 1] = k_new.to(k_cache.dtype)
         v_cache[:, index:index + 1] = v_new.to(v_cache.dtype)
-    if stream_kv and _ring_mesh(k_cache.shape[1]) is not None:
-        raise NotImplementedError(f"ring decode: {DIST_SLICE}")
-    out = attend_decode(q, k_cache.to(dtype), v_cache.to(dtype), index,
-                        window=window, start=start)
+    if stream_kv:
+        out = ring_decode(q, k_cache.to(dtype), v_cache.to(dtype), index,
+                          window=window, start=start)
+    else:
+        out = attend_decode(q, k_cache.to(dtype), v_cache.to(dtype), index,
+                            window=window, start=start)
     y = _out_proj(out, params["wo"], dtype)
     return y, cache

@@ -10,7 +10,10 @@ destinations past the table are dropped, never written — and accumulating
 ``index_add_``/``index_put_``, where duplicate tokens add.
 
 ``moe_reference`` is the dense oracle used by the tests.  The shard_map
-dispatch waits for the dist slice.
+dispatch (``moe_apply_shardmap``) is an SPMD region on
+``torch.distributed`` (``dist.collectives``): every rank takes its block of
+the tokens (data axes) and of the experts (``model``), and one psum over
+``model`` combines them.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import DIST_SLICE, _axis_sizes, active_mesh, constrain
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import _axis_sizes, active_mesh, constrain
 from repro_torch.models.layers import gelu, mlp, mlp_spec
 from repro_torch.models.module import ParamSpec
 
@@ -170,9 +174,96 @@ def moe_apply_local(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
 
 
 def moe_apply_shardmap(cfg: ArchConfig, params: dict, x: torch.Tensor):
-    """Explicit-collective expert parallelism (the reference's shard_map
-    dispatch): waits for the port's dist slice."""
-    raise NotImplementedError(f"moe_dispatch='shardmap': {DIST_SLICE}")
+    """Explicit-collective expert parallelism: the reference's shard_map
+    dispatch.  Routing is computed on every rank (identical across the
+    model axis); each rank gathers and computes only its ``e_loc`` local
+    experts' tokens from its block of tokens, scatters the weighted outputs
+    into a zero buffer, and one [nl, d] psum over ``model`` combines them
+    (the shared expert rides the same psum, partial over its f-shard);
+    ``aux`` is pmean'ed over the data axes.  Capacity is per rank.
+
+    As in the reference it is ``moe_apply_local`` with no mesh, a model
+    axis of one, experts the model axis does not divide, or a batch the
+    data axes do not divide.  Where the reference has no data axis to name
+    it fails; here the tokens are then whole on every rank."""
+    mesh = active_mesh()
+    if mesh is None:
+        return moe_apply_local(cfg, params, x)
+    sizes = _axis_sizes(mesh)
+    model_n = sizes.get("model", 1)
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    if e % model_n or model_n == 1:
+        return moe_apply_local(cfg, params, x)
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    dp = 1
+    for a in batch_axes:
+        dp *= sizes[a]
+    if b % dp:
+        return moe_apply_local(cfg, params, x)
+    e_loc = e // model_n
+    nl = (b // dp) * s
+    cap = max(4, int(nl * k * cfg.capacity_factor / e))
+
+    x_spec = ((batch_axes if len(batch_axes) > 1 else batch_axes[0])
+              if batch_axes else None, None, None)
+    w_spec = ("model", None, None)
+    inputs = [x, params["router"], params["w_gate"], params["w_up"],
+              params["w_down"]]
+    specs = [x_spec, (None, None), w_spec, w_spec, w_spec]
+    if cfg.shared_expert:                      # f-dim sharded over 'model'
+        sh = params["shared"]
+        inputs += [sh["w_gate"], sh["w_up"], sh["w_down"]]
+        specs += [(None, "model"), (None, "model"), ("model", None)]
+    x_loc, router, wg, wu, wd, *shared = collectives.shard(inputs, mesh,
+                                                           specs)
+
+    bl, sl, _ = x_loc.shape
+    t = x_loc.reshape(bl * sl, d)
+    dev = x.device
+    expert_idx, weights, probs = _route(cfg, router, t)        # [nl, k]
+    pos_in_expert = _positions(expert_idx, e)
+    fits = pos_in_expert < cap
+    weights = weights * fits
+    flat_dest = expert_idx * cap + torch.where(fits, pos_in_expert, e * cap)
+    token_ids = torch.arange(bl * sl, device=dev)[:, None].expand(bl * sl, k)
+    keep = flat_dest < e * cap
+    index = (flat_dest[keep],)
+    table = torch.zeros(e * cap, dtype=torch.long, device=dev)
+    table.index_put_(index, token_ids[keep])
+    occupied = torch.zeros(e * cap, dtype=torch.bool, device=dev)
+    occupied.index_put_(index, torch.ones_like(token_ids[keep],
+                                               dtype=torch.bool))
+    w_slot = torch.zeros(e * cap, dtype=torch.float32, device=dev)
+    w_slot = w_slot.index_put(index, weights[keep])
+
+    m_idx = collectives.axis_index(mesh, "model")
+    mine = slice(m_idx * e_loc, (m_idx + 1) * e_loc)
+    disp_l = table.reshape(e, cap)[mine]                         # [e_loc,cap]
+    occ_l = occupied.reshape(e, cap)[mine]
+    ws_l = w_slot.reshape(e, cap)[mine]
+
+    xe = t[disp_l.reshape(-1)].reshape(e_loc, cap, d)
+    xe = xe * occ_l[..., None].to(t.dtype)
+    g = torch.einsum("ecd,edf->ecf", xe, wg.to(t.dtype))
+    u = torch.einsum("ecd,edf->ecf", xe, wu.to(t.dtype))
+    h = _act(cfg, g) * u
+    ye = torch.einsum("ecf,efd->ecd", h, wd.to(t.dtype))
+    contrib = ye * (ws_l * occ_l)[..., None].to(ye.dtype)
+    y_part = torch.zeros((bl * sl, d), dtype=t.dtype, device=dev).index_add(
+        0, disp_l.reshape(-1), contrib.reshape(-1, d))
+
+    if shared:
+        shg, shu, shd_w = shared
+        hs = _act(cfg, t @ shg.to(t.dtype)) * (t @ shu.to(t.dtype))
+        y_part = y_part + hs @ shd_w.to(t.dtype)
+
+    y = collectives.psum(y_part, mesh, "model")
+    aux = _aux(expert_idx, probs, e)
+    if batch_axes:
+        aux = collectives.pmean(aux, mesh, batch_axes)
+    y = collectives.unshard(y.reshape(bl, sl, d), mesh, x_spec)
+    return y, collectives.unshard(aux, mesh, ())
 
 
 def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:

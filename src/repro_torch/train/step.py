@@ -23,6 +23,19 @@ the plain ``attend_chunked`` instead.
 The step updates ``params`` and the optimizer state in place (the
 counterpart of the reference launcher's donation, ``optim.adamw``) and
 returns them with the metrics as 0-dim tensors.
+
+**Data parallelism.**  Under an active mesh whose rules put ``batch`` on
+mesh axes (the launcher's ``--data-parallel``: a 1-D ``("data",)`` mesh
+with ``train_rules()``), each gradient evaluation is an SPMD region, the
+counterpart of what the reference's SPMD partitioner does with the batch
+sharded over ``data``.  Every rank holds the whole batch and takes its
+block (``dist.batch_shardings``); it computes its loss and gradients on it
+with the rest of the mesh active (no frame when nothing is left); and the
+gradients, loss and metrics are summed over the batch axes, each rank's
+weighted by its share of the global batch's counted tokens.  The loss is
+``sum / mask.sum()`` over the *global* batch, so a plain mean of the
+ranks' means would be wrong whenever the masks differ.  The aux loss is
+weighted alike (it is zero for a dense model).
 """
 from __future__ import annotations
 
@@ -32,6 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint
 
+from repro_torch.dist import collectives, compat
+from repro_torch.dist.sharding import (active_mesh, active_rules,
+                                       batch_shardings, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -166,10 +182,42 @@ def _value_and_grad(loss_fn):
     return grad_fn
 
 
+def _data_parallel(grad_fn, model: Model):
+    """``grad_fn`` as the data-parallel region under an active mesh that
+    shards the batch (module docstring); ``grad_fn`` itself otherwise."""
+    def run(params, batch):
+        mesh, rules = active_mesh(), active_rules()
+        if mesh is None or rules is None:
+            return grad_fn(params, batch)
+        specs = batch_shardings(batch, mesh, rules)
+        axes = tuple(dict.fromkeys(n for sh in specs.values()
+                                   for n in collectives.names_of(sh.spec[0])))
+        if not axes:
+            return grad_fn(params, batch)
+        total = (_pad_vision_labels(model, batch) != IGNORE_LABEL).sum()
+        local = {k: collectives.block(v, mesh, specs[k].spec)
+                 for k, v in batch.items()}
+        rest = compat.submesh(mesh, [n for n in mesh.mesh_dim_names
+                                     if n not in axes])
+        with use_mesh(rest, rules if rest is not None else None):
+            (loss, metrics), grads = grad_fn(params, local)
+        count = (_pad_vision_labels(model, local) != IGNORE_LABEL).sum()
+        share = count.float() / torch.clamp(total, min=1).float()
+        out = [loss * share] + [v * share for v in metrics.values()]
+        grad_leaves = leaves(grads)
+        for g in grad_leaves:
+            g.mul_(share.to(g.dtype))
+        collectives.reduce_sum_(out + grad_leaves, mesh, axes)
+        return (out[0], dict(zip(metrics, out[1:]))), grads
+    return run
+
+
 def make_train_step(model: Model, optimizer: AdamW,
                     cfg: TrainStepConfig = TrainStepConfig(), *,
                     use_kernel: bool = True):
-    grad_fn = _value_and_grad(make_loss_fn(model, cfg, use_kernel=use_kernel))
+    grad_fn = _data_parallel(
+        _value_and_grad(make_loss_fn(model, cfg, use_kernel=use_kernel)),
+        model)
 
     def train_step(params, opt_state: AdamWState, batch: dict,
                    comp_state=None):

@@ -102,6 +102,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.data.pipeline, repro_torch.optim\n"
         "import repro_torch.optim.compression, repro_torch.train.step\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.dist.compat, repro_torch.dist.collectives\n"
+        "import repro_torch.dist.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

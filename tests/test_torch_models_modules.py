@@ -267,28 +267,41 @@ def test_constrain_is_a_no_op_without_a_mesh():
         assert shd.active_mesh() is mesh
         with pytest.raises(ValueError, match="logical axes"):
             shd.constrain(x, "batch")
-        with pytest.raises(NotImplementedError, match="dist slice"):
-            shd.constrain(x, "batch", "embed")
+        # under a mesh the values come back unchanged: the port keeps
+        # every tensor whole on every rank outside its SPMD regions
+        assert shd.constrain(x, "batch", "embed") is x
         with shd.use_mesh(None, None):
             assert shd.constrain(x, "batch") is x
             assert shd.active_rules() is None
     assert shd.active_mesh() is None
 
 
-def test_mesh_parts_wait_for_the_dist_slice():
-    jcfg, cfg = _cfgs("qwen3-moe-235b-a22b", moe_dispatch="shardmap")
-    _, p = _params(jmoe.moe_spec(jcfg))
-    with pytest.raises(NotImplementedError, match="dist slice"):
-        moe.moe_apply(cfg, p, torch.zeros(1, 4, cfg.d_model))
-    jcfg, cfg = _cfgs("yi-9b")
-    _, p = _params(jattn.attention_spec(jcfg))
-    x = torch.zeros(1, 8, cfg.d_model)
-    with shd.use_mesh(_fake_mesh(model=2), None):
-        with pytest.raises(NotImplementedError, match="ring attention"):
-            attn.attention(cfg, p, x, ring=True)
-        # a ring of one device is the dense path, as in the reference
-    with shd.use_mesh(_fake_mesh(model=1), None):
-        assert attn.attention(cfg, p, x, ring=True).shape == x.shape
+# the reference's moe_apply_shardmap falls back to moe_apply_local with no
+# mesh, a model axis of one, experts the model axis does not divide, and a
+# batch the data axes do not divide (src/repro/models/moe.py:183-197)
+FALLBACK_MESHES = {"no-mesh": None, "model-1": {"model": 1},
+                   "experts-indivisible": {"model": 3},
+                   "batch-indivisible": {"data": 3, "model": 2}}
+
+
+@pytest.mark.parametrize("case", sorted(FALLBACK_MESHES))
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_shardmap_falls_back_like_jax(name, case):
+    jcfg, cfg = _cfgs(name, moe_dispatch="shardmap", capacity_factor=8.0)
+    jp, p = _params(jmoe.moe_spec(jcfg))
+    jx, x = _x(3, 4, 8, cfg.d_model, scale=0.3)
+    axes = FALLBACK_MESHES[case]
+    mesh = None if axes is None else _fake_mesh(**axes)
+    with jshd.use_mesh(mesh, None):
+        jy, jaux = jmoe.moe_apply(jcfg, jp, jx)
+    with shd.use_mesh(mesh, None):
+        y, aux = moe.moe_apply(cfg, p, x)
+    _close(y, jy, tol=1e-5)
+    _close(aux, jaux, tol=1e-5)
+    with shd.use_mesh(mesh, None):
+        local, local_aux = moe.moe_apply_local(cfg, p, x)
+    assert torch.equal(y, local) and torch.equal(aux, local_aux)
 
 
 # --------------------------------------------------------------------------

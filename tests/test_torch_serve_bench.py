@@ -31,7 +31,8 @@ from repro_torch.bench.__main__ import main as bench_main
 from repro_torch.bench.schema import load_bench, validate_bench
 from repro_torch.bench.serve_trace import summarize_serve
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.dist.sharding import use_mesh
+from repro_torch.dist import compat
+from repro_torch.dist.sharding import train_rules, use_mesh
 from repro_torch.launch import serve as launch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -375,6 +376,11 @@ def test_port_restore_places_leaves(tmp_path):
     restored, _ = mgr.restore(1, tree, shardings=places)
     _same_bits(restored, tree)
     assert all(x.device.type == "cpu" for x in _leaves(restored))
-    with use_mesh(object(), object()):
-        with pytest.raises(NotImplementedError, match="dist slice"):
-            mgr.restore(1, tree, shardings=places)
+    # under a mesh (a world of one on gloo, in process) every leaf comes
+    # back whole on this rank's device
+    with compat.process_group("cpu") as device:
+        mesh = compat.make_mesh((1,), ("data",), device=device)
+        with use_mesh(mesh, train_rules()):
+            on_mesh, _ = mgr.restore(1, tree, shardings=places)
+    _same_bits(on_mesh, tree)
+    assert all(x.device == device for x in _leaves(on_mesh))

@@ -112,12 +112,6 @@ def test_resumes_a_jax_checkpoint_and_matches_its_metrics(tmp_path):
         assert abs(g["loss"] - w["loss"]) <= 2e-2 * abs(w["loss"]), (g, w)
 
 
-def test_data_parallel_waits_for_the_dist_slice():
-    with pytest.raises(NotImplementedError, match="dist slice"):
-        launch.main(["--arch", "yi-9b", "--reduced", "--data-parallel",
-                     "--device", "cpu"])
-
-
 def test_straggler_monitor():
     mon = launch.StragglerMonitor(factor=3.0)
     flags = [mon.record(t) for t in (1.0, 1.0, 1.1, 0.9, 1.0, 1.0, 5.0, 1.0)]
