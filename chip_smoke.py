@@ -253,7 +253,37 @@ Phases, each of which fails the run (non-zero exit) on error:
    2 of 26 layers at fp32 compute, the losses within 1e-5.  The counters
    are zeroed just before; every rank and child reports its launches,
    and their sum is the ``dist`` path's.
-11. times  — each kernel at the workloads' shapes, timed with CUDA events
+11. launch — the launch analysis stack (``repro_torch.launch.{mesh,
+   hlo_analysis,roofline,dryrun,profile}``) and ``autotune.tuner``.  The
+   dry-run runs in a child process (``--launch-child``) started first,
+   beside (a) and (c): gemma3-1b x ``train_4k`` (through ``run_cell``,
+   its profile's top rows kept) and ``decode_32k`` at both meshes (the
+   CLI, ``--both-meshes``), each on a fake process group of the mesh's
+   ranks with fake CPU tensors; every cell ``ok`` with the reference's
+   result keys and skip records, ``model_flops`` equal to 6 N_active B S
+   (train) or 2 N_active B (decode) from ``count_params_split``, no kernel
+   launched and CUDA never initialised in the child; each cell's
+   report line, memory per rank as the port holds it beside the sharded
+   argument figure, and the profile's top rows for ``train_4k`` are
+   printed.  (a) The tuner on the card at gemma3-1b's attention width (h
+   = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
+   schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
+   ``best_schedule`` for those and S = 3072 (also measured over the
+   grid); every schedule's ms, each pick and its regret against the best
+   measured schedule (printed, not gated: host-bound walls), the fit's
+   seconds; the pick lies in the grid, and its ``attend_chunked`` at S =
+   2048 lies within TUNE_TOL of ``attend_full``, relative to its largest
+   magnitude.  (c) The estimator against the card on phase 9's
+   configuration (gemma3-1b bf16, B = 2, S = 2048, ``TrainStepConfig()``,
+   a world of one): one real step with ``use_kernel=False`` under
+   ``FlopCounterMode``, and the dry-run's counter over the same step on
+   fake tensors: the FLOPs equal exactly, and the counter's peak lies
+   within EST_PEAK_TOL of ``torch.cuda.max_memory_allocated`` over the
+   real step (from ``reset_peak_memory_stats``, less what was allocated
+   before its arguments), with no device memory allocated by the fake
+   trace.  The counters are zeroed just before: the path launches no
+   hand kernel.
+12. times  — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -4128,6 +4158,293 @@ def phase_dist(K, device, card: str, launcher: dict) -> tuple:
     return {"dist": counts}, timing
 
 
+LAUNCH_ARCH = "gemma3-1b"
+TUNE_SHAPES = ((1, 4, 2048, 256), (1, 4, 4096, 256))   # gemma3-1b: 4 x 256
+TUNE_PROBE = (1, 4, 3072, 256)       # unseen by the fit, measured to score it
+TUNE_TOL = 1e-5         # fp32 chunked against full: another summation order
+EST_PEAK_TOL = 0.10     # the allocator's rounding and cuBLAS workspaces
+LAUNCH_DEADLINE_S = 600              # the dry-run child, from its start
+PROFILE_TOP = 5
+# the reference's dry-run result keys (RooflineReport's fields and run_cell's)
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "per_device_flops",
+               "per_device_bytes", "per_device_collective_bytes",
+               "collective_breakdown", "compute_s", "memory_s",
+               "collective_s", "model_flops", "hlo_flops_global",
+               "useful_ratio", "bottleneck", "raw_flops", "raw_bytes",
+               "memory_per_device_bytes", "lower_s", "compile_s", "ok",
+               "variant")
+DRYRUN_MEMORY_KEYS = ("argument_bytes", "output_bytes", "temp_bytes",
+                      "alias_bytes", "total_bytes")
+
+
+def launch_child(argv) -> int:
+    """``python3 chip_smoke.py --launch-child OUT``: phase 11's dry-run
+    cells on fake process groups, the results document to OUT (the CLI's
+    for decode_32k at both meshes, ``train_4k``'s from ``run_cell`` merged
+    under its key), and OUT.child.json: the profile's top rows for
+    ``train_4k``, the launch counts, whether CUDA was initialised."""
+    from repro_torch.launch import dryrun, profile
+
+    torch.set_num_threads(1)
+    K = _kernels()
+    out = Path(argv[0])
+    t0 = time.perf_counter()
+    dryrun.main(["--arch", LAUNCH_ARCH, "--shape", "decode_32k",
+                 "--both-meshes", "--out", str(out)])
+    counters = []
+    train = dryrun.run_cell(LAUNCH_ARCH, "train_4k", counter_out=counters)
+    doc = json.loads(out.read_text())
+    doc[f"{LAUNCH_ARCH}|train_4k|pod16x16"] = train
+    out.write_text(json.dumps(doc, indent=1))
+    traffic, flops, colls = profile.profile_counter(counters[0])
+    profile.print_tables(traffic, flops, colls, PROFILE_TOP)
+    Path(f"{out}.child.json").write_text(json.dumps({
+        "top": {"traffic": traffic[:PROFILE_TOP],
+                "flops": flops[:PROFILE_TOP], "colls": colls[:PROFILE_TOP]},
+        "launches": launch_counts(K),
+        "cuda_initialized": torch.cuda.is_initialized(),
+        "wall_s": time.perf_counter() - t0}))
+    return 0
+
+
+def _launch_tuner(device, card) -> dict:
+    """(a): the attention tuner on the card."""
+    from repro_torch.autotune import tuner
+    from repro_torch.models.attention import attend_full
+
+    calls = []
+    real = tuner.attend_chunked
+
+    def on_card(q, k, v, **kw):
+        calls.append({t.device for t in (q, k, v)} == {device})
+        out = real(q, k, v, **kw)
+        calls[-1] &= out.device == device
+        return out
+
+    tuner.attend_chunked = on_card
+    try:
+        t0 = time.perf_counter()
+        tun = tuner.AttentionTuner()
+        X, y = tun.collect(TUNE_SHAPES, seed=0, device=device)
+        rng = np.random.RandomState(1)
+        probe = [tuner.measure_schedule(*TUNE_PROBE, qc, kc, rng=rng,
+                                        device=device)
+                 for qc, kc in tuner.SCHEDULES]
+        measure_s = time.perf_counter() - t0
+    finally:
+        tuner.attend_chunked = real
+    want_calls = 3 * len(tuner.SCHEDULES) * (len(TUNE_SHAPES) + 1)
+    if len(calls) != want_calls or not all(calls):
+        raise RuntimeError(f"launch: {len(calls)} tuner calls (want "
+                           f"{want_calls}), {calls.count(False)} off "
+                           f"{device}")
+    t0 = time.perf_counter()
+    tun.fit(X, y)
+    fit_s = time.perf_counter() - t0
+    n = len(tuner.SCHEDULES)
+    times = {shape: dict(zip(tuner.SCHEDULES, y[i * n:(i + 1) * n].tolist()))
+             for i, shape in enumerate(TUNE_SHAPES)}
+    times[TUNE_PROBE] = dict(zip(tuner.SCHEDULES, probe))
+    picks = {}
+    for shape, by in times.items():
+        pick = tun.best_schedule(*shape)
+        if pick not in tuner.SCHEDULES:
+            raise RuntimeError(f"launch: the tuner picked {pick} for "
+                               f"{shape}, not a grid schedule")
+        best = min(by, key=by.get)
+        picks[shape] = {"pick": pick, "pick_ms": by[pick] * 1e3,
+                        "best": best, "best_ms": by[best] * 1e3,
+                        "regret": by[pick] / by[best]}
+        print(f"launch: tuner {shape} ms by (q_chunk, k_chunk): "
+              + ", ".join(f"{qc}x{kc} {t * 1e3:.2f}"
+                          for (qc, kc), t in by.items())
+              + f"; pick {pick} {by[pick] * 1e3:.2f} ms, best measured "
+              f"{best} {by[best] * 1e3:.2f} ms, regret "
+              f"{picks[shape]['regret']:.3f}; {card}")
+    b, h, s, d = TUNE_SHAPES[0]
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.as_tensor(rng.randn(b, s, h, d) * sc, dtype=torch.float32,
+                               device=device) for sc in (0.3, 0.3, 1.0))
+    qc, kc = picks[TUNE_SHAPES[0]]["pick"]
+    with torch.inference_mode():
+        got = real(q, k, v, causal=True, k_chunk=kc, q_chunk=qc)
+        want = attend_full(q, k, v, causal=True)
+    on = {t.device for t in (q, k, v, got, want)} == {device}
+    err = _rel_err(got, want)
+    print(f"launch: tuner collect + probe {measure_s:.1f} s over "
+          f"{len(calls)} attend_chunked calls on {device}, fit "
+          f"{fit_s:.1f} s ({X.shape[0]} rows, MLP {tun.model.layers}, "
+          f"{tun.model.epochs} epochs); the S={s} pick {qc}x{kc} against "
+          f"attend_full: {err:.3g} of the largest magnitude (bound "
+          f"{TUNE_TOL}); {card}")
+    if not on or not err <= TUNE_TOL:
+        raise RuntimeError(f"launch: the tuner's pick at S={s}: error "
+                           f"{err:.3g}, devices on {device}: {on}")
+    return {"measure_s": measure_s, "fit_s": fit_s, "err": err,
+            "picks": {str(k): v for k, v in picks.items()}}
+
+
+def _launch_estimator(device, card) -> dict:
+    """(c): the dry-run's counter against one real step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    model = build_model(get_arch(TRAIN_ARCH))
+    opt = AdamW(learning_rate=1e-4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=device)
+    state = opt.init(params)
+    batch = batch_at(DataConfig(model.cfg.vocab_size, TRAIN_SEQ,
+                                TRAIN_BATCH), 0, device=device)
+    step = make_train_step(model, opt, TrainStepConfig(), use_kernel=False)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        params, state, metrics = step(params, state, batch)
+        loss = metrics["loss"].item()
+    real_s = time.perf_counter() - t0
+    real_peak = torch.cuda.max_memory_allocated() - base
+    real_flops = fc.get_total_flops()
+    before = torch.cuda.memory_allocated()
+    counter, mem, fake_s = dryrun.trace(
+        make_train_step(model, opt, TrainStepConfig(), use_kernel=False),
+        (params, state, batch))
+    fake_alloc = torch.cuda.memory_allocated() - before
+    del params, state, batch
+    torch.cuda.empty_cache()
+    fake_peak = mem["total_bytes"]
+    rel = (fake_peak - real_peak) / real_peak
+    print(f"launch: estimator, {TRAIN_ARCH} {model.cfg.compute_dtype} one "
+          f"step B={TRAIN_BATCH} S={TRAIN_SEQ} (use_kernel=False, world of "
+          f"one): the card {real_s:.2f} s, loss {loss:.4f}, "
+          f"FlopCounterMode {real_flops:.6e} FLOPs, peak "
+          f"{real_peak / 2**30:.3f} GiB over {resident / 2**30:.3f} GiB of "
+          f"arguments; the fake trace {fake_s:.1f} s over {counter.ops} ops, "
+          f"{counter.totals.flops:.6e} FLOPs ("
+          f"{'equal' if counter.totals.flops == real_flops else 'DIFFERENT'}"
+          f"), peak {fake_peak / 2**30:.3f} GiB ({100 * rel:+.2f}% of the "
+          f"card's; bound {100 * EST_PEAK_TOL:.0f}%), arguments "
+          f"{mem['argument_bytes'] / 2**30:.3f} GiB, {fake_alloc} bytes "
+          f"allocated on the card by it; {card}")
+    if counter.totals.flops != real_flops or not abs(rel) <= EST_PEAK_TOL \
+            or fake_alloc != 0:
+        raise RuntimeError(
+            f"launch: estimator FLOPs {counter.totals.flops} against "
+            f"{real_flops}, peak {fake_peak} against {real_peak} "
+            f"({rel:+.3f}), {fake_alloc} bytes allocated by the fake trace")
+    return {"real_s": real_s, "fake_s": fake_s, "flops": real_flops,
+            "real_peak": real_peak, "fake_peak": fake_peak,
+            "peak_rel": rel, "resident": resident}
+
+
+def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
+    """(b)'s gates over the child's results document and report."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import roofline
+    from repro_torch.models import build_model
+
+    for line in text.splitlines():
+        if line.startswith("[dryrun]"):
+            print(f"launch: {line}")
+    _, active = roofline.count_params_split(build_model(get_arch(LAUNCH_ARCH)))
+    out = {}
+    for shape_name, mesh in (("train_4k", "pod16x16"),
+                             ("decode_32k", "pod16x16"),
+                             ("decode_32k", "pod2x16x16")):
+        key = f"{LAUNCH_ARCH}|{shape_name}|{mesh}"
+        cell = doc.get(key, {})
+        shape = get_shape(shape_name)
+        want = (2.0 * active * shape.global_batch if shape.is_decode
+                else 6.0 * active * shape.global_batch * shape.seq_len)
+        mem = cell.get("memory_per_device_bytes") or {}
+        missing = [k for k in DRYRUN_KEYS if k not in cell] \
+            + [k for k in DRYRUN_MEMORY_KEYS if k not in mem]
+        if not cell.get("ok") or missing or cell["model_flops"] != want:
+            raise RuntimeError(f"launch: dry-run cell {key}: {cell} "
+                               f"(missing keys {missing}, model_flops want "
+                               f"{want})")
+        out[key] = {k: cell[k] for k in ("per_device_flops",
+                                         "per_device_bytes",
+                                         "per_device_collective_bytes",
+                                         "bottleneck", "lower_s")}
+        out[key].update(held=mem["total_bytes"],
+                        sharded=mem["sharded_argument_bytes"])
+        print(f"launch: dry-run {key}: per rank {mem['total_bytes'] / 2**30:.2f}"
+              f" GiB as the port holds it (arguments "
+              f"{mem['argument_bytes'] / 2**30:.2f} GiB whole) against "
+              f"{mem['sharded_argument_bytes'] / 2**30:.3f} GiB of sharded "
+              f"arguments in the reference's layout; model_flops "
+              f"{cell['model_flops']:.6e} = "
+              f"{'2 N B' if shape.is_decode else '6 N B S'}, N_active "
+              f"{active}; fake trace {cell['lower_s']:.1f} s; {card}")
+    skips = [k for k, v in doc.items() if v.get("skipped")]
+    if not skips or not all(doc[k]["ok"] and doc[k]["reason"] for k in skips):
+        raise RuntimeError(f"launch: skip records {skips}")
+    if any(child["launches"].values()) or child["cuda_initialized"]:
+        raise RuntimeError(f"launch: the dry-run child launched "
+                           f"{child['launches']}, CUDA initialised: "
+                           f"{child['cuda_initialized']}")
+    for name, rows in child["top"].items():
+        print(f"launch: profile {LAUNCH_ARCH}|train_4k|pod16x16 top "
+              f"{PROFILE_TOP} by {name}: " + "; ".join(
+                  f"{v / 1e9:.1f} G {op} {shp}" for v, op, shp, _ in rows))
+    print(f"launch: the dry-run child {child['wall_s']:.1f} s, "
+          f"{len(skips)} skip records, no kernel launched, CUDA never "
+          f"initialised in it")
+    return {"cells": out, "child_s": child["wall_s"]}
+
+
+def phase_launch(K, device, card: str) -> tuple:
+    """The launch slice on the card (module docstring, phase 11).  Returns
+    (path label -> launch counts of the path's run, the numbers)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    zero_counts(K)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out = tmp / "dryrun.json"
+        with open(tmp / "child.out", "w") as so, \
+                open(tmp / "child.err", "w") as se:
+            child = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--launch-child", str(out)], stdout=so, stderr=se)
+        try:
+            timing = {"tuner": _launch_tuner(device, card)}
+            torch.cuda.empty_cache()
+            timing["estimator"] = _launch_estimator(device, card)
+            rc = child.wait(timeout=max(
+                1.0, LAUNCH_DEADLINE_S - (time.perf_counter() - t_phase)))
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        text = (tmp / "child.out").read_text()
+        if rc != 0:
+            raise RuntimeError(f"launch: the dry-run child exited {rc}: "
+                               f"{text[-1500:]} "
+                               f"{(tmp / 'child.err').read_text()[-3000:]}")
+        timing["dryrun"] = _launch_cells(
+            json.loads(out.read_text()),
+            json.loads(Path(f"{out}.child.json").read_text()), text, card)
+    counts = launch_counts(K)
+    print(f"launch: launches of the launch path {json.dumps(counts)}")
+    if any(counts.values()):
+        raise RuntimeError(f"launch: the path launched hand kernels: "
+                           f"{counts}")
+    print(f"launch: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launch": counts}, timing
+
+
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
     """Milliseconds per call, CUDA events over ``reps`` sweeps of
     ``operand_sets`` after one warm sweep."""
@@ -4571,6 +4888,8 @@ def main() -> int:
         return dist_child(sys.argv[2:])
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--launch-child"]:
+        return launch_child(sys.argv[2:])
     from repro_torch.kernels import build
 
     # TF32 stays at PyTorch's defaults (off for matmul, on for cuDNN): the
@@ -4598,12 +4917,15 @@ def main() -> int:
     counts, dist_timing = phase_dist(K, device, line,
                                      train_timing["launcher"])
     by_path.update(counts)
+    counts, launch_timing = phase_launch(K, device, line)
+    by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
     for rec in records:
         if rec["name"] == "flash_attention":
             rec["models"] = model_timing
             rec["serve"] = serve_timing
             rec["dist"] = dist_timing
+            rec["launch"] = launch_timing
         if rec["name"] in TRAIN_KERNELS:
             rec["train"] = {"launches": by_path["train"][rec["name"]],
                             **train_timing}

@@ -125,17 +125,19 @@ def moe_apply_local(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
         shards, nl, k)
     shard_ids = torch.arange(shards, device=dev)[:, None, None].expand(
         shards, nl, k)
-    # the reference scatters into e*cap+1 slots and drops what lies past
-    # them; the extra slot is sliced off, so only real slots are kept here
-    keep = flat_dest < e * cap
-    index = (shard_ids[keep], flat_dest[keep])
-    table = torch.zeros((shards, e * cap), dtype=torch.long, device=dev)
-    table.index_put_(index, token_ids[keep])
-    occupied = torch.zeros((shards, e * cap), dtype=torch.bool, device=dev)
-    occupied.index_put_(index, torch.ones_like(token_ids[keep],
-                                               dtype=torch.bool))
-    w_slot = torch.zeros((shards, e * cap), dtype=torch.float32, device=dev)
-    w_slot.index_put_(index, weights[keep])
+    # as the reference: scatter into e*cap+1 slots, whatever lies past the
+    # table into the extra one, which is sliced off (no data-dependent
+    # shape, so no device sync)
+    index = (shard_ids, torch.clamp(flat_dest, max=e * cap))
+    slots = (shards, e * cap + 1)
+    table = torch.zeros(slots, dtype=torch.long, device=dev)
+    table.index_put_(index, token_ids)
+    occupied = torch.zeros(slots, dtype=torch.bool, device=dev)
+    occupied.index_put_(index, torch.ones_like(token_ids, dtype=torch.bool))
+    w_slot = torch.zeros(slots, dtype=torch.float32, device=dev)
+    w_slot.index_put_(index, weights)
+    table, occupied, w_slot = (a[:, :e * cap] for a in (table, occupied,
+                                                         w_slot))
     dispatch = constrain(table.reshape(shards, e, cap), "batch", "expert", None)
     occupied = constrain(occupied.reshape(shards, e, cap),
                          "batch", "expert", None)
@@ -227,15 +229,15 @@ def moe_apply_shardmap(cfg: ArchConfig, params: dict, x: torch.Tensor):
     weights = weights * fits
     flat_dest = expert_idx * cap + torch.where(fits, pos_in_expert, e * cap)
     token_ids = torch.arange(bl * sl, device=dev)[:, None].expand(bl * sl, k)
-    keep = flat_dest < e * cap
-    index = (flat_dest[keep],)
-    table = torch.zeros(e * cap, dtype=torch.long, device=dev)
-    table.index_put_(index, token_ids[keep])
-    occupied = torch.zeros(e * cap, dtype=torch.bool, device=dev)
-    occupied.index_put_(index, torch.ones_like(token_ids[keep],
-                                               dtype=torch.bool))
-    w_slot = torch.zeros(e * cap, dtype=torch.float32, device=dev)
-    w_slot = w_slot.index_put(index, weights[keep])
+    index = (torch.clamp(flat_dest, max=e * cap),)   # e*cap: the extra slot
+    table = torch.zeros(e * cap + 1, dtype=torch.long, device=dev)
+    table.index_put_(index, token_ids)
+    occupied = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev)
+    occupied.index_put_(index, torch.ones_like(token_ids, dtype=torch.bool))
+    w_slot = torch.zeros(e * cap + 1, dtype=torch.float32, device=dev)
+    w_slot = w_slot.index_put(index, weights)
+    table, occupied, w_slot = (a[:e * cap] for a in (table, occupied,
+                                                      w_slot))
 
     m_idx = collectives.axis_index(mesh, "model")
     mine = slice(m_idx * e_loc, (m_idx + 1) * e_loc)
@@ -288,14 +290,13 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     # destinations (tokens over capacity) are dropped
     flat_dest = expert_idx * cap + torch.where(fits, pos_in_expert, e * cap)
     token_ids = torch.arange(n, device=dev)[:, None].expand(n, k)
-    keep = flat_dest < e * cap
-    table = torch.zeros(e * cap, dtype=torch.long, device=dev)
-    table.index_put_((flat_dest[keep],), token_ids[keep])
-    occupied = torch.zeros(e * cap, dtype=torch.bool, device=dev)
-    occupied.index_put_((flat_dest[keep],),
-                        torch.ones_like(token_ids[keep], dtype=torch.bool))
-    dispatch = table.reshape(e, cap)
-    occupied = occupied.reshape(e, cap)
+    index = (torch.clamp(flat_dest, max=e * cap),)   # e*cap: the extra slot
+    table = torch.zeros(e * cap + 1, dtype=torch.long, device=dev)
+    table.index_put_(index, token_ids)
+    occupied = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev)
+    occupied.index_put_(index, torch.ones_like(token_ids, dtype=torch.bool))
+    dispatch = table[:e * cap].reshape(e, cap)
+    occupied = occupied[:e * cap].reshape(e, cap)
 
     xe = x_flat[dispatch] * occupied[..., None].to(x.dtype)     # [E,cap,d]
     xe = constrain(xe, "expert", None, "embed")

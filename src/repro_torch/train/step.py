@@ -195,7 +195,9 @@ def _data_parallel(grad_fn, model: Model):
         if not axes:
             return grad_fn(params, batch)
         total = (_pad_vision_labels(model, batch) != IGNORE_LABEL).sum()
-        local = {k: collectives.block(v, mesh, specs[k].spec)
+        # the batch dimension's block only: a sequence the rules put on
+        # the mesh (``seq_parallel``) stays whole, for the ring to split
+        local = {k: collectives.block(v, mesh, specs[k].spec[:1])
                  for k, v in batch.items()}
         rest = compat.submesh(mesh, [n for n in mesh.mesh_dim_names
                                      if n not in axes])

@@ -63,7 +63,11 @@ def test_port_files_exist():
                    "data/pipeline.py", "optim/__init__.py",
                    "optim/adamw.py", "optim/schedules.py",
                    "optim/compression.py", "train/__init__.py",
-                   "train/step.py", "launch/train.py"):
+                   "train/step.py", "launch/train.py",
+                   "launch/mesh.py", "launch/hlo_analysis.py",
+                   "launch/roofline.py", "launch/dryrun.py",
+                   "launch/profile.py", "autotune/__init__.py",
+                   "autotune/tuner.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -104,6 +108,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.train\n"
         "import repro_torch.dist.compat, repro_torch.dist.collectives\n"
         "import repro_torch.dist.ring_attention\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.profile, repro_torch.autotune.tuner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
