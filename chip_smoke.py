@@ -222,9 +222,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    (e) ``launch.train`` in child processes (``--train-child``: the
    launcher with the arch cut to 2 of 26 layers at full width, so a
    checkpoint of params and two fp32 moments is 3.6 GB, not 12): an
-   uninterrupted run, one that crashes at step 5 (exit 42, after the
-   step-4 checkpoint) and one that resumes from it; the resumed steps'
-   losses equal the uninterrupted run's bit for bit, or within 1e-6
+   uninterrupted run and beside it one that crashes at step 5 (exit 42,
+   after the step-4 checkpoint), then one that resumes from it; the
+   resumed steps' losses equal the uninterrupted run's bit for bit, or within 1e-6
    relative (which held is printed).
 10. dist   — the dist slice (``repro_torch.dist``, the shard_map MoE,
    ``launch.train --data-parallel``) on ``torch.distributed``.  (1)-(3)
@@ -238,11 +238,22 @@ Phases, each of which fails the run (non-zero exit) on error:
    through the flash kernel (rank 0), bit-equal on every rank, no flash
    launch in a ring layer; a planted fault (every rotation the wrong way
    round) must land above the bound; per rank the wall, the bytes staged
-   through the host and their seconds, the peak device memory; (2)
+   through the host and their seconds, the peak device memory; (1b) first,
+   with no whole leaf alive, the same ring forward over the params held
+   as blocks (``dist.sharding.shard_tree``: each rank its block, gathered
+   per layer where it is used): its logits bit-equal to (1)'s on every
+   rank and within MODEL_TOL of the flash forward, per rank the wall, the
+   bytes staged (the gathers' beside (1)'s), the peak and the bytes held;
+   (2)
    prefill 2048 tokens and 32 decode steps with ``stream_kv`` under
    ``serve_rules(long_context=True)`` (the cache's sequence over the 4
    ranks): the fp32 tokens equal the one-process run's (or a top-2
-   margin within 1e-3); (3) the shard_map MoE (qwen3-moe reduced, fp32,
+   margin within 1e-3); (2b) a blocked decode: gemma3-1b cut to 2 of 26
+   layers, fp32, four prompts of 2048 tokens and 32 steps through
+   ``make_prefill_step``/``make_serve_step`` on a 4-rank ``("data",)``
+   mesh under ``serve_rules()``, the tokens and the bf16 cache held as
+   each rank's row: the tokens equal one process's (the same margin
+   rule), the cache bytes held printed; (3) the shard_map MoE (qwen3-moe reduced, fp32,
    capacity factor 8) on a (2, 2) ``("data", "model")`` mesh: the output
    within 1e-5 of ``moe_reference``, the expert gradients within 1e-5 of
    the global dispatch's.  (4) ``launch.train --data-parallel``: in
@@ -263,9 +274,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    result keys and skip records, ``model_flops`` equal to 6 N_active B S
    (train) or 2 N_active B (decode) from ``count_params_split``, no kernel
    launched and CUDA never initialised in the child; each cell's
-   report line, memory per rank as the port holds it beside the sharded
-   argument figure, and the profile's top rows for ``train_4k`` are
-   printed.  (a) The tuner on the card at gemma3-1b's attention width (h
+   report line, memory per rank in the blocked layout (``layout:
+   "blocked"``) beside PR 26's figure with every leaf whole and the
+   sharded argument figure, and the profile's top rows for ``train_4k``
+   are printed; ``decode_32k`` must lie under 10 GiB a rank at pod16x16
+   and lower at pod2x16x16, ``train_4k`` at least 10 GiB below 129.56.  (a) The tuner on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
    ``best_schedule`` for those and S = 3072 (also measured over the
@@ -283,7 +296,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    before its arguments), with no device memory allocated by the fake
    trace.  The counters are zeroed just before: the path launches no
    hand kernel.
-12. times  — each kernel at the workloads' shapes, timed with CUDA events
+12. examples — ``repro_torch.examples`` on the card, each in a temporary
+   working directory, the counters zeroed just before and read just
+   after: ``schedule_dag``, ``program_compile``, ``async_pipeline`` and
+   ``serve_blur_pipeline`` (simulated devices, on the host), then
+   ``quickstart``, ``runtime_dispatch`` (its reload in a child process),
+   ``autotune_attention`` and ``train_100m`` (10 steps, cut from 200) on
+   cuda:0; each one's wall, hand-kernel launches and result; the matmul
+   kernels must launch in ``quickstart`` and the three training flash
+   kernels in ``train_100m``.  Then ``paper.roofline.summarize`` over the
+   launch phase's document, and ``paper.kernel_projection`` for gemma3-1b
+   ``train_4k``: the projected memory term beside the hand kernels (the
+   lse forward, dq, dk/dv) timed by events at the rank's shape in bf16.
+13. times  — each kernel at the workloads' shapes, timed with CUDA events
    over operand sets that together exceed the 50 MB L2 cache (the workloads
    read each operand once), beside its plain version, the one PyTorch call
    that computes the same function (``library_ms``) and its bound from the
@@ -305,6 +330,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -3586,28 +3612,44 @@ def train_child(argv) -> int:
 
 def _train_resume(card) -> dict:
     """(e): launch.train in child processes at full width, RESUME_LAYERS
-    layers: one run uninterrupted, one crashing at RESUME_FAIL (exit 42,
-    after the checkpoint at RESUME_EVERY), one resuming from it; the
-    resumed steps' losses against the uninterrupted run's."""
+    layers: one run uninterrupted, beside it one crashing at RESUME_FAIL
+    (exit 42, after the checkpoint at RESUME_EVERY), then one resuming
+    from it; the resumed steps' losses against the uninterrupted run's."""
     def child(*extra):
         argv = [sys.executable, str(Path(__file__).resolve()),
                 "--train-child", str(RESUME_LAYERS), "--arch", TRAIN_ARCH,
                 "--steps", str(RESUME_STEPS), "--seq-len", str(RESUME_SEQ),
                 "--batch", str(TRAIN_BATCH), "--warmup", str(TRAIN_WARMUP),
                 *extra]
-        t0 = time.perf_counter()
-        run = subprocess.run(argv, capture_output=True, text=True,
-                             timeout=300)
-        return run, time.perf_counter() - t0
+        return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def wait(proc, t0):
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return (subprocess.CompletedProcess(proc.args, proc.returncode, out,
+                                            err), time.perf_counter() - t0)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         ckpt = ["--checkpoint-dir", str(tmp / "ckpt"), "--checkpoint-every",
                 str(RESUME_EVERY)]
-        whole, whole_s = child("--metrics-out", str(tmp / "whole.json"))
-        crash, crash_s = child(*ckpt, "--fail-at-step", str(RESUME_FAIL))
-        resume, resume_s = child(*ckpt, "--metrics-out",
-                                 str(tmp / "resumed.json"))
+        # the uninterrupted run shares nothing with the other two: it runs
+        # beside the crashing one
+        t0 = time.perf_counter()
+        proc = child("--metrics-out", str(tmp / "whole.json"))
+        try:
+            crash, crash_s = wait(child(*ckpt, "--fail-at-step",
+                                        str(RESUME_FAIL)), t0)
+        finally:
+            whole, whole_s = wait(proc, t0)
+        resume, resume_s = wait(child(*ckpt, "--metrics-out",
+                                      str(tmp / "resumed.json")),
+                                time.perf_counter())
         for run, rc in ((whole, 0), (crash, 42), (resume, 0)):
             if run.returncode != rc:
                 raise RuntimeError(f"train: a launcher child exited "
@@ -3686,6 +3728,8 @@ DIST_PROMPT, DIST_STEPS = 2048, 32   # the decode ring: max_seq 2080 = 4 x 520
 DIST_MOE = "qwen3-moe-235b-a22b"     # reduced(): the full model is 470 GB
 DIST_MOE_TOL = 1e-5      # the JAX package's own bounds (test_moe_shardmap)
 DP_LAYERS, DP_STEPS = 2, 3           # the two gloo ranks of --data-parallel
+DIST_DECODE_LAYERS = 2   # the blocked decode: gemma3-1b cut to 2 of 26 layers
+DIST_DECODE_BATCH = 4    # one row a rank of the 4-rank ("data",) mesh
 DP_TOL = {"nccl": 1e-6, "gloo": 1e-5}
 DIST_DEADLINE_S = 300    # each group of child processes, from its start
 DIST_GROUP_TIMEOUT_S = 120.0   # a collective no peer answers fails the rank
@@ -3727,14 +3771,47 @@ def _same_on_ranks(label, value) -> None:
         raise RuntimeError(f"dist: {label} differs between ranks: {got}")
 
 
-def _dist_ring(model, params, batch, mesh, K, rank) -> dict:
-    """(1) gemma3-1b's forward with ring=True under the 4-rank model mesh;
-    on rank 0 also the one-process forward through the flash kernel and
-    the planted fault (every rotation the wrong way round)."""
+def _dist_ring_blocked(model, held, batch, mesh, K, rank) -> tuple:
+    """(1b) the same ring forward over params held as blocks (each rank
+    its block under train_rules(seq_parallel=True), gathered per layer at
+    use): per rank the wall, bytes staged, peak, the bytes held, the
+    logits' fingerprint; rank 0's logits come back on the host."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import local, train_rules, use_mesh
+    from repro_torch.models import module
+
+    link, rules = mesh.transport, train_rules(seq_parallel=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh, rules):
+        logits = model.forward(held, batch, remat=False, ring=True)[0]
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "held_bytes": sum(local(p).numel() * local(p).element_size()
+                             for p in module.leaves(held)),
+           "flash": _delta(K, before),
+           "fingerprint": collectives.fingerprint(logits)}
+    prints = collectives.all_ranks(rec["fingerprint"])
+    rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
+    return rec, (logits.cpu() if rank == 0 else None)
+
+
+def _dist_ring(model, params, batch, mesh, K, rank, blocked) -> dict:
+    """(1) gemma3-1b's forward with ring=True under the 4-rank model mesh,
+    the params whole (the global view): its logits against (1b)'s bit for
+    bit; on rank 0 also the one-process forward through the flash kernel,
+    both rings held to it, and the planted fault (every rotation the wrong
+    way round)."""
     from repro_torch.dist import collectives
     from repro_torch.dist.sharding import train_rules, use_mesh
 
     link, rules = mesh.transport, train_rules(seq_parallel=True)
+    blocked_rec, blocked_logits = blocked
 
     def ring():
         with torch.no_grad(), use_mesh(mesh, rules):
@@ -3753,6 +3830,8 @@ def _dist_ring(model, params, batch, mesh, K, rank) -> dict:
            "flash": _delta(K, before)}
     prints = collectives.all_ranks(collectives.fingerprint(logits))
     rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
+    same = collectives.all_ranks(prints[0] == blocked_rec["fingerprint"])
+    rec["blocked_bit_equal"] = all(same)
     if rank == 0:
         before = launch_counts(K)
         with torch.no_grad():
@@ -3760,8 +3839,9 @@ def _dist_ring(model, params, batch, mesh, K, rank) -> dict:
         torch.cuda.synchronize()
         rec["one_process_flash"] = _delta(K, before)
         rec["err"] = _rel_err(logits, want)
+        rec["blocked_err"] = _rel_err(blocked_logits.to(want.device), want)
         rec["logit_max"] = want.abs().max().item()
-    del logits
+    del logits, blocked_logits
     real = collectives.ppermute
     collectives.ppermute = lambda t, m, name, perm: real(
         t, m, name, [(d, s) for s, d in perm])
@@ -3812,6 +3892,85 @@ def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
             want, rows = generate()
         rec["want"] = want.tolist()
         rec["note"] = _hold_tokens("dist decode ring", rec["tokens"],
+                                   rec["want"], lambda b, j: rows[j][b])
+    return rec
+
+
+def _dist_decode_blocked(device, rank, world, K) -> dict:
+    """(2b) DIST_DECODE_BATCH prompts of DIST_PROMPT tokens and DIST_STEPS
+    decode steps through ``make_prefill_step``/``make_serve_step`` on a
+    ("data",) mesh of the ranks under serve_rules(), the tokens and the KV
+    cache held as each rank's rows (gemma3-1b at full width cut to
+    DIST_DECODE_LAYERS layers, fp32, the bf16 cache); on rank 0 the same
+    in one process through the model's prefill and decode_step, and the
+    tokens held to it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import compat
+    from repro_torch.dist.sharding import (Block, held_batch_shardings,
+                                           local, serve_rules, shard_tree,
+                                           use_mesh)
+    from repro_torch.models import build_model, module
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(get_arch(DIST_ARCH), n_layers=DIST_DECODE_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (DIST_DECODE_BATCH,
+                                               DIST_PROMPT),
+                           generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32).to(device)
+    mesh, rules = compat.make_mesh((world,), ("data",), device=device), \
+        serve_rules()
+    link = mesh.transport
+
+    def held(tokens):
+        return shard_tree(tokens, held_batch_shardings(
+            {"tokens": tokens}, mesh, rules)["tokens"], mesh)
+
+    prefill = make_prefill_step(model, DIST_PROMPT + DIST_STEPS)
+    step = make_serve_step(model)
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh, rules):
+        tok, cache = prefill(params, {"tokens": held(prompt)})
+        toks = [tok]
+        for i in range(DIST_STEPS):
+            tok, _, cache = step(params, cache, held(toks[-1]),
+                                 DIST_PROMPT + i)
+            toks.append(tok)
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1], "flash": _delta(K, before),
+           "tokens": torch.cat(toks, dim=1).tolist(),
+           "cache_bytes": sum(local(c).numel() * local(c).element_size()
+                              for c in module.leaves(cache)),
+           "cache_whole_bytes": sum(
+               math.prod(c.whole_shape()) * c.local.element_size()
+               if isinstance(c, Block) else c.numel() * c.element_size()
+               for c in module.leaves(cache))}
+    del cache
+    _same_on_ranks("the blocked decode's tokens", rec["tokens"])
+    if rank == 0:
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": prompt},
+                                          max_seq=DIST_PROMPT + DIST_STEPS)
+            rows = [logits[:, -1].float()]
+            del logits
+            want = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
+            for i in range(DIST_STEPS):
+                lg, cache = model.decode_step(params, cache, want[-1],
+                                              DIST_PROMPT + i)
+                rows.append(lg[:, -1].float())
+                want.append(rows[-1].argmax(-1, keepdim=True).to(
+                    torch.int32))
+        rec["want"] = torch.cat(want, dim=1).tolist()
+        rec["note"] = _hold_tokens("dist blocked decode", rec["tokens"],
                                    rec["want"], lambda b, j: rows[j][b])
     return rec
 
@@ -3867,6 +4026,8 @@ def dist_child(argv) -> int:
 
     from repro_torch.configs import get_arch
     from repro_torch.dist import compat
+    from repro_torch.dist.sharding import (shard_tree, train_rules,
+                                           tree_shardings)
     from repro_torch.models import build_model, module
 
     rank, world, url, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
@@ -3886,12 +4047,28 @@ def dist_child(argv) -> int:
                            dtype=torch.int32).to(device)
     rep = {"rank": rank, "params_checksum": checksum,
            "transport": mesh.transport.describe()}
+    # the blocked ring first, with no whole leaf alive: its peak is the
+    # blocked layout's; then the same weights again, whole
+    held = shard_tree(params, tree_shardings(
+        model.param_specs(), mesh, train_rules(seq_parallel=True)), mesh)
+    del params
+    torch.cuda.empty_cache()
+    blocked = _dist_ring_blocked(model, held, {"tokens": tokens}, mesh, K,
+                                 rank)
+    rep["ring_blocked"] = blocked[0]
+    del held
+    torch.cuda.empty_cache()
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device=device)
     rep["ring"] = _dist_ring(model, params, {"tokens": tokens}, mesh, K,
-                             rank)
+                             rank, blocked)
+    del blocked
     torch.cuda.empty_cache()
     rep["decode"] = _dist_decode(model, params, tokens[:, :DIST_PROMPT],
                                  mesh, K, rank)
     del params
+    torch.cuda.empty_cache()
+    rep["decode_blocked"] = _dist_decode_blocked(device, rank, world, K)
     torch.cuda.empty_cache()
     rep["moe"] = _dist_moe(device)
     rep["launches"] = launch_counts(K)
@@ -4004,7 +4181,31 @@ def _dist_ranks(counts, card) -> dict:
         if any(ring["flash"].values()):
             raise RuntimeError(f"dist: the ring forward launched "
                                f"{ring['flash']}")
+    for rep in reps:
+        ring, blk = rep["ring"], rep["ring_blocked"]
+        print(f"dist: ring forward, params held as blocks, rank "
+              f"{rep['rank']}: wall {blk['wall_s']:.2f} s, "
+              f"{blk['host_bytes']} bytes staged through the host in "
+              f"{blk['host_s']:.3f} s ({blk['host_bytes'] - ring['host_bytes']:+d}"
+              f" against the whole params' ring, the per-layer gathers), "
+              f"peak device memory {blk['peak_bytes'] / 2**30:.2f} GiB "
+              f"against {ring['peak_bytes'] / 2**30:.2f} GiB whole, params "
+              f"held {blk['held_bytes'] / 2**30:.3f} GiB, flash launches "
+              f"{json.dumps(blk['flash'])}; logits bit-equal to the whole "
+              f"params' ring: {ring['blocked_bit_equal']}; {card}")
+        if any(blk["flash"].values()):
+            raise RuntimeError(f"dist: the blocked ring launched "
+                               f"{blk['flash']}")
     ring = r0["ring"]
+    if not (ring["blocked_bit_equal"] and r0["ring_blocked"]
+            ["ranks_bit_equal"]):
+        raise RuntimeError("dist: the blocked ring's logits differ from the "
+                           "whole params' ring or between ranks")
+    print(f"dist: blocked ring logits against the one-process forward "
+          f"through the flash kernel: {ring['blocked_err']:.3g} of the "
+          f"largest logit (bound {MODEL_TOL['float32']}); {card}")
+    _gate(DIST_ARCH, "blocked ring logits from the flash forward",
+          ring["blocked_err"], "float32")
     print(f"dist: ring logits against the one-process forward through the "
           f"flash kernel ({json.dumps(ring['one_process_flash'])}): "
           f"{ring['err']:.3g} of the largest logit {ring['logit_max']:.4g} "
@@ -4026,6 +4227,17 @@ def _dist_ranks(counts, card) -> dict:
           f"{dec['host_s']:.3f} s, flash launches "
           f"{json.dumps(dec['flash'])}; fp32 tokens against one process: "
           f"{dec['note']}; {card}")
+    blk = r0["decode_blocked"]
+    print(f"dist: blocked decode, {DIST_ARCH} at {DIST_DECODE_LAYERS} of 26 "
+          f"layers, fp32, {DIST_DECODE_BATCH} prompts of {DIST_PROMPT} + "
+          f"{DIST_STEPS} steps through make_prefill_step/make_serve_step on "
+          f"a ('data',) mesh of {DIST_RANKS} ranks, tokens and bf16 cache "
+          f"held as each rank's rows: rank 0 wall {blk['wall_s']:.2f} s, "
+          f"{blk['host_bytes']} bytes staged in {blk['host_s']:.3f} s, cache "
+          f"held {blk['cache_bytes'] / 2**20:.1f} MiB of "
+          f"{blk['cache_whole_bytes'] / 2**20:.1f} MiB whole, flash launches "
+          f"{json.dumps(blk['flash'])}; tokens against one process: "
+          f"{blk['note']}; {card}")
     moe = r0["moe"]
     worst = max(moe["grad_err"].values())
     print(f"dist: shard_map MoE {DIST_MOE} reduced on (2, 2) ('data', "
@@ -4037,6 +4249,15 @@ def _dist_ranks(counts, card) -> dict:
         raise RuntimeError(f"dist: the shard_map MoE {moe}")
     return {"ring_wall_s": [r["ring"]["wall_s"] for r in reps],
             "ring_host_bytes": [r["ring"]["host_bytes"] for r in reps],
+            "ring_peak_bytes": [r["ring"]["peak_bytes"] for r in reps],
+            "blocked_ring_wall_s": [r["ring_blocked"]["wall_s"]
+                                    for r in reps],
+            "blocked_ring_host_bytes": [r["ring_blocked"]["host_bytes"]
+                                        for r in reps],
+            "blocked_ring_peak_bytes": [r["ring_blocked"]["peak_bytes"]
+                                        for r in reps],
+            "blocked_ring_err": ring["blocked_err"],
+            "blocked_decode_wall_s": blk["wall_s"],
             "ring_err": ring["err"], "fault_err": ring["fault_err"],
             "decode_wall_s": dec["wall_s"], "moe_err": moe["err"],
             "moe_grad_err": worst}
@@ -4175,6 +4396,11 @@ DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "per_device_flops",
                "variant")
 DRYRUN_MEMORY_KEYS = ("argument_bytes", "output_bytes", "temp_bytes",
                       "alias_bytes", "total_bytes")
+# GiB a rank with every leaf whole (PR 26's dry-run, before the blocked
+# layout), printed beside the blocked figure
+WHOLE_GIB = {"train_4k": 129.56, "decode_32k": 107.11}
+DECODE_BOUND_GIB = 10.0  # blocked decode_32k at pod16x16 (6.75 GiB sharded)
+TRAIN_CUT_GIB = 10.0     # blocked train_4k at least this below WHOLE_GIB
 
 
 def launch_child(argv) -> int:
@@ -4379,14 +4605,29 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
                                          "bottleneck", "lower_s")}
         out[key].update(held=mem["total_bytes"],
                         sharded=mem["sharded_argument_bytes"])
+        if cell.get("layout") != "blocked":
+            raise RuntimeError(f"launch: dry-run cell {key} has layout "
+                               f"{cell.get('layout')}")
         print(f"launch: dry-run {key}: per rank {mem['total_bytes'] / 2**30:.2f}"
-              f" GiB as the port holds it (arguments "
-              f"{mem['argument_bytes'] / 2**30:.2f} GiB whole) against "
+              f" GiB in the blocked layout (PR 26, every leaf whole: "
+              f"{WHOLE_GIB[shape_name]:.2f} GiB), arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB held against "
               f"{mem['sharded_argument_bytes'] / 2**30:.3f} GiB of sharded "
               f"arguments in the reference's layout; model_flops "
               f"{cell['model_flops']:.6e} = "
               f"{'2 N B' if shape.is_decode else '6 N B S'}, N_active "
               f"{active}; fake trace {cell['lower_s']:.1f} s; {card}")
+    gib = {k: v["held"] / 2**30 for k, v in out.items()}
+    dec, dec2, train = (gib[f"{LAUNCH_ARCH}|{c}"] for c in (
+        "decode_32k|pod16x16", "decode_32k|pod2x16x16", "train_4k|pod16x16"))
+    print(f"launch: blocked layout, per rank: decode_32k {dec:.2f} GiB at "
+          f"pod16x16 (bound {DECODE_BOUND_GIB}), {dec2:.2f} GiB at "
+          f"pod2x16x16; train_4k {train:.2f} GiB, "
+          f"{WHOLE_GIB['train_4k'] - train:.2f} GiB below every leaf whole "
+          f"(at least {TRAIN_CUT_GIB}); {card}")
+    if not (dec < DECODE_BOUND_GIB and dec2 < dec
+            and train <= WHOLE_GIB["train_4k"] - TRAIN_CUT_GIB):
+        raise RuntimeError(f"launch: the blocked figures {gib}")
     skips = [k for k, v in doc.items() if v.get("skipped")]
     if not skips or not all(doc[k]["ok"] and doc[k]["reason"] for k in skips):
         raise RuntimeError(f"launch: skip records {skips}")
@@ -4433,16 +4674,139 @@ def phase_launch(K, device, card: str) -> tuple:
             raise RuntimeError(f"launch: the dry-run child exited {rc}: "
                                f"{text[-1500:]} "
                                f"{(tmp / 'child.err').read_text()[-3000:]}")
+        doc = json.loads(out.read_text())
         timing["dryrun"] = _launch_cells(
-            json.loads(out.read_text()),
-            json.loads(Path(f"{out}.child.json").read_text()), text, card)
+            doc, json.loads(Path(f"{out}.child.json").read_text()), text,
+            card)
     counts = launch_counts(K)
     print(f"launch: launches of the launch path {json.dumps(counts)}")
     if any(counts.values()):
         raise RuntimeError(f"launch: the path launched hand kernels: "
                            f"{counts}")
     print(f"launch: phase {time.perf_counter() - t_phase:.1f} s")
-    return {"launch": counts}, timing
+    return {"launch": counts}, timing, doc
+
+
+EXAMPLES = ("schedule_dag", "program_compile", "async_pipeline",
+            "serve_blur_pipeline", "quickstart", "runtime_dispatch",
+            "autotune_attention", "train_100m")
+EXAMPLES_TRAIN_STEPS = 10     # train_100m, cut from its 200
+PROJECTION_CASE = f"{LAUNCH_ARCH}|train_4k|pod16x16|pallas"
+
+
+def _example_note(name, res) -> str:
+    """One example's result in a few words, and its checks beyond the
+    asserts it makes itself."""
+    if name == "schedule_dag":
+        return f"placement {res['placement']}"
+    if name == "program_compile":
+        return f"executed, max rel err {res['err']:.2e}"
+    if name == "async_pipeline":
+        return (f"sequential {res['seq_wall_s'] * 1e3:.1f} ms, async "
+                f"{res['async_wall_s'] * 1e3:.1f} ms (predicted "
+                f"{res['makespan_s'] * 1e3:.1f}), outputs bit-identical")
+    if name == "serve_blur_pipeline":
+        return (f"makespan {res['makespan_s'] * 1e3:.2f} ms against one "
+                f"device's best {min(res['single_s'].values()) * 1e3:.2f} "
+                f"ms")
+    if name == "quickstart":
+        if not all(np.isfinite(res["lm"]["losses"])):
+            raise RuntimeError(f"examples: quickstart losses {res['lm']}")
+        return (f"api picks {res['api']['picks']}, max err "
+                f"{res['api']['err']:.2e}; NN+C {res['nnc']['n_params']} "
+                f"weights, MAPE {res['nnc']['mape']:.1f}%; reduced gemma3-1b "
+                f"losses {[round(x, 4) for x in res['lm']['losses']]}")
+    if name == "runtime_dispatch":
+        return (f"cold/warm/reload selections {res['warm']}, the child "
+                f"measured {res['child']['measured']}; steady overhead "
+                f"{res['overhead_pct']:.2f}% (target <5%: "
+                f"{res['overhead_ok']})")
+    if name == "autotune_attention":
+        return (f"chosen {res['chosen']}, best {res['best']}, regret "
+                f"{res['regret']:.2f}x, speedup vs default "
+                f"{res['speedup_vs_default']:.2f}x")
+    losses = [m["loss"] for m in res]
+    if len(res) != EXAMPLES_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise RuntimeError(f"examples: train_100m losses {losses}")
+    return (f"{len(res)} steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"warm step median "
+            f"{np.median([m['step_time_s'] for m in res[1:]]) * 1e3:.1f} ms")
+
+
+def phase_examples(K, device, card: str, doc: dict) -> tuple:
+    """The examples and the last benchmark scripts on the card (module
+    docstring, phase 12).  Returns (path label -> launch counts of the
+    path's run, the numbers)."""
+    import importlib
+    import os
+
+    from repro_torch.paper import kernel_projection, roofline
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    zero_counts(K)
+    argv = {"quickstart": [], "runtime_dispatch": [],
+            "autotune_attention": [],
+            "train_100m": ["--steps", str(EXAMPLES_TRAIN_STEPS)]}
+    rows, cwd = {}, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)             # the examples write under results/torch/
+        try:
+            for name in EXAMPLES:
+                mod = importlib.import_module(f"repro_torch.examples.{name}")
+                before = launch_counts(K)
+                t0 = time.perf_counter()
+                if name in argv:
+                    res = mod.main(argv[name] + ["--device", str(device)])
+                else:
+                    res = mod.main()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = _delta(K, before)
+                rows[name] = {"wall_s": wall, "launches": launched}
+                print(f"examples: {name} in {wall:.1f} s, hand-kernel "
+                      f"launches {json.dumps(launched)}: "
+                      f"{_example_note(name, res)}; {card}")
+        finally:
+            os.chdir(cwd)
+    hand = {"quickstart": ("matmul",),
+            "train_100m": ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")}
+    for name, kernels in hand.items():
+        if not all(rows[name]["launches"].get(k) for k in kernels):
+            raise RuntimeError(f"examples: {name} launched "
+                               f"{rows[name]['launches']}, not {kernels}")
+    table = roofline.summarize(doc)
+    for line in table:
+        print(f"examples: roofline | {line}")
+    if not any(ln.startswith(f"{LAUNCH_ARCH}|train_4k") for ln in table):
+        raise RuntimeError(f"examples: the roofline table lacks "
+                           f"{LAUNCH_ARCH}|train_4k: {table}")
+    before = launch_counts(K)
+    proj = kernel_projection.project(
+        doc, {PROJECTION_CASE: kernel_projection.CASES[PROJECTION_CASE]},
+        device=device)[PROJECTION_CASE]
+    rows["kernel_projection"] = {"launches": _delta(K, before),
+                                 "kernel_ms": proj["kernel_ms"],
+                                 "kernel_s": proj["kernel_s"],
+                                 "memory_s": proj["memory_s"],
+                                 "attn_plain_bytes": proj["attn_hlo_bytes"],
+                                 "attn_kernel_bytes":
+                                     proj["attn_kernel_bytes"]}
+    cell = doc[PROJECTION_CASE.rsplit("|", 1)[0]]
+    print(f"examples: kernel projection {PROJECTION_CASE}: memory term "
+          f"{cell['memory_s']:.3f} s -> {proj['memory_s']:.3f} s; the hand "
+          f"kernels measured at the rank's shape (bf16) "
+          f"{json.dumps({k: round(v, 4) for k, v in proj['kernel_ms'].items()})}"
+          f" ms a layer, {proj['kernel_s']:.3f} s a step over 26 layers; "
+          f"{card}")
+    if not (proj["memory_s"] < cell["memory_s"]
+            and all(v > 0 for v in proj["kernel_ms"].values())):
+        raise RuntimeError(f"examples: the projection {proj}")
+    counts = launch_counts(K)
+    print(f"examples: launches of the examples path {json.dumps(counts)}")
+    print(f"examples: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"examples": counts}, rows
 
 
 def _time_ms(fn, operand_sets, reps: int = 3) -> float:
@@ -4917,7 +5281,9 @@ def main() -> int:
     counts, dist_timing = phase_dist(K, device, line,
                                      train_timing["launcher"])
     by_path.update(counts)
-    counts, launch_timing = phase_launch(K, device, line)
+    counts, launch_timing, dryrun_doc = phase_launch(K, device, line)
+    by_path.update(counts)
+    counts, examples_timing = phase_examples(K, device, line, dryrun_doc)
     by_path.update(counts)
     records = phase_times(K, device, name, worst, by_path)
     for rec in records:
@@ -4926,6 +5292,7 @@ def main() -> int:
             rec["serve"] = serve_timing
             rec["dist"] = dist_timing
             rec["launch"] = launch_timing
+            rec["examples"] = examples_timing
         if rec["name"] in TRAIN_KERNELS:
             rec["train"] = {"launches": by_path["train"][rec["name"]],
                             **train_timing}

@@ -19,7 +19,9 @@ any checkpoint with a bf16 leaf.
 ``restore`` takes a ``shardings`` tree of devices (one per leaf) on one
 host; under an active mesh it places every leaf, whole, on this rank's
 device (the port's global view, ``dist.collectives``), where the reference
-reshards each leaf with ``device_put``.
+reshards each leaf with ``device_put``.  A ``like`` leaf held as a block
+(``dist.sharding.Block``) gives its device; the leaf comes back whole, for
+``dist.sharding.shard_tree`` to block again.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import active_mesh
+from repro_torch.dist.sharding import Block, active_mesh
 
 _BF16_RECORD = np.dtype("V2")     # how numpy stores a bfloat16 leaf
 
@@ -210,7 +212,7 @@ class CheckpointManager:
                 device = mesh.transport.device
             elif places is not None:
                 device = places[idx]
-            elif isinstance(leaf, torch.Tensor):
+            elif isinstance(leaf, (torch.Tensor, Block)):
                 device = leaf.device
             else:
                 device = "cpu"

@@ -23,7 +23,10 @@ rank's gradient the whole, true one:
     along them computed the same block redundantly).  It does *not* sum
     over ranks: that would count the gradient once per rank;
   * ``shard``: the cotangent placed in zeros of the whole shape and summed
-    over the whole mesh — the contributions of every rank, each once.
+    over the whole mesh — the contributions of every rank, each once;
+  * ``gather`` (a held block made whole where it is used,
+    ``dist.sharding``'s blocked layout): this rank's block of the
+    cotangent.
 
 Transport (``mesh.transport``, see ``dist.compat``): under gloo a CUDA
 tensor is copied to host memory and back around each collective and the
@@ -324,6 +327,36 @@ def unshard(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     """Leave an SPMD region: the whole output on every rank from each
     rank's block under ``spec`` (``shard_map``'s ``out_specs``)."""
     return _Unshard.apply(mesh, tuple(spec), t)
+
+
+def _gather_whole(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The whole tensor from every rank's block of it under ``spec``."""
+    for dim, entry in enumerate(spec):
+        for name in reversed(names_of(entry)):
+            t = _all_gather(t, mesh, name, dim)
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, t):
+        ctx.mesh, ctx.spec = mesh, spec
+        out = _gather_whole(t, mesh, spec)
+        return t.clone() if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, block(g, ctx.mesh, ctx.spec).clone(
+            memory_format=torch.contiguous_format)
+
+
+def gather(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """A held block made whole for its use: the all-gather of every rank's
+    block under ``spec``.  Its backward is this rank's block of the
+    gradient (a copy, so the whole gradient is freed), neither divided nor
+    summed over ranks: every rank computes the whole gradient of what it
+    computed, and a data-parallel region sums the ranks' shares itself."""
+    return _Gather.apply(mesh, tuple(spec), t)
 
 
 # --------------------------------------------------------------------------

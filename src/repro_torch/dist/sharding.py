@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules, the active-mesh context and ``constrain``:
-the port of the JAX package's ``dist/sharding.py`` for one device.
+"""Logical-axis sharding rules, the active-mesh context, ``constrain`` and
+the blocked layout: the port of the JAX package's ``dist/sharding.py``.
 
 Models annotate every parameter and activation with *logical* axis names
 ("batch", "seq", "embed", "heads", "expert", ...).  A :class:`ShardingRules`
@@ -15,17 +15,33 @@ maps each logical axis to zero or more *physical* mesh axes.  Resolution
 ``spec`` returns a plain tuple (one entry per dimension: None, an axis name
 or a tuple of names) where the reference returns a ``PartitionSpec``.
 
-With no mesh active, or under ``use_mesh(None, None)``, ``constrain`` is an
-exact no-op, as in the reference: the model code is annotated throughout
-and runs unchanged on one device.  Under an active mesh (a ``DeviceMesh``
-from ``dist.compat.make_mesh``) it resolves the spec, checks the rank and
-returns ``x`` itself: ``with_sharding_constraint`` never changes values,
-and the port keeps the *global view* — outside the SPMD regions
-(``dist.collectives``: the ring, the decode ring, the shard_map MoE, the
-data-parallel step) every rank holds the whole tensor, so per-rank memory
-is the whole model's (a recorded departure; a sharded layout is an open
-item).  ``tree_shardings``/``batch_shardings`` give per leaf the resolved
-spec and its DTensor placements.
+**Held state is blocked.**  The reference's launchers and dry-run place
+every leaf as its shard on each device (``in_shardings`` from
+``tree_shardings``).  The port's counterpart is :func:`shard_tree`: each
+leaf that its resolved spec splits becomes a :class:`Block`, this rank's
+block of it (``collectives.block``) with the spec and mesh beside it; a
+leaf the spec leaves whole stays a tensor.  Params, AdamW's moments, the
+KV cache and the batch inputs are held so under a mesh.  A block is made
+whole only where it is used (:func:`gather_tree`, an all-gather whose
+backward is this rank's block of the gradient): per layer in the
+transformer stack, inside each checkpointed period, and at the embedding,
+final norm and unembedding.  The gather is exact, so a step over blocks
+gives the values of the same step over whole leaves, bit for bit.  The
+steps take either: whole leaves keep the *global view* (every rank holds
+whole tensors), blocks are used where the caller passes them.  A KV cache
+is blocked over its batch axis only: its heads and sequence stay whole,
+as the activations that write them do.
+
+**Activations keep the global view.**  With no mesh active, or under
+``use_mesh(None, None)``, ``constrain`` is an exact no-op, as in the
+reference.  Under an active mesh (a ``DeviceMesh`` from
+``dist.compat.make_mesh``) it resolves the spec, checks the rank and
+returns ``x`` itself: inside a layer every rank computes whole activations
+(outside the SPMD regions of ``dist.collectives``: the ring, the decode
+ring, the shard_map MoE, the data-parallel steps), where the reference
+computes them tensor-parallel — a recorded departure.
+``tree_shardings``/``batch_shardings`` give per leaf the resolved spec and
+its DTensor placements.
 """
 from __future__ import annotations
 
@@ -34,8 +50,11 @@ import dataclasses
 import threading
 from typing import Any, Mapping, NamedTuple, Optional, Sequence, Union
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
+from torch.utils import _pytree as pytree
 
+from repro_torch.dist import collectives
 from repro_torch.dist.collectives import names_of
 
 # A rule value: no sharding, one mesh axis, or an ordered tuple of mesh axes.
@@ -190,7 +209,8 @@ def active_rules() -> Optional[ShardingRules]:
 
 def constrain(x, *logical_axes: Optional[str]):
     """``x`` itself: with no mesh active at once; under an active mesh
-    after the rank check and the spec's resolution (module docstring)."""
+    after the rank check and the spec's resolution.  Activations keep the
+    global view (module docstring): only held state is blocked."""
     mesh = active_mesh()
     rules = active_rules()
     if mesh is None or rules is None:
@@ -216,8 +236,7 @@ class Sharding(NamedTuple):
     placements: tuple
 
 
-def _sharding(axes, shape, mesh, rules: ShardingRules) -> Sharding:
-    spec = rules.spec(axes, shape=shape, mesh=mesh)
+def _placed(spec: tuple, mesh) -> Sharding:
     dim_of = {}
     for dim, entry in enumerate(spec):
         for name in names_of(entry):
@@ -225,6 +244,10 @@ def _sharding(axes, shape, mesh, rules: ShardingRules) -> Sharding:
     placements = tuple(Shard(dim_of[name]) if name in dim_of else Replicate()
                        for name in _axis_sizes(mesh))
     return Sharding(spec, placements)
+
+
+def _sharding(axes, shape, mesh, rules: ShardingRules) -> Sharding:
+    return _placed(rules.spec(axes, shape=shape, mesh=mesh), mesh)
 
 
 def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
@@ -235,6 +258,21 @@ def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     def one(spec):
         axes = spec.logical_axes or (None,) * len(spec.shape)
         return _sharding(axes, spec.shape, mesh, rules)
+
+    return tree_map(one, tree)
+
+
+def cache_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
+    """A :class:`Sharding` per leaf of a cache's ParamSpec tree in the
+    blocked layout: the entry of its "batch" dimension only (module
+    docstring)."""
+    from repro_torch.models.module import tree_map
+
+    def one(spec):
+        axes = spec.logical_axes or (None,) * len(spec.shape)
+        resolved = _sharding(axes, spec.shape, mesh, rules).spec
+        return _placed(tuple(e if ax == "batch" else None
+                             for e, ax in zip(resolved, axes)), mesh)
 
     return tree_map(one, tree)
 
@@ -258,3 +296,141 @@ def batch_shardings(batch_specs: Mapping[str, Any], mesh,
         axes = _BATCH_AXES.get(key, ("batch",) + (None,) * (len(shape) - 1))
         out[key] = _sharding(tuple(axes[:len(shape)]), shape, mesh, rules)
     return out
+
+
+# --------------------------------------------------------------------------
+# The blocked layout
+# --------------------------------------------------------------------------
+
+class Block:
+    """This rank's block ``local`` of one leaf under ``spec`` on ``mesh``
+    (module docstring).  It is a leaf of the param, optimizer, cache and
+    batch trees: ``module.tree_map`` hands it over whole, torch's pytree
+    sees its one tensor.  ``shape``, ``dtype`` and ``device`` are the
+    block's; indexing takes a period of a stacked leaf, whose leading
+    ("layers") axis no rule splits."""
+
+    __slots__ = ("local", "spec", "mesh")
+
+    def __init__(self, local: torch.Tensor, spec, mesh):
+        self.local, self.spec, self.mesh = local, tuple(spec), mesh
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.local.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+    def whole_shape(self) -> tuple:
+        sizes = _axis_sizes(self.mesh)
+        out = []
+        for n, entry in zip(self.local.shape, self.spec):
+            for name in names_of(entry):
+                n *= sizes[name]
+            out.append(n)
+        return tuple(out)
+
+    def with_local(self, local: torch.Tensor) -> "Block":
+        return Block(local, self.spec, self.mesh)
+
+    def __getitem__(self, i) -> "Block":
+        if names_of(self.spec[0]):
+            raise ValueError(f"Block: indexing splits axis 0 ({self.spec})")
+        return Block(self.local[i], self.spec[1:], self.mesh)
+
+    def __repr__(self) -> str:
+        return (f"Block({tuple(self.local.shape)} of {self.whole_shape()}, "
+                f"{self.local.dtype}, spec={self.spec})")
+
+
+pytree.register_pytree_node(
+    Block, lambda b: ([b.local], (b.spec, b.mesh)),
+    lambda values, ctx: Block(values[0], *ctx),
+    serialized_type_name="repro_torch.dist.sharding.Block")
+
+
+def local(leaf):
+    """The tensor this rank holds for ``leaf`` (a Block's block)."""
+    return leaf.local if isinstance(leaf, Block) else leaf
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, NamedTuples, tuples and
+    lists (and of the trees in ``rest``, of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _splits(spec, mesh) -> bool:
+    sizes = _axis_sizes(mesh)
+    return any(sizes[name] > 1 for entry in spec for name in names_of(entry))
+
+
+def shard_tree(tree: Any, shardings: Any, mesh) -> Any:
+    """Each tensor leaf of ``tree`` that its :class:`Sharding` (the
+    matching tree of ``tree_shardings``, ``cache_shardings`` or
+    ``batch_shardings``) splits, as a :class:`Block` holding a copy of this
+    rank's block, so that the whole leaf can be freed; other leaves as
+    they are."""
+    def one(leaf, sh):
+        if not isinstance(leaf, torch.Tensor) or sh is None \
+                or not _splits(sh.spec, mesh):
+            return leaf
+        part = collectives.block(leaf, mesh, sh.spec)
+        return Block(part.clone(memory_format=torch.contiguous_format),
+                     sh.spec, mesh)
+
+    return _map(one, tree, shardings)
+
+
+def gather_tree(tree: Any) -> Any:
+    """``tree`` with every :class:`Block` made whole on every rank
+    (``collectives.gather``: differentiable, its backward this rank's
+    block of the gradient); other leaves as they are.  The models call it
+    where a leaf is used; checkpoints and tests call it for whole
+    leaves."""
+    return _map(lambda leaf: collectives.gather(leaf.local, leaf.mesh,
+                                                leaf.spec)
+                if isinstance(leaf, Block) else leaf, tree)
+
+
+def held_batch_shardings(batch_specs: Mapping[str, Any], mesh,
+                         rules: ShardingRules) -> dict:
+    """``batch_shardings`` with the batch dimension's entry only: how the
+    blocked layout holds the model inputs (their sequence stays whole,
+    for a ring to split)."""
+    return {k: _placed(sh.spec[:1] + (None,) * (len(sh.spec) - 1), mesh)
+            for k, sh in batch_shardings(batch_specs, mesh, rules).items()}
+
+
+def local_batch(batch: Mapping[str, Any], mesh, rules: ShardingRules
+                ) -> tuple:
+    """(this rank's block of every model input along the batch dimension,
+    the mesh axes that dimension is split over) for a batch of whole
+    tensors or Blocks (``held_batch_shardings``'): a data-parallel
+    region's inputs.  A sequence the
+    rules put on the mesh (``seq_parallel``) stays whole, for the ring to
+    split."""
+    whole = {k: v for k, v in batch.items() if not isinstance(v, Block)}
+    specs = {k: sh.spec for k, sh in batch_shardings(whole, mesh,
+                                                     rules).items()}
+    specs.update((k, v.spec) for k, v in batch.items()
+                 if isinstance(v, Block))
+    axes = tuple(dict.fromkeys(n for spec in specs.values()
+                               for n in names_of(spec[0])))
+    part = {k: v.local if isinstance(v, Block)
+            else collectives.block(v, mesh, specs[k][:1])
+            for k, v in batch.items()}
+    return part, axes

@@ -25,8 +25,11 @@ the fake tensors live on the CPU, the attention layers take the plain
 ``attend_chunked`` — the program the reference lowers, whose model never
 reaches its Pallas kernel either.
 
-**Memory as the port holds it.**  Outside its SPMD regions the port keeps
-the global view (``dist.sharding``): every rank holds the whole model, so
+**Memory as the port holds it.**  The cell's arguments are the blocked
+layout's (``dist.sharding``, ``layout: "blocked"`` in the result): each
+param and AdamW moment is this rank's block under its ``tree_shardings``
+spec, the KV cache and the batch this rank's rows; each layer gathers its
+params where it uses them, and activations stay whole.
 ``memory_per_device_bytes["total_bytes"]`` is the peak of one rank's live
 storages over the step, arguments included.  Beside it,
 ``sharded_argument_bytes`` is the reference's sharded argument figure:
@@ -46,6 +49,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -262,15 +266,10 @@ def fake_group(world: int):
 
 
 def _map(fn, tree):
-    """``fn`` over the leaves of nested dicts, tuples, lists and
-    NamedTuples (``AdamWState``)."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, v) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+    """``fn`` over the leaves of an argument tree (torch's pytree: dicts,
+    tuples, lists, NamedTuples such as ``AdamWState``, and a Block's
+    block)."""
+    return pytree.tree_map(fn, tree)
 
 
 def _fake(leaf):
@@ -308,13 +307,14 @@ def _pairs(args, shardings):
     elif isinstance(args, (tuple, list)):
         for a, s in zip(args, shardings):
             yield from _pairs(a, s)
-    elif isinstance(args, torch.Tensor):
+    elif isinstance(args, (torch.Tensor, shd.Block)):
         yield args, shardings
 
 
 def sharded_argument_bytes(args, in_sh, mesh) -> int:
-    """The reference's per-device argument bytes: each leaf's bytes over
-    the product of the sizes of the mesh axes its spec uses."""
+    """The reference's per-device argument bytes: each leaf's bytes (a
+    Block's whole leaf's) over the product of the sizes of the mesh axes
+    its spec uses."""
     sizes = shd._axis_sizes(mesh)
     total = 0
     for t, sh in _pairs(args, in_sh):
@@ -322,7 +322,9 @@ def sharded_argument_bytes(args, in_sh, mesh) -> int:
         for entry in sh.spec:
             for name in names_of(entry):
                 ways *= sizes[name]
-        total += _nbytes(t) // ways
+        n = t.local.element_size() * math.prod(t.whole_shape()) \
+            if isinstance(t, shd.Block) else _nbytes(t)
+        total += n // ways
     return total
 
 
@@ -348,9 +350,11 @@ def build_cell(arch_name: str, shape_name: str, mesh, *,
                step_cfg: TrainStepConfig | None = None,
                variant: str = ""):
     """Returns (fn, arg_shapes, in_shardings, out_shardings, donate, model,
-    shape): ``arg_shapes`` are meta tensors (no allocation), the
-    shardings ``dist.sharding.Sharding`` trees, ``donate`` the arguments
-    the step writes in place.
+    shape): ``arg_shapes`` are this rank's blocks as meta tensors (no
+    allocation; ``dist.sharding.Block`` where a spec splits a leaf, the
+    cache and the batch split over their batch dimension only), the
+    shardings the reference's ``dist.sharding.Sharding`` trees, ``donate``
+    the arguments the step writes in place.
 
     ``variant`` is a '+'-separated list of §Perf optimisation names:
       localattn — banded sliding-window attention (O(S*2w))
@@ -410,6 +414,8 @@ def build_cell(arch_name: str, shape_name: str, mesh, *,
         args = (module.shape_tree(param_specs), module.shape_tree(cache_specs),
                 tokens, shape.seq_len - 1)
         in_sh = (p_shard, c_shard, tok_shard, _replicated(mesh))
+        args = shd.shard_tree(args, (p_shard, shd.cache_shardings(
+            cache_specs, mesh, rules), tok_shard, None), mesh)
         out_sh = (tok_shard, _replicated(mesh), c_shard)
         donate = (1,)
         return fn, args, in_sh, out_sh, donate, model, shape
@@ -437,6 +443,8 @@ def build_cell(arch_name: str, shape_name: str, mesh, *,
         tok_shard = b_shard["tokens"]
         args = (module.shape_tree(param_specs), batch_specs)
         in_sh = (p_shard, b_shard)
+        args = shd.shard_tree(args, (p_shard, shd.held_batch_shardings(
+            batch_specs, mesh, rules)), mesh)
         out_sh = (tok_shard, c_shard)
         donate = ()
         return fn, args, in_sh, out_sh, donate, model, shape
@@ -468,6 +476,8 @@ def build_cell(arch_name: str, shape_name: str, mesh, *,
 
     args = (module.shape_tree(param_specs), opt_specs, batch_specs)
     in_sh = (p_shard, o_shard, b_shard)
+    args = shd.shard_tree(args, (p_shard, o_shard, shd.held_batch_shardings(
+        batch_specs, mesh, rules)), mesh)
     out_sh = (p_shard, o_shard, None)
     donate = (0, 1)
     return fn, args, in_sh, out_sh, donate, model, shape
@@ -508,7 +518,7 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool = False,
                               cost, totals, mf, memory_stats=mem)
     result = report.to_dict()
     result.update(lower_s=t_lower, compile_s=0.0, ok=True, variant=variant,
-                  ops=counter.ops)
+                  ops=counter.ops, layout="blocked")
     if counter_out is not None:
         counter_out.append(counter)
     if verbose:
@@ -516,7 +526,7 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool = False,
               f"{' [' + variant + ']' if variant else ''}: "
               f"trace {t_lower:.1f}s ({counter.ops} ops) | per-dev flops "
               f"{report.per_device_flops:.3e} "
-              f"| mem/dev {mem['total_bytes']/1e9:.2f} GB as held "
+              f"| mem/dev {mem['total_bytes']/1e9:.2f} GB blocked "
               f"(sharded args {mem['sharded_argument_bytes']/1e9:.2f} GB) "
               f"| bottleneck {report.bottleneck} "
               f"(c={report.compute_s*1e3:.2f}ms m={report.memory_s*1e3:.2f}ms "

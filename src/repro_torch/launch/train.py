@@ -27,8 +27,12 @@ builds a 1-D ``("data",)`` mesh over it with ``train_rules()`` and runs each
 step under it: every rank makes the same params (their fingerprints are
 checked equal across ranks) and draws the same global batch, takes its
 block, and the token-weighted gradients are summed over ``data`` before
-AdamW (``train.step``).  Rank 0 alone writes checkpoints, ``--metrics-out``
-and the log.  The backend is NCCL on the card and gloo on the CPU unless
+AdamW (``train.step``).  Params, AdamW's moments and each batch are held
+in the blocked layout (``dist.sharding.shard_tree``; under these rules
+the params and moments stay whole and the batch is this rank's rows).
+Checkpoints hold whole leaves (``gather_tree`` on every rank), so a
+resume reads the same files as before.  Rank 0 alone writes checkpoints,
+``--metrics-out`` and the log.  The backend is NCCL on the card and gloo on the CPU unless
 ``--dist-backend`` says otherwise (gloo for ranks sharing one card, its
 CUDA tensors staged through host memory).
 
@@ -52,12 +56,14 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, DataState, Pipeline
 from repro_torch.dist import collectives, compat
-from repro_torch.dist.sharding import train_rules, use_mesh
+from repro_torch.dist.sharding import (gather_tree, held_batch_shardings,
+                                       shard_tree, train_rules,
+                                       tree_shardings, use_mesh)
 from repro_torch.kernels import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.module import leaves
 from repro_torch.optim import compression as comp_mod
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.train.step import TrainStepConfig, make_train_step
 
@@ -145,12 +151,18 @@ def _train(args, device, mesh):
     optimizer = AdamW(learning_rate=warmup_cosine(args.lr, args.warmup,
                                                   args.steps))
     base_step = make_train_step(model, optimizer, step_cfg)
+    held = None                 # the blocked layout's (params, opt) shardings
     if mesh is not None:
         rules = train_rules()
+        p_sh = tree_shardings(model.param_specs(), mesh, rules)
+        held = {"params": p_sh, "opt": AdamWState(step=None, mu=p_sh,
+                                                  nu=p_sh)}
 
-        def train_step(*step_args):
+        def train_step(params, opt_state, batch, *rest):
+            batch = shard_tree(batch, held_batch_shardings(batch, mesh,
+                                                           rules), mesh)
             with use_mesh(mesh, rules):
-                return base_step(*step_args)
+                return base_step(params, opt_state, batch, *rest)
     else:
         train_step = base_step
 
@@ -158,6 +170,7 @@ def _train(args, device, mesh):
                                device=device)
     if mesh is not None:
         _same_on_every_rank(params)
+        params = shard_tree(params, held["params"], mesh)
     opt_state = optimizer.init(params)
     comp_state = comp_mod.init(params) if args.compress_grads else None
     data_cfg = DataConfig(vocab_size=arch.vocab_size, seq_len=args.seq_len,
@@ -178,15 +191,20 @@ def _train(args, device, mesh):
                                             "opt": opt_state})
             if restored is not None:
                 step, tree, extra = restored
+                if held is not None:
+                    tree = shard_tree(tree, held, mesh)
                 params, opt_state = tree["params"], tree["opt"]
                 pipeline.state = DataState.from_dict(extra["data"])
                 start_step = step
                 log(f"[train] resumed from step {step}")
 
     def save(step):
-        if ckpt is None or not writer:
+        if ckpt is None:
             return
-        tree = {"params": params, "opt": opt_state}
+        # whole leaves: a collective when a leaf is held as blocks
+        tree = gather_tree({"params": params, "opt": opt_state})
+        if not writer:
+            return
         extra = {"data": pipeline.state.to_dict(), "arch": arch.name}
         if args.async_checkpoint:
             ckpt.save_async(step, tree, extra=extra)

@@ -12,6 +12,10 @@ tree (the reference returns a new one; its scan carry aliases, so the
 bytes it moves are the same).  ``forward``/``prefill`` run the attention
 layers' chunked branch through the hand flash-attention kernel on a CUDA
 tensor (``use_kernel=False``: the plain ``attend_chunked``).
+
+Params may be held as blocks (``dist.sharding.Block``, a mesh's blocked
+layout): the embedding, the learned positions, the final norms and the
+unembedding are gathered where they are used, the layers by the stack.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, torch_dtype
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, gather_tree
 from repro_torch.models import module
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed, embedding_spec, norm_spec, unembed
@@ -100,22 +104,25 @@ class Model:
         cfg = self.cfg
         enc = params["encoder"]
         t = frames.shape[1]
-        x = frames + enc["pos_embed"]["table"][:t].to(frames.dtype)
+        x = frames + gather_tree(enc["pos_embed"])["table"][:t].to(
+            frames.dtype)
         x, _ = tfm.stack_forward(cfg, enc["stack"], x, causal=False,
                                  remat=remat, k_chunk=k_chunk,
                                  use_kernel=use_kernel)
-        return apply_norm(cfg.norm_kind, enc["final_norm"], x, impl=cfg.norm_impl)
+        return apply_norm(cfg.norm_kind, gather_tree(enc["final_norm"]), x,
+                          impl=cfg.norm_impl)
 
     def _inputs(self, params: dict, batch: dict, dtype) -> torch.Tensor:
         """Token embeddings, the patches prepended, learned positions
         added."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], dtype)
+        x = embed(gather_tree(params["embed"]), batch["tokens"], dtype)
         if cfg.frontend == "patch" and "patches" in batch:
             x = torch.cat([batch["patches"].to(dtype), x], dim=1)
             x = constrain(x, "batch", "seq", "embed")
         if cfg.positional == "learned":
-            x = x + params["pos_embed"]["table"][:x.shape[1]].to(dtype)
+            table = gather_tree(params["pos_embed"])["table"]
+            x = x + table[:x.shape[1]].to(dtype)
         return x
 
     # -- full-sequence forward (train / prefill) ----------------------------
@@ -138,14 +145,21 @@ class Model:
                                    local_block=local_block, ring=ring,
                                    remat_policy=remat_policy,
                                    use_kernel=use_kernel)
-        x = apply_norm(cfg.norm_kind, params["final_norm"], x, impl=cfg.norm_impl)
+        x = self._final(params, x)
         if return_hidden:
             return x, aux
-        logits = unembed(params.get("unembed", params["embed"]), x)
-        return logits, aux
+        return self._logits(params, x), aux
+
+    def _final(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return apply_norm(cfg.norm_kind, gather_tree(params["final_norm"]), x,
+                          impl=cfg.norm_impl)
+
+    def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        return unembed(gather_tree(params.get("unembed", params["embed"])), x)
 
     def unembed_table(self, params: dict) -> torch.Tensor:
-        return params.get("unembed", params["embed"])["table"]
+        return gather_tree(params.get("unembed", params["embed"]))["table"]
 
     # -- prefill: forward + populate decode cache ----------------------------
     def prefill(self, params: dict, batch: dict, max_seq: int, *,
@@ -163,9 +177,7 @@ class Model:
                                      max_seq=max_seq, cache_dtype=cache_dtype,
                                      memory=memory, k_chunk=k_chunk,
                                      use_kernel=use_kernel)
-        x = apply_norm(cfg.norm_kind, params["final_norm"], x, impl=cfg.norm_impl)
-        logits = unembed(params.get("unembed", params["embed"]), x)
-        return logits, cache
+        return self._logits(params, self._final(params, x)), cache
 
     # -- single-token decode -------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
@@ -176,14 +188,13 @@ class Model:
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         index = int(cache_index)
-        x = embed(params["embed"], tokens, dtype)
+        x = embed(gather_tree(params["embed"]), tokens, dtype)
         if cfg.positional == "learned":
-            x = x + params["pos_embed"]["table"][index:index + 1].to(dtype)[None]
+            table = gather_tree(params["pos_embed"])["table"]
+            x = x + table[index:index + 1].to(dtype)[None]
         x, cache = tfm.stack_decode(cfg, params["stack"], x, cache, index,
                                     start=start, stream_kv=stream_kv)
-        x = apply_norm(cfg.norm_kind, params["final_norm"], x, impl=cfg.norm_impl)
-        logits = unembed(params.get("unembed", params["embed"]), x)
-        return logits, cache
+        return self._logits(params, self._final(params, x)), cache
 
     # -- convenience ---------------------------------------------------------
     def init_params(self, generator: torch.Generator, device="cuda") -> dict:

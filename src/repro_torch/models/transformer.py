@@ -11,7 +11,10 @@ each stacked leaf per period.  The same structure drives ``forward``
 
 ``remat`` (and ``remat_policy``) wrap each period in
 ``torch.utils.checkpoint`` under autograd; without a gradient they change
-no number.  ``stack_decode`` updates the cache it is given in place and
+no number.  A layer's params may be held as blocks
+(``dist.sharding.Block``): each layer gathers its own just before it runs
+(inside the checkpointed period, so the recompute gathers them again and
+no whole weight outlives its layer).  ``stack_decode`` updates the cache it is given in place and
 returns it: each layer writes one token slice of its KV cache and its
 recurrent state into the stacked tensors, never a copy of the cache.
 """
@@ -24,6 +27,7 @@ import torch
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import gather_tree
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -349,7 +353,9 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
         for i, kind in enumerate(cfg.layer_pattern):
             if f"p{i}" not in period_params:
                 continue
-            x, aux = block_forward(cfg, kind, period_params[f"p{i}"], x, **kw)
+            x, aux = block_forward(cfg, kind,
+                                   gather_tree(period_params[f"p{i}"]), x,
+                                   **kw)
             aux_p = aux_p + aux
         return x, aux_p
 
@@ -365,7 +371,8 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     # tail layers continue the pattern: layer full*period + i has pattern
     # position i (full*period % period == 0)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
-        x, aux = block_forward(cfg, _tail_kind(cfg, i), p, x, **kw)
+        x, aux = block_forward(cfg, _tail_kind(cfg, i), gather_tree(p), x,
+                               **kw)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -387,15 +394,15 @@ def stack_prefill(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
             key = f"p{i}"
             if key not in period_params:
                 continue
-            x, period_cache[key] = block_prefill(cfg, kind,
-                                                 period_params[key], x, **kw)
+            x, period_cache[key] = block_prefill(
+                cfg, kind, gather_tree(period_params[key]), x, **kw)
         periods.append(period_cache)
     if periods:
         cache["scan"] = tree_map(lambda *leaves: torch.stack(leaves),
                                  *periods)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
-        x, cache["tail"][key] = block_prefill(cfg, _tail_kind(cfg, i), p, x,
-                                              **kw)
+        x, cache["tail"][key] = block_prefill(cfg, _tail_kind(cfg, i),
+                                              gather_tree(p), x, **kw)
     return x, cache
 
 
@@ -423,12 +430,13 @@ def stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
             if key not in period_params:
                 continue
             layer_cache = _period(cache["scan"][key], li)
-            x, c_new = block_decode(cfg, kind, period_params[key], x,
+            x, c_new = block_decode(cfg, kind,
+                                    gather_tree(period_params[key]), x,
                                     layer_cache, cache_index, **kw)
             _write_back(layer_cache, c_new)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
         layer_cache = cache["tail"][key]
-        x, c_new = block_decode(cfg, _tail_kind(cfg, i), p, x, layer_cache,
-                                cache_index, **kw)
+        x, c_new = block_decode(cfg, _tail_kind(cfg, i), gather_tree(p), x,
+                                layer_cache, cache_index, **kw)
         _write_back(layer_cache, c_new)
     return x, cache

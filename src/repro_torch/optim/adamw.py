@@ -12,6 +12,13 @@ learning-rate product.  Where the reference's launcher donates params and
 state to the jitted step, ``update`` writes the new params and moments
 into the tensors it is given (under ``torch.no_grad``) and returns them,
 with a new step counter; the gradients it is given are left as they were.
+
+Params held as blocks (``dist.sharding.Block``) get moments held as
+blocks of the same spec, and their gradients are this rank's blocks
+(plain tensors).  The update then runs on the blocks, elementwise in the
+order above, so it is exact; the global norm gathers each split gradient
+leaf whole in turn and sums its squares as over a whole leaf, so it is
+the global view's to the bit.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import Block, local
 from repro_torch.models.module import leaves, tree_map
 
 
@@ -40,10 +49,15 @@ class AdamW:
 
     def init(self, params) -> AdamWState:
         first = leaves(params)[0]
+
+        def zeros(p):
+            if isinstance(p, Block):
+                return p.with_local(torch.zeros_like(p.local))
+            return torch.zeros_like(p)
+
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=first.device),
-            mu=tree_map(torch.zeros_like, params),
-            nu=tree_map(torch.zeros_like, params))
+            mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     def _lr(self, step):
         if callable(self.learning_rate):
@@ -53,7 +67,7 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, like=params)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -62,8 +76,9 @@ class AdamW:
         bc1 = 1 - torch.pow(b1, step.to(torch.float32))
         bc2 = 1 - torch.pow(b2, step.to(torch.float32))
         lr = self._lr(step)
-        for g, p, m, v in zip(leaves(grads), leaves(params),
-                              leaves(state.mu), leaves(state.nu)):
+        for g, p, m, v in zip(leaves(grads), map(local, leaves(params)),
+                              map(local, leaves(state.mu)),
+                              map(local, leaves(state.nu))):
             if scale is not None:
                 g = g * scale
             m.mul_(b1).add_((1 - b1) * g)
@@ -75,8 +90,15 @@ class AdamW:
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, like=None) -> torch.Tensor:
+    """The 2-norm over every leaf of ``tree``.  Where the matching leaf of
+    ``like`` (the params) is a Block, the leaf is this rank's block and is
+    gathered whole first (module docstring)."""
+    blocks = leaves(like) if like is not None else [None] * len(
+        leaves(tree))
     total = 0
-    for leaf in leaves(tree):
+    for leaf, held in zip(leaves(tree), blocks):
+        if isinstance(held, Block):
+            leaf = collectives._gather_whole(leaf, held.mesh, held.spec)
         total = total + torch.sum(torch.square(leaf.to(torch.float32)))
     return torch.sqrt(total)

@@ -4,7 +4,8 @@
 Quantise per tensor to int8 before the (conceptual) data-parallel
 all-reduce and keep the quantisation residual locally, adding it back into
 the next step's gradient (error feedback).  ``torch.round`` rounds half to
-even, as ``jnp.round`` does.
+even, as ``jnp.round`` does.  For params held as blocks (``dist.sharding.Block``)
+the residuals are the blocks' and the scale is each block's own.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import local
 from repro_torch.models.module import tree_map
 
 
@@ -21,7 +23,7 @@ class CompressionState(NamedTuple):
 
 def init(params) -> CompressionState:
     return CompressionState(residual=tree_map(
-        lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+        lambda p: torch.zeros_like(local(p), dtype=torch.float32), params))
 
 
 def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

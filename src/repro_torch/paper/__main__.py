@@ -10,8 +10,9 @@
 tables also measure the 9 card combos (``datasets.card_combos``), and
 Fig. 4 and the runtime overhead run their blur schedules on the card;
 ``--device cpu`` runs the reference's combos and both on the host.  The
-reference's roofline dry-run (``benchmarks/roofline_bench.py``) needs the
-launch layer, which the port does not have yet, so its lines are absent.
+roofline table (``paper.roofline``) renders the dry-run document
+``results/torch/dryrun.json`` where ``python -m repro_torch.launch.dryrun``
+wrote one.
 
 Prints ``name,value,derived`` CSV lines at the end for machine scraping
 (``trailer``: the reference's lines over the reference's combos, and
@@ -74,8 +75,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch.kernels import resolve_device
-    from repro_torch.paper import (runtime_overhead, tables, unconstrained,
-                                   variant_selection)
+    from repro_torch.paper import (roofline, runtime_overhead, tables,
+                                   unconstrained, variant_selection)
     from repro_torch.perfdata.datasets import Combo, card_combos
 
     device = resolve_device(args.device)
@@ -110,6 +111,12 @@ def main(argv=None) -> None:
         ok_res = omitted_kernels.run(epochs=epochs)
         print()
         for line in omitted_kernels.summarize(ok_res):
+            print(line)
+
+    roof = roofline.run()
+    if roof:
+        print()
+        for line in roofline.summarize(roof):
             print(line)
 
     rt = runtime_overhead.run(quick=args.quick, device=device)

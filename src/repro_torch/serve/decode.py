@@ -7,6 +7,17 @@ prompt.  ``generate`` runs the two eagerly (the reference jits them): its
 prefill goes through the hand flash-attention kernel, one launch a layer,
 when the prompt lies on the card.
 
+Under an active mesh whose rules put the batch on mesh axes, both steps
+run as a data-parallel region, as ``train.step``'s does: each rank takes
+its block of the tokens (``dist.sharding.local_batch``) and of the cache
+along the batch, runs the model under the rest of the mesh, and the
+sampled tokens (and the decode logits) are gathered whole on every rank.
+A blocked cache (``dist.sharding.Block``s, ``cache_shardings``) is written
+in place and stays blocked, and a prefill of blocked tokens returns a
+blocked cache; with whole tokens the prefill returns the whole cache, and
+a decode step writes every rank's rows into a whole cache (the global
+view: its rows are all-gathered each step).
+
 Sampling with a temperature draws from ``softmax(logits / T)`` through
 ``torch.multinomial`` with an explicit ``torch.Generator``: the reference's
 ``jax.random.categorical`` draws from the same distribution, but not the
@@ -19,6 +30,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives, compat
+from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
+                                       batch_shardings, local_batch,
+                                       use_mesh)
+from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 
 
@@ -40,14 +56,70 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     return draws.reshape(probs.shape[:-1]).to(torch.int32)
 
 
+def _region(tokens):
+    """(mesh, rules, the batch dimension's spec entry) when the active
+    mesh's rules split the batch of ``tokens`` (whole or a Block); None
+    otherwise."""
+    mesh, rules = active_mesh(), active_rules()
+    if mesh is None or rules is None:
+        return None
+    if isinstance(tokens, Block):
+        entry = tokens.spec[0]
+    else:
+        entry = batch_shardings({"tokens": tokens}, mesh,
+                                rules)["tokens"].spec[0]
+    return (mesh, rules, entry) if collectives.names_of(entry) else None
+
+
+def _rest(mesh, entry):
+    """The mesh without the batch's axes (None when nothing is left)."""
+    names = collectives.names_of(entry)
+    return compat.submesh(mesh, [n for n in mesh.mesh_dim_names
+                                 if n not in names])
+
+
+def _cache_specs(model: Model, cache, entry):
+    """Per cache leaf, the spec that splits its batch dimension over
+    ``entry`` (the dimension named "batch" in ``model.cache_specs``)."""
+    def one(leaf, spec):
+        dim = spec.logical_axes.index("batch")
+        return (None,) * dim + (entry,) + (None,) * (leaf.ndim - dim - 1)
+    return tree_map(one, cache, model.cache_specs(1, 1))
+
+
+def _whole(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    return collectives._gather_whole(t, mesh, spec)
+
+
 def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
     """(params, cache, tokens [B,1], cache_index) -> (next_tokens, logits,
-    cache)."""
+    cache).  Under a mesh that splits the batch, a data-parallel region
+    (module docstring)."""
 
     def serve_step(params, cache, tokens, cache_index):
-        logits, cache = model.decode_step(params, cache, tokens, cache_index)
-        next_tokens = sample(logits, None, cfg.temperature)
-        return next_tokens, logits, cache
+        region = _region(tokens)
+        if region is None:
+            logits, cache = model.decode_step(params, cache, tokens,
+                                              cache_index)
+            next_tokens = sample(logits, None, cfg.temperature)
+            return next_tokens, logits, cache
+        mesh, rules, entry = region
+        rows = (entry,)
+        part = (tokens.local if isinstance(tokens, Block)
+                else collectives.block(tokens, mesh, rows))
+        specs = _cache_specs(model, tree_map(
+            lambda c: c.local if isinstance(c, Block) else c, cache), entry)
+        views = tree_map(lambda c, spec: c.local if isinstance(c, Block)
+                         else collectives.block(c, mesh, spec), cache, specs)
+        rest = _rest(mesh, entry)
+        with use_mesh(rest, rules if rest is not None else None):
+            logits, _ = model.decode_step(params, views, part, cache_index)
+            next_tokens = sample(logits, None, cfg.temperature)
+        for c, v, spec in zip(leaves(cache), leaves(views), leaves(specs)):
+            if not isinstance(c, Block):       # the global view's rows
+                c.copy_(_whole(v, mesh, spec))
+        return (_whole(next_tokens, mesh, rows), _whole(logits, mesh, rows),
+                cache)
 
     return serve_step
 
@@ -55,13 +127,32 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
 def make_prefill_step(model: Model, max_seq: int,
                       cfg: ServeConfig = ServeConfig()):
     """(params, batch) -> (first sampled token, cache filled to
-    len(tokens))."""
+    len(tokens)).  Under a mesh that splits the batch, a data-parallel
+    region (module docstring)."""
 
     def prefill_step(params, batch):
-        logits, cache = model.prefill(params, batch, max_seq,
-                                      k_chunk=cfg.k_chunk)
-        next_tokens = sample(logits[:, -1:], None, cfg.temperature)
-        return next_tokens, cache
+        region = _region(batch["tokens"])
+        if region is None:
+            logits, cache = model.prefill(params, batch, max_seq,
+                                          k_chunk=cfg.k_chunk)
+            next_tokens = sample(logits[:, -1:], None, cfg.temperature)
+            return next_tokens, cache
+        mesh, rules, entry = region
+        part, _ = local_batch(batch, mesh, rules)
+        rest = _rest(mesh, entry)
+        with use_mesh(rest, rules if rest is not None else None):
+            logits, cache = model.prefill(params, part, max_seq,
+                                          k_chunk=cfg.k_chunk)
+            next_tokens = sample(logits[:, -1:], None, cfg.temperature)
+        del logits
+        specs = _cache_specs(model, cache, entry)
+        if isinstance(batch["tokens"], Block):
+            cache = tree_map(lambda c, spec: Block(c, spec, mesh), cache,
+                             specs)
+        else:
+            cache = tree_map(lambda c, spec: _whole(c, mesh, spec), cache,
+                             specs)
+        return _whole(next_tokens, mesh, (entry,)), cache
 
     return prefill_step
 

@@ -36,6 +36,19 @@ weighted by its share of the global batch's counted tokens.  The loss is
 ``sum / mask.sum()`` over the *global* batch, so a plain mean of the
 ranks' means would be wrong whenever the masks differ.  The aux loss is
 weighted alike (it is zero for a dense model).
+
+**Blocked state.**  Params and AdamW's moments may be held as blocks
+(``dist.sharding.Block``), and the batch too (the launcher under
+``--data-parallel``, the dry-run).  Each layer gathers its params where it
+uses them (``models``), so a rank's gradients are the blocks of the whole
+gradients it computed, and the step returns the blocked tree it was
+given.  A blocked batch is the rank's block already; the global batch's
+token count is then the sum of the ranks' counts.  A leaf whose spec
+splits it over a batch axis (``train_rules(fsdp=True)``) is gathered over
+that axis before the region and its gradient blocked again after the
+sum, so each rank sums whole gradients over the batch axes, as the global
+view does.  Microbatching gathers a blocked batch whole first: its
+microbatches are the global batch's.
 """
 from __future__ import annotations
 
@@ -46,8 +59,9 @@ import torch.nn.functional as F
 from torch.utils import checkpoint
 
 from repro_torch.dist import collectives, compat
-from repro_torch.dist.sharding import (active_mesh, active_rules,
-                                       batch_shardings, use_mesh)
+from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
+                                       gather_tree, local, local_batch,
+                                       use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -169,17 +183,43 @@ def _value_and_grad(loss_fn):
     """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, aux metrics),
     grads) with the grads a tree of ``params``' layout and types (zeros for
     a leaf the loss does not reach), the metrics detached."""
+    def leaf(p):
+        if isinstance(p, Block):
+            return p.with_local(p.local.detach().requires_grad_())
+        return p.detach().requires_grad_()
+
     def grad_fn(params, batch):
         with torch.enable_grad():
-            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            live = tree_map(leaf, params)
             loss, metrics = loss_fn(live, batch)
-            grads = torch.autograd.grad(loss, leaves(live),
+            grads = torch.autograd.grad(loss, [local(p) for p in leaves(live)],
                                         allow_unused=True,
                                         materialize_grads=True)
         it = iter(grads)
         return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
                 tree_map(lambda _: next(it), live))
     return grad_fn
+
+
+def _over(spec: tuple, axes: tuple) -> tuple:
+    """The entries of ``spec`` that name one of ``axes``, whole (the
+    others None)."""
+    return tuple(e if set(collectives.names_of(e)) & set(axes) else None
+                 for e in spec)
+
+
+def _gather_over(p, axes: tuple):
+    """A Block split over a batch axis, gathered whole along the
+    dimensions that axis splits: a Block of the rest of its spec, or a
+    tensor."""
+    if not isinstance(p, Block):
+        return p
+    over = _over(p.spec, axes)
+    if not any(over):
+        return p
+    whole = collectives._gather_whole(p.local, p.mesh, over)
+    rest = tuple(None if o else e for e, o in zip(p.spec, over))
+    return Block(whole, rest, p.mesh) if any(rest) else whole
 
 
 def _data_parallel(grad_fn, model: Model):
@@ -189,27 +229,27 @@ def _data_parallel(grad_fn, model: Model):
         mesh, rules = active_mesh(), active_rules()
         if mesh is None or rules is None:
             return grad_fn(params, batch)
-        specs = batch_shardings(batch, mesh, rules)
-        axes = tuple(dict.fromkeys(n for sh in specs.values()
-                                   for n in collectives.names_of(sh.spec[0])))
+        part, axes = local_batch(batch, mesh, rules)
         if not axes:
             return grad_fn(params, batch)
-        total = (_pad_vision_labels(model, batch) != IGNORE_LABEL).sum()
-        # the batch dimension's block only: a sequence the rules put on
-        # the mesh (``seq_parallel``) stays whole, for the ring to split
-        local = {k: collectives.block(v, mesh, specs[k].spec[:1])
-                 for k, v in batch.items()}
+        held = tree_map(lambda p: _gather_over(p, axes), params)
         rest = compat.submesh(mesh, [n for n in mesh.mesh_dim_names
                                      if n not in axes])
         with use_mesh(rest, rules if rest is not None else None):
-            (loss, metrics), grads = grad_fn(params, local)
-        count = (_pad_vision_labels(model, local) != IGNORE_LABEL).sum()
+            (loss, metrics), grads = grad_fn(held, part)
+        count = (_pad_vision_labels(model, part) != IGNORE_LABEL).sum()
+        total = count.clone()
+        collectives.reduce_sum_([total], mesh, axes)
         share = count.float() / torch.clamp(total, min=1).float()
         out = [loss * share] + [v * share for v in metrics.values()]
         grad_leaves = leaves(grads)
         for g in grad_leaves:
             g.mul_(share.to(g.dtype))
         collectives.reduce_sum_(out + grad_leaves, mesh, axes)
+        grads = tree_map(
+            lambda g, p: collectives.block(g, mesh, _over(p.spec, axes)).clone()
+            if isinstance(p, Block) and any(_over(p.spec, axes)) else g,
+            grads, params)
         return (out[0], dict(zip(metrics, out[1:]))), grads
     return run
 
@@ -224,6 +264,8 @@ def make_train_step(model: Model, optimizer: AdamW,
     def train_step(params, opt_state: AdamWState, batch: dict,
                    comp_state=None):
         if cfg.microbatches > 1:
+            batch = gather_tree(batch)
+
             def micro(i):
                 return {k: v.reshape((cfg.microbatches, -1) + v.shape[1:])[i]
                         for k, v in batch.items()}

@@ -67,7 +67,15 @@ def test_port_files_exist():
                    "launch/mesh.py", "launch/hlo_analysis.py",
                    "launch/roofline.py", "launch/dryrun.py",
                    "launch/profile.py", "autotune/__init__.py",
-                   "autotune/tuner.py"):
+                   "autotune/tuner.py", "paper/roofline.py",
+                   "paper/kernel_projection.py", "examples/__init__.py",
+                   "examples/quickstart.py", "examples/schedule_dag.py",
+                   "examples/program_compile.py",
+                   "examples/async_pipeline.py",
+                   "examples/serve_blur_pipeline.py",
+                   "examples/runtime_dispatch.py",
+                   "examples/autotune_attention.py",
+                   "examples/train_100m.py"):
         assert f"src/repro_torch/{module}" in names
 
 
@@ -111,6 +119,16 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.mesh, repro_torch.launch.hlo_analysis\n"
         "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
         "import repro_torch.launch.profile, repro_torch.autotune.tuner\n"
+        "import repro_torch.paper.roofline, "
+        "repro_torch.paper.kernel_projection\n"
+        "import repro_torch.examples.quickstart, "
+        "repro_torch.examples.schedule_dag\n"
+        "import repro_torch.examples.program_compile, "
+        "repro_torch.examples.async_pipeline\n"
+        "import repro_torch.examples.serve_blur_pipeline, "
+        "repro_torch.examples.runtime_dispatch\n"
+        "import repro_torch.examples.autotune_attention, "
+        "repro_torch.examples.train_100m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

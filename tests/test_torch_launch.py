@@ -345,8 +345,10 @@ def test_run_cell_flops_equal_flop_counter(reduced, arch, shape):
     assert result["compile_s"] == 0.0 and result["chips"] == 256
     mem = result["memory_per_device_bytes"]
     assert MEM_KEYS <= set(mem)
+    # the arguments are held as blocks: exactly the sharded figure
+    assert result["layout"] == "blocked"
     assert mem["total_bytes"] >= mem["argument_bytes"] \
-        > mem["sharded_argument_bytes"] > 0
+        == mem["sharded_argument_bytes"] > 0
     assert mem["total_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
                                   + mem["temp_bytes"] - mem["alias_bytes"])
     with dryrun.fake_group(256):
@@ -406,8 +408,8 @@ def test_profile_counter_rows(reduced):
 
 def test_dryrun_cli_full_width_decode(tmp_path, capsys):
     """The CLI at gemma3-1b's full width, decode_32k (a few seconds of
-    fake trace): the reference's keys and skip records, memory as the
-    port holds it beside the sharded figure, nothing on a card."""
+    fake trace): the reference's keys and skip records, memory in the
+    blocked layout equal to the sharded figure, nothing on a card."""
     out = tmp_path / "d.json"
     dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--out",
                  str(out)])
@@ -418,8 +420,9 @@ def test_dryrun_cli_full_width_decode(tmp_path, capsys):
     assert skips and all(doc[k]["reason"] and doc[k]["ok"] for k in skips)
     mem = cell["memory_per_device_bytes"]
     cache = 26 * 2 * 128 * 32768 * 256 * 2     # every layer's k and v, bf16
-    assert mem["total_bytes"] > mem["argument_bytes"] > cache
-    assert mem["sharded_argument_bytes"] < mem["argument_bytes"] / 8
+    # held as blocks: this rank's 8 of the 128 rows of the cache
+    assert mem["total_bytes"] > mem["argument_bytes"] > cache // 16
+    assert mem["sharded_argument_bytes"] == mem["argument_bytes"]
     n = roofline.count_params_split(build_model(configs.get_arch(
         "gemma3-1b")))[1]
     assert cell["model_flops"] == 2.0 * n * 128
