@@ -245,7 +245,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    rank and within MODEL_TOL of the flash forward, per rank the wall, the
    bytes staged (the gathers' beside (1)'s), the peak and the bytes held;
    (2)
-   prefill 2048 tokens and 32 decode steps with ``stream_kv`` under
+   prefill 2048 tokens and 8 decode steps with ``stream_kv`` under
    ``serve_rules(long_context=True)`` (the cache's sequence over the 4
    ranks): the fp32 tokens equal the one-process run's (or a top-2
    margin within 1e-3); (2b) a blocked decode: gemma3-1b cut to 2 of 26
@@ -261,9 +261,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    losses within 1e-6 of that run's, the warm step and tokens/s beside
    its, the gradient all-reduce by events; then two ranks over gloo on
    ``cuda:0`` (``--dp-child``, torchrun's environment) and one process,
-   2 of 26 layers at fp32 compute, the losses within 1e-5.  The counters
-   are zeroed just before; every rank and child reports its launches,
-   and their sum is the ``dist`` path's.
+   2 of 26 layers at fp32 compute, the losses within 1e-5.  (5) The
+   tensor-parallel layers, in the same DIST_RANKS children on a
+   ``("model",)`` mesh of 4, gemma3-1b fp32 with its params held as
+   blocks (each rank its heads, MLP and vocabulary rows): (5a) the forward
+   uncut at B = 1, S = 4096 under ``train_rules()``: each rank's
+   vocabulary block of the logits within MODEL_TOL["float32"] of the
+   matching slice of the one-process flash forward (gathered to rank 0),
+   the final hidden states bit-equal on every rank, exactly 26 flash
+   launches a rank at one head and one KV head; per rank the wall, the
+   bytes staged and their seconds, the peak and the bytes held; (5b) one
+   ``make_train_step`` step with AdamW at 2 of 26 layers, B = 1, S = 2048,
+   on the hand kernels: the loss and every gradient leaf within
+   MODEL_TOL["float32"] of the same step in one process, exactly 2 lse
+   forward, 2 dq and 2 dk/dv launches a rank (as one process), and a
+   planted fault (``reduce_from``'s backward a psum) above the bound;
+   (5c) (2b)'s prompts and steps through ``make_prefill_step``/
+   ``make_serve_step`` under ``serve_rules()``: the tokens equal (2b)'s
+   one-process run's by the margin rule, 2 flash launches a rank.  The
+   decode ring (2) reads each rank's vocabulary block of the logits
+   gathered whole.  The counters are zeroed just before; every rank and
+   child reports its launches, and their sum is the ``dist`` path's.
 11. launch — the launch analysis stack (``repro_torch.launch.{mesh,
    hlo_analysis,roofline,dryrun,profile}``) and ``autotune.tuner``.  The
    dry-run runs in a child process (``--launch-child``) started first,
@@ -277,8 +295,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    report line, memory per rank in the blocked layout (``layout:
    "blocked"``) beside PR 26's figure with every leaf whole and the
    sharded argument figure, and the profile's top rows for ``train_4k``
-   are printed; ``decode_32k`` must lie under 10 GiB a rank at pod16x16
-   and lower at pod2x16x16, ``train_4k`` at least 10 GiB below 129.56.  (a) The tuner on the card at gemma3-1b's attention width (h
+   are printed, with FLOPs and collective bytes a rank; the attention
+   heads, MLP and vocabulary computed on each rank's block where the rules
+   split them: ``decode_32k`` at most 8.45 GiB a rank at pod16x16 and 5.19
+   GiB (and lower) at pod2x16x16, ``train_4k`` at most 97 GiB and 2.0e14
+   FLOPs a rank, printed beside the JAX package's dry-run figures.  (a) The tuner on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
    ``best_schedule`` for those and S = 3072 (also measured over the
@@ -3724,12 +3745,17 @@ DIST_ARCH = "gemma3-1b"
 DIST_DEVICE = "cuda:0"   # the one card the ranks share
 DIST_RANKS = 4           # ranks sharing DIST_DEVICE over gloo
 DIST_SEQ = 4096          # the ring forward, B = 1
-DIST_PROMPT, DIST_STEPS = 2048, 32   # the decode ring: max_seq 2080 = 4 x 520
+DIST_PROMPT, DIST_STEPS = 2048, 32   # (2b) and (5c): 4 prompts, max_seq 2080
+# the decode ring (2): max_seq 2056 = 4 x 514; cut from 32 steps when its
+# MLP and vocabulary came to be split (53 psums a step through gloo)
+DIST_RING_STEPS = 8
 DIST_MOE = "qwen3-moe-235b-a22b"     # reduced(): the full model is 470 GB
 DIST_MOE_TOL = 1e-5      # the JAX package's own bounds (test_moe_shardmap)
 DP_LAYERS, DP_STEPS = 2, 3           # the two gloo ranks of --data-parallel
 DIST_DECODE_LAYERS = 2   # the blocked decode: gemma3-1b cut to 2 of 26 layers
 DIST_DECODE_BATCH = 4    # one row a rank of the 4-rank ("data",) mesh
+DIST_TP_TRAIN_LAYERS = 2       # (5b): gemma3-1b cut to 2 of 26 layers
+DIST_TP_TRAIN_SEQ = 2048       # (5b): B = 1
 DP_TOL = {"nccl": 1e-6, "gloo": 1e-5}
 DIST_DEADLINE_S = 300    # each group of child processes, from its start
 DIST_GROUP_TIMEOUT_S = 120.0   # a collective no peer answers fails the rank
@@ -3854,8 +3880,20 @@ def _dist_ring(model, params, batch, mesh, K, rank, blocked) -> dict:
     return rec
 
 
+def _last_row(model, logits) -> torch.Tensor:
+    """The last position's logits [B, V] in fp32, whole: under a mesh whose
+    rules split the vocabulary, every rank's block gathered."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import active_mesh
+
+    row = logits[:, -1].float()
+    axes = model.vocab_axes(logits.shape[0], logits.shape[1])
+    return collectives._gather_whole(row, active_mesh(), (None, axes)) \
+        if axes else row
+
+
 def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
-    """(2) prefill DIST_PROMPT tokens and DIST_STEPS decode steps with
+    """(2) prefill DIST_PROMPT tokens and DIST_RING_STEPS decode steps with
     stream_kv under serve_rules(long_context=True) (the cache's sequence
     over the 4 ranks); on rank 0 the same in one process, and the tokens
     held to it."""
@@ -3863,15 +3901,15 @@ def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
 
     def generate():
         logits, cache = model.prefill(params, {"tokens": prompt},
-                                      max_seq=DIST_PROMPT + DIST_STEPS,
+                                      max_seq=DIST_PROMPT + DIST_RING_STEPS,
                                       cache_dtype=torch.float32)
-        rows = [logits[:, -1].float()]
+        rows = [_last_row(model, logits)]
         del logits
         toks = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
-        for i in range(DIST_STEPS):
+        for i in range(DIST_RING_STEPS):
             lg, cache = model.decode_step(params, cache, toks[-1],
                                           DIST_PROMPT + i, stream_kv=True)
-            rows.append(lg[:, -1].float())
+            rows.append(_last_row(model, lg))
             toks.append(rows[-1].argmax(-1, keepdim=True).to(torch.int32))
         return torch.cat(toks, dim=1), rows
 
@@ -3896,14 +3934,15 @@ def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
     return rec
 
 
-def _dist_decode_blocked(device, rank, world, K) -> dict:
+def _dist_decode_blocked(device, rank, world, K) -> tuple:
     """(2b) DIST_DECODE_BATCH prompts of DIST_PROMPT tokens and DIST_STEPS
     decode steps through ``make_prefill_step``/``make_serve_step`` on a
     ("data",) mesh of the ranks under serve_rules(), the tokens and the KV
     cache held as each rank's rows (gemma3-1b at full width cut to
     DIST_DECODE_LAYERS layers, fp32, the bf16 cache); on rank 0 the same
     in one process through the model's prefill and decode_step, and the
-    tokens held to it."""
+    tokens held to it.  Returns the record and, on rank 0, the one-process
+    run's (tokens, logits rows) for (5c)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -3956,11 +3995,14 @@ def _dist_decode_blocked(device, rank, world, K) -> dict:
                for c in module.leaves(cache))}
     del cache
     _same_on_ranks("the blocked decode's tokens", rec["tokens"])
+    ref = None
     if rank == 0:
         with torch.no_grad():
             logits, cache = model.prefill(params, {"tokens": prompt},
                                           max_seq=DIST_PROMPT + DIST_STEPS)
-            rows = [logits[:, -1].float()]
+            # a copy: a view would keep the whole prompt's logits alive
+            # while (5c) holds these rows
+            rows = [logits[:, -1].float().clone()]
             del logits
             want = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
             for i in range(DIST_STEPS):
@@ -3972,7 +4014,8 @@ def _dist_decode_blocked(device, rank, world, K) -> dict:
         rec["want"] = torch.cat(want, dim=1).tolist()
         rec["note"] = _hold_tokens("dist blocked decode", rec["tokens"],
                                    rec["want"], lambda b, j: rows[j][b])
-    return rec
+        ref = (rec["want"], rows)
+    return rec, ref
 
 
 def _dist_moe(device) -> dict:
@@ -4016,6 +4059,244 @@ def _dist_moe(device) -> dict:
             "err": (y - ref).abs().max().item(), "aux": aux.item(),
             "grad_err": {k: (g - w).abs().max().item()
                          for k, g, w in zip(keys, grads, want)}}
+
+
+def _dist_tp_forward(model, tokens, mesh, K, rank, world, device) -> dict:
+    """(5a) gemma3-1b's forward tensor-parallel on the ("model",) mesh of
+    the ranks under train_rules(), fp32, B = 1, S = DIST_SEQ: the params
+    held as each rank's blocks (its heads, MLP and vocabulary rows), every
+    layer computed on them.  Per rank the wall, the bytes staged through
+    the host and their seconds, the peak, the bytes held, the flash
+    launches and the heads each ran on; the final hidden states'
+    fingerprint (the same on every rank); each rank's vocabulary block of
+    the logits gathered to rank 0 and held to the matching slice of the
+    one-process flash forward there."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import (local, shard_tree, train_rules,
+                                           tree_shardings, use_mesh)
+    from repro_torch.models import attention, module
+
+    rules, link = train_rules(), mesh.transport
+    held = shard_tree(model.init_params(torch.Generator().manual_seed(0),
+                                        device=device),
+                      tree_shardings(model.param_specs(), mesh, rules), mesh)
+    torch.cuda.empty_cache()
+    heads, real = [], attention._attend_kernel
+
+    def counted(q, k, v, **kw):
+        heads.append([q.shape[2], k.shape[2]])
+        return real(q, k, v, **kw)
+
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    attention._attend_kernel = counted
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad(), use_mesh(mesh, rules):
+            hidden, _ = model.forward(held, batch, remat=False,
+                                      return_hidden=True)
+            logits = model._logits(held, hidden)
+            axes = model.vocab_axes(*tokens.shape)
+        torch.cuda.synchronize()
+    finally:
+        attention._attend_kernel = real
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "held_bytes": sum(local(p).numel() * local(p).element_size()
+                             for p in module.leaves(held)),
+           "flash": _delta(K, before), "heads": heads,
+           "width": logits.shape[-1], "axes": list(axes)}
+    prints = collectives.all_ranks(collectives.fingerprint(hidden))
+    rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
+    del held, hidden
+    part = logits.cpu()
+    del logits
+    torch.cuda.empty_cache()
+    parts = [torch.empty_like(part) for _ in range(world)] \
+        if rank == 0 else None
+    torch.distributed.gather(part, parts, dst=0)
+    del part
+    if rank == 0:
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=device)
+        before = launch_counts(K)
+        with torch.no_grad():
+            want = model.forward(params, batch, remat=False)[0]
+        torch.cuda.synchronize()
+        rec["one_process_flash"] = _delta(K, before)
+        del params
+        top = want.abs().max()
+        v = want.shape[-1] // world
+        rec["errs"] = [((p.to(device) - want[..., r * v:(r + 1) * v]).abs()
+                        .max() / top).item() for r, p in enumerate(parts)]
+        rec["logit_max"] = top.item()
+        del want
+    del parts
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dist_tp_train(mesh, K, rank, device) -> dict:
+    """(5b) one make_train_step step with AdamW of gemma3-1b at full width
+    cut to DIST_TP_TRAIN_LAYERS layers, fp32, B = 1, S = DIST_TP_TRAIN_SEQ,
+    on the hand flash kernels, tensor-parallel on the ("model",) mesh under
+    train_rules() with the params held as blocks: the loss and every
+    gradient leaf (gathered whole) against the same step in one process
+    (rank 0) on the same weights; then the planted fault, reduce_from's
+    backward made a psum, which must land above the bound."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import (Block, gather_tree, shard_tree,
+                                           train_rules, tree_shardings,
+                                           use_mesh)
+    from repro_torch.models import build_model, module
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    cfg = dataclasses.replace(get_arch(DIST_ARCH),
+                              n_layers=DIST_TP_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    rules, link = train_rules(), mesh.transport
+    batch = batch_at(DataConfig(cfg.vocab_size, DIST_TP_TRAIN_SEQ, 1), 0,
+                     device=device)
+
+    def step(on_mesh):
+        """(loss, the whole gradient tree, launches, wall, staged bytes and
+        seconds, peak) of one step from the seed-0 weights."""
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=device)
+        if on_mesh:
+            params = shard_tree(params, tree_shardings(
+                model.param_specs(), mesh, rules), mesh)
+        grads = []
+
+        class Capture(AdamW):
+            def update(self, g, state, p):
+                grads.append(module.tree_map(
+                    lambda x, q: q.with_local(x) if isinstance(q, Block)
+                    else x, g, p))
+                return super().update(g, state, p)
+
+        opt = Capture(learning_rate=1e-4)
+        state = opt.init(params)
+        fn = make_train_step(model, opt, TrainStepConfig())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if on_mesh:
+            torch.distributed.barrier()
+        host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+        t0 = time.perf_counter()
+        with use_mesh(mesh if on_mesh else None, rules if on_mesh else None):
+            params, state, metrics = fn(params, state, batch)
+            loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        out = {"wall_s": time.perf_counter() - t0,
+               "host_bytes": link.host_bytes - host0[0],
+               "host_s": link.host_s - host0[1],
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "flash": _delta(K, before), "loss": loss}
+        del params, state
+        whole = gather_tree(grads[0]) if on_mesh else grads[0]
+        return out, whole
+
+    rec, got = step(True)
+    _same_on_ranks("the tensor-parallel step's loss", rec["loss"])
+    real = collectives._ReduceFrom.backward
+
+    def psum_backward(ctx, g):
+        return None, None, collectives._all_reduce(g, ctx.mesh, ctx.names)
+
+    collectives._ReduceFrom.backward = staticmethod(psum_backward)
+    try:
+        bad_rec, bad = step(True)
+    finally:
+        collectives._ReduceFrom.backward = real
+    if rank == 0:
+        want_rec, want = step(False)
+        rec["one_process"] = want_rec
+        errs = {path: _rel_err(g, w) for (path, g), (_, w) in zip(
+            _paths(got), _paths(want))}
+        worst = max(errs, key=errs.get)
+        rec["loss_err"] = abs(rec["loss"] - want_rec["loss"]) / abs(
+            want_rec["loss"])
+        rec["grad_err"], rec["grad_worst"] = errs[worst], worst
+        rec["fault_err"] = max(_rel_err(g, w) for g, w in zip(
+            module.leaves(bad), module.leaves(want)))
+        rec["fault_loss"] = bad_rec["loss"]
+    del got, bad
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in _paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _dist_tp_decode(mesh, K, rank, device, ref) -> dict:
+    """(5c) (2b)'s prompts and steps through ``make_prefill_step``/
+    ``make_serve_step`` tensor-parallel on the ("model",) mesh of the
+    ranks under serve_rules(), the params held as blocks, the tokens and
+    the bf16 cache whole: the tokens against (2b)'s one-process run (rank
+    0's ``ref``) by the margin rule."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (serve_rules, shard_tree,
+                                           tree_shardings, use_mesh)
+    from repro_torch.models import build_model
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(get_arch(DIST_ARCH),
+                              n_layers=DIST_DECODE_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    rules, link = serve_rules(), mesh.transport
+    held = shard_tree(model.init_params(torch.Generator().manual_seed(0),
+                                        device=device),
+                      tree_shardings(model.param_specs(), mesh, rules), mesh)
+    prompt = torch.randint(0, cfg.vocab_size, (DIST_DECODE_BATCH,
+                                               DIST_PROMPT),
+                           generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32).to(device)
+    prefill = make_prefill_step(model, DIST_PROMPT + DIST_STEPS)
+    step = make_serve_step(model)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh, rules):
+        tok, cache = prefill(held, {"tokens": prompt})
+        toks = [tok]
+        for i in range(DIST_STEPS):
+            tok, _, cache = step(held, cache, toks[-1], DIST_PROMPT + i)
+            toks.append(tok)
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "host_bytes": link.host_bytes - host0[0],
+           "host_s": link.host_s - host0[1], "flash": _delta(K, before),
+           "tokens": torch.cat(toks, dim=1).tolist()}
+    del cache, held
+    _same_on_ranks("the tensor-parallel decode's tokens", rec["tokens"])
+    if rank == 0:
+        want, rows = ref
+        rec["note"] = _hold_tokens("dist tensor-parallel decode",
+                                   rec["tokens"], want,
+                                   lambda b, j: rows[j][b])
+    return rec
 
 
 def dist_child(argv) -> int:
@@ -4068,9 +4349,16 @@ def dist_child(argv) -> int:
                                  mesh, K, rank)
     del params
     torch.cuda.empty_cache()
-    rep["decode_blocked"] = _dist_decode_blocked(device, rank, world, K)
+    rep["decode_blocked"], ref = _dist_decode_blocked(device, rank, world, K)
     torch.cuda.empty_cache()
     rep["moe"] = _dist_moe(device)
+    torch.cuda.empty_cache()
+    rep["tp_forward"] = _dist_tp_forward(model, tokens, mesh, K, rank, world,
+                                         device)
+    torch.cuda.empty_cache()
+    rep["tp_train"] = _dist_tp_train(mesh, K, rank, device)
+    torch.cuda.empty_cache()
+    rep["tp_decode"] = _dist_tp_decode(mesh, K, rank, device, ref)
     rep["launches"] = launch_counts(K)
     Path(f"{out}.{rank}.json").write_text(json.dumps(rep))
     torch.distributed.destroy_process_group()
@@ -4221,7 +4509,7 @@ def _dist_ranks(counts, card) -> dict:
         raise RuntimeError(f"dist: the bound misses the planted rotation "
                            f"fault ({ring['fault_err']:.3g})")
     dec = r0["decode"]
-    print(f"dist: decode ring, prefill {DIST_PROMPT} + {DIST_STEPS} steps "
+    print(f"dist: decode ring, prefill {DIST_PROMPT} + {DIST_RING_STEPS} steps "
           f"with stream_kv, cache_seq over {DIST_RANKS} ranks: rank 0 wall "
           f"{dec['wall_s']:.2f} s, {dec['host_bytes']} bytes staged in "
           f"{dec['host_s']:.3f} s, flash launches "
@@ -4247,7 +4535,8 @@ def _dist_ranks(counts, card) -> dict:
           f"{moe['aux']:.6f}; {card}")
     if not (moe["err"] <= DIST_MOE_TOL and worst <= DIST_MOE_TOL):
         raise RuntimeError(f"dist: the shard_map MoE {moe}")
-    return {"ring_wall_s": [r["ring"]["wall_s"] for r in reps],
+    tp = _dist_tp_report(reps, card)
+    return {**tp, "ring_wall_s": [r["ring"]["wall_s"] for r in reps],
             "ring_host_bytes": [r["ring"]["host_bytes"] for r in reps],
             "ring_peak_bytes": [r["ring"]["peak_bytes"] for r in reps],
             "blocked_ring_wall_s": [r["ring_blocked"]["wall_s"]
@@ -4261,6 +4550,109 @@ def _dist_ranks(counts, card) -> dict:
             "ring_err": ring["err"], "fault_err": ring["fault_err"],
             "decode_wall_s": dec["wall_s"], "moe_err": moe["err"],
             "moe_grad_err": worst}
+
+
+def _dist_tp_report(reps, card) -> dict:
+    """(5a)-(5c)'s prints and gates over the ranks' reports."""
+    r0 = reps[0]
+    layers = _dist_layers()
+    want_fwd = {"flash_attention": layers}
+    for rep in reps:
+        fwd = rep["tp_forward"]
+        flash = {k: v for k, v in fwd["flash"].items() if v}
+        heads = sorted({tuple(h) for h in fwd["heads"]})
+        print(f"dist: tensor-parallel forward rank {rep['rank']}, "
+              f"{DIST_ARCH} fp32 B=1 S={DIST_SEQ} on a ('model',) mesh of "
+              f"{len(reps)} under train_rules(), params held as blocks: wall "
+              f"{fwd['wall_s']:.2f} s, {fwd['host_bytes']} bytes staged "
+              f"through the host in {fwd['host_s']:.3f} s, peak device "
+              f"memory {fwd['peak_bytes'] / 2**30:.2f} GiB, params held "
+              f"{fwd['held_bytes'] / 2**30:.3f} GiB, logits block "
+              f"{fwd['width']} wide over {fwd['axes']}, flash launches "
+              f"{json.dumps(flash)} at (heads, KV heads) {heads}; {card}")
+        if flash != want_fwd or heads != [(1, 1)]:
+            raise RuntimeError(f"dist: the tensor-parallel forward launched "
+                               f"{flash} at heads {heads} (want {want_fwd} "
+                               f"at one head)")
+    fwd = r0["tp_forward"]
+    print(f"dist: tensor-parallel forward, each rank's vocabulary block "
+          f"against the one-process flash forward's "
+          f"({json.dumps(fwd['one_process_flash'])}): "
+          f"{[float(f'{e:.3g}') for e in fwd['errs']]} of the largest logit "
+          f"{fwd['logit_max']:.4g} (bound {MODEL_TOL['float32']}); the "
+          f"ranks' final hidden states "
+          f"{'bit-equal' if fwd['ranks_bit_equal'] else 'DIFFER'}; {card}")
+    if not fwd["ranks_bit_equal"] or len(fwd["errs"]) != len(reps):
+        raise RuntimeError("dist: the tensor-parallel forward's ranks differ")
+    for e in fwd["errs"]:
+        _gate(DIST_ARCH, "tensor-parallel logits from the flash forward", e,
+              "float32")
+    want_train = {"flash_attention_fwd": DIST_TP_TRAIN_LAYERS,
+                  "flash_attention_bwd_dq": DIST_TP_TRAIN_LAYERS,
+                  "flash_attention_bwd_dkv": DIST_TP_TRAIN_LAYERS}
+    for rep in reps:
+        tr = rep["tp_train"]
+        flash = {k: v for k, v in tr["flash"].items() if v}
+        print(f"dist: tensor-parallel train step rank {rep['rank']}, "
+              f"{DIST_ARCH} at {DIST_TP_TRAIN_LAYERS} of {layers} layers, "
+              f"fp32, B=1 S={DIST_TP_TRAIN_SEQ}, AdamW: wall "
+              f"{tr['wall_s']:.2f} s, {tr['host_bytes']} bytes staged in "
+              f"{tr['host_s']:.3f} s, peak {tr['peak_bytes'] / 2**30:.2f} "
+              f"GiB, loss {tr['loss']:.6f}, flash launches "
+              f"{json.dumps(flash)}; {card}")
+        if flash != want_train:
+            raise RuntimeError(f"dist: the tensor-parallel step launched "
+                               f"{flash}, want {want_train}")
+    tr = r0["tp_train"]
+    one = tr["one_process"]
+    one_flash = {k: v for k, v in one["flash"].items() if v}
+    print(f"dist: tensor-parallel train step against one process (wall "
+          f"{one['wall_s']:.2f} s, peak {one['peak_bytes'] / 2**30:.2f} GiB, "
+          f"flash {json.dumps(one_flash)}): loss {tr['loss_err']:.3g} "
+          f"relative, gradients {tr['grad_err']:.3g} of their leaf's largest "
+          f"magnitude at worst ({tr['grad_worst']}), bound "
+          f"{MODEL_TOL['float32']}; planted fault (reduce_from's backward a "
+          f"psum) {tr['fault_err']:.3g}, its loss {tr['fault_loss']:.6f}; "
+          f"{card}")
+    _gate(DIST_ARCH, "tensor-parallel loss", tr["loss_err"], "float32")
+    _gate(DIST_ARCH, "tensor-parallel gradients", tr["grad_err"], "float32")
+    if one_flash != want_train:
+        raise RuntimeError(f"dist: the one-process step launched {one_flash}")
+    if not tr["fault_err"] > MODEL_TOL["float32"]:
+        raise RuntimeError(f"dist: the bound misses the planted reduce_from "
+                           f"fault ({tr['fault_err']:.3g})")
+    want_dec = {"flash_attention": DIST_DECODE_LAYERS}
+    for rep in reps:
+        dec = rep["tp_decode"]
+        flash = {k: v for k, v in dec["flash"].items() if v}
+        if flash != want_dec:
+            raise RuntimeError(f"dist: the tensor-parallel decode launched "
+                               f"{flash}, want {want_dec}")
+    dec = r0["tp_decode"]
+    print(f"dist: tensor-parallel decode, {DIST_ARCH} at "
+          f"{DIST_DECODE_LAYERS} of {layers} layers, fp32, "
+          f"{DIST_DECODE_BATCH} prompts of {DIST_PROMPT} + {DIST_STEPS} "
+          f"steps through make_prefill_step/make_serve_step on a ('model',) "
+          f"mesh of {len(reps)} under serve_rules(), params held as blocks: "
+          f"rank 0 wall {dec['wall_s']:.2f} s, {dec['host_bytes']} bytes "
+          f"staged in {dec['host_s']:.3f} s, flash launches a rank "
+          f"{json.dumps(want_dec)}; tokens against one process: "
+          f"{dec['note']}; {card}")
+    return {"tp_forward_wall_s": [r["tp_forward"]["wall_s"] for r in reps],
+            "tp_forward_host_bytes": [r["tp_forward"]["host_bytes"]
+                                      for r in reps],
+            "tp_forward_peak_bytes": [r["tp_forward"]["peak_bytes"]
+                                      for r in reps],
+            "tp_forward_err": max(fwd["errs"]),
+            "tp_train_grad_err": tr["grad_err"],
+            "tp_train_fault_err": tr["fault_err"],
+            "tp_decode_wall_s": dec["wall_s"]}
+
+
+def _dist_layers() -> int:
+    from repro_torch.configs import get_arch
+
+    return get_arch(DIST_ARCH).n_layers
 
 
 def _dist_dp_nccl(K, device, card, launcher) -> dict:
@@ -4396,11 +4788,17 @@ DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "per_device_flops",
                "variant")
 DRYRUN_MEMORY_KEYS = ("argument_bytes", "output_bytes", "temp_bytes",
                       "alias_bytes", "total_bytes")
-# GiB a rank with every leaf whole (PR 26's dry-run, before the blocked
+# GiB a rank with every leaf whole (the dry-run before the blocked
 # layout), printed beside the blocked figure
 WHOLE_GIB = {"train_4k": 129.56, "decode_32k": 107.11}
-DECODE_BOUND_GIB = 10.0  # blocked decode_32k at pod16x16 (6.75 GiB sharded)
-TRAIN_CUT_GIB = 10.0     # blocked train_4k at least this below WHOLE_GIB
+# the blocked layout's figures with every activation whole: gates that the
+# tensor-parallel layers raise no cell
+DECODE_BOUND_GIB = {"pod16x16": 8.45, "pod2x16x16": 5.19}
+TRAIN_BOUND_GIB = 97.0          # train_4k at pod16x16 (115.75 whole)
+TRAIN_FLOPS_BOUND = 2.0e14      # train_4k a rank (6.251e14 whole)
+# the JAX package's dry-run of train_4k at pod16x16 on the CPU
+# (``python -m repro.launch.dryrun``): FLOPs and GiB a rank, printed beside
+REFERENCE_TRAIN = (1.874e14, 25.77)
 
 
 def launch_child(argv) -> int:
@@ -4609,8 +5007,10 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
             raise RuntimeError(f"launch: dry-run cell {key} has layout "
                                f"{cell.get('layout')}")
         print(f"launch: dry-run {key}: per rank {mem['total_bytes'] / 2**30:.2f}"
-              f" GiB in the blocked layout (PR 26, every leaf whole: "
-              f"{WHOLE_GIB[shape_name]:.2f} GiB), arguments "
+              f" GiB in the blocked layout (every leaf whole: "
+              f"{WHOLE_GIB[shape_name]:.2f} GiB), "
+              f"{cell['per_device_flops']:.4g} FLOPs, collectives "
+              f"{json.dumps(cell['collective_breakdown'])} bytes, arguments "
               f"{mem['argument_bytes'] / 2**30:.3f} GiB held against "
               f"{mem['sharded_argument_bytes'] / 2**30:.3f} GiB of sharded "
               f"arguments in the reference's layout; model_flops "
@@ -4620,14 +5020,20 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
     gib = {k: v["held"] / 2**30 for k, v in out.items()}
     dec, dec2, train = (gib[f"{LAUNCH_ARCH}|{c}"] for c in (
         "decode_32k|pod16x16", "decode_32k|pod2x16x16", "train_4k|pod16x16"))
-    print(f"launch: blocked layout, per rank: decode_32k {dec:.2f} GiB at "
-          f"pod16x16 (bound {DECODE_BOUND_GIB}), {dec2:.2f} GiB at "
-          f"pod2x16x16; train_4k {train:.2f} GiB, "
-          f"{WHOLE_GIB['train_4k'] - train:.2f} GiB below every leaf whole "
-          f"(at least {TRAIN_CUT_GIB}); {card}")
-    if not (dec < DECODE_BOUND_GIB and dec2 < dec
-            and train <= WHOLE_GIB["train_4k"] - TRAIN_CUT_GIB):
-        raise RuntimeError(f"launch: the blocked figures {gib}")
+    flops = out[f"{LAUNCH_ARCH}|train_4k|pod16x16"]["per_device_flops"]
+    print(f"launch: tensor-parallel layers, per rank: decode_32k {dec:.2f} "
+          f"GiB at pod16x16 (bound {DECODE_BOUND_GIB['pod16x16']}), "
+          f"{dec2:.2f} GiB at pod2x16x16 (bound "
+          f"{DECODE_BOUND_GIB['pod2x16x16']}); train_4k {train:.2f} GiB "
+          f"(bound {TRAIN_BOUND_GIB}) and {flops:.4g} FLOPs (bound "
+          f"{TRAIN_FLOPS_BOUND:.3g}), the JAX package's dry-run "
+          f"{REFERENCE_TRAIN[1]} GiB and {REFERENCE_TRAIN[0]:.4g} FLOPs; "
+          f"{card}")
+    if not (dec <= DECODE_BOUND_GIB["pod16x16"]
+            and dec2 <= DECODE_BOUND_GIB["pod2x16x16"] and dec2 < dec
+            and train <= TRAIN_BOUND_GIB and flops <= TRAIN_FLOPS_BOUND):
+        raise RuntimeError(f"launch: the dry-run figures {gib}, train_4k "
+                           f"FLOPs {flops}")
     skips = [k for k, v in doc.items() if v.get("skipped")]
     if not skips or not all(doc[k]["ok"] and doc[k]["reason"] for k in skips):
         raise RuntimeError(f"launch: skip records {skips}")

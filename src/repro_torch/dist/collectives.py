@@ -28,6 +28,21 @@ rank's gradient the whole, true one:
     ``dist.sharding``'s blocked layout): this rank's block of the
     cotangent.
 
+The tensor-parallel layers (``models``: heads, MLP and vocabulary blocks
+over ``model``, Megatron's layout) keep the same convention, that every
+rank holds the whole true gradient of a tensor every rank holds whole:
+
+  * ``copy_to`` (a whole input entering this rank's block of a
+    column-parallel product): identity forward, a psum of the cotangents
+    backward — each rank's cotangent is its block's share;
+  * ``reduce_from`` (a row-parallel product's partial output): a psum
+    forward, identity backward — the summed output's cotangent is already
+    whole on every rank.  ``psum``'s backward would count it once per rank;
+  * ``split`` (a whole leaf cut to this rank's block at use): the block
+    forward, the all-gather of every rank's block of the cotangent
+    backward, so a whole leaf gets its whole gradient;
+  * ``pmax`` (the cross-entropy's stabiliser): no gradient.
+
 Transport (``mesh.transport``, see ``dist.compat``): under gloo a CUDA
 tensor is copied to host memory and back around each collective and the
 bytes and seconds are counted there; under NCCL tensors go as they are.  A
@@ -89,8 +104,10 @@ def _from_wire(w: torch.Tensor, like: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
-def _all_reduce(t: torch.Tensor, mesh, names: Sequence[str]) -> torch.Tensor:
-    """Sum of ``t`` over the mesh axes ``names`` (a new tensor)."""
+def _all_reduce(t: torch.Tensor, mesh, names: Sequence[str],
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) of ``t`` over the mesh axes ``names`` (a new
+    tensor)."""
     names = [n for n in names if axis_size(mesh, n) > 1]
     if not names:
         return t.clone()
@@ -98,7 +115,7 @@ def _all_reduce(t: torch.Tensor, mesh, names: Sequence[str]) -> torch.Tensor:
     if w is t:
         w = t.clone()
     for name in names:
-        dist.all_reduce(w, group=mesh.get_group(name))
+        dist.all_reduce(w, op=op, group=mesh.get_group(name))
     return _from_wire(w, t, mesh)
 
 
@@ -166,17 +183,23 @@ def _ppermute(tensors: list, mesh, name: str, perm) -> list:
     return _unpack(_from_wire(recv, tensors[0], mesh), tensors)
 
 
+def block_index(mesh, names) -> tuple:
+    """(this rank's block index, the number of blocks) along one spec
+    entry's mesh axes, the first name outermost."""
+    blocks, index = 1, 0
+    for name in names_of(names):
+        size = axis_size(mesh, name)
+        blocks *= size
+        index = index * size + axis_index(mesh, name)
+    return index, blocks
+
+
 def block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec`` (a view)."""
     for dim, entry in enumerate(spec):
-        names = names_of(entry)
-        if not names:
+        if not names_of(entry):
             continue
-        blocks, index = 1, 0
-        for name in names:
-            size = axis_size(mesh, name)
-            blocks *= size
-            index = index * size + axis_index(mesh, name)
+        index, blocks = block_index(mesh, entry)
         length = t.shape[dim] // blocks
         t = t.narrow(dim, index * length, length)
     return t
@@ -260,6 +283,67 @@ class _PSum(torch.autograd.Function):
 def psum(t: torch.Tensor, mesh, names) -> torch.Tensor:
     """``jax.lax.psum`` over one mesh axis or a tuple of them."""
     return _PSum.apply(mesh, names_of(names), t)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, names, t):
+        ctx.mesh, ctx.names = mesh, names
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _all_reduce(g, ctx.mesh, ctx.names)
+
+
+def copy_to(t: torch.Tensor, mesh, names) -> torch.Tensor:
+    """``t`` itself, whose cotangent is psum'd over ``names`` in the
+    backward: put on a whole input that each rank uses for its block of a
+    column-parallel product (module docstring)."""
+    return _CopyTo.apply(mesh, names_of(names), t)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, names, t):
+        ctx.mesh, ctx.names = mesh, names
+        return _all_reduce(t, mesh, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g
+
+
+def reduce_from(t: torch.Tensor, mesh, names) -> torch.Tensor:
+    """The psum of each rank's partial ``t`` over ``names``, whose
+    cotangent passes through unchanged: a row-parallel product's output
+    (module docstring)."""
+    return _ReduceFrom.apply(mesh, names_of(names), t)
+
+
+def pmax(t: torch.Tensor, mesh, names) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``names``, outside autograd."""
+    return _all_reduce(t.detach(), mesh, names_of(names),
+                       op=dist.ReduceOp.MAX)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, t):
+        ctx.mesh, ctx.spec = mesh, spec
+        return block(t, mesh, spec).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _gather_whole(g.contiguous(), ctx.mesh, ctx.spec)
+
+
+def split(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of a whole ``t`` under ``spec`` (a copy), whose
+    backward all-gathers every rank's block of the cotangent: a whole
+    leaf used on this rank's block gets its whole gradient."""
+    return _Split.apply(mesh, tuple(spec), t)
 
 
 def pmean(t: torch.Tensor, mesh, names) -> torch.Tensor:

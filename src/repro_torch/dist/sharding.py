@@ -22,24 +22,40 @@ leaf that its resolved spec splits becomes a :class:`Block`, this rank's
 block of it (``collectives.block``) with the spec and mesh beside it; a
 leaf the spec leaves whole stays a tensor.  Params, AdamW's moments, the
 KV cache and the batch inputs are held so under a mesh.  A block is made
-whole only where it is used (:func:`gather_tree`, an all-gather whose
+whole only where it is used and only along the axes the layer does not
+compute on (:func:`gather_tree`, :func:`take`: an all-gather whose
 backward is this rank's block of the gradient): per layer in the
 transformer stack, inside each checkpointed period, and at the embedding,
 final norm and unembedding.  The gather is exact, so a step over blocks
 gives the values of the same step over whole leaves, bit for bit.  The
 steps take either: whole leaves keep the *global view* (every rank holds
-whole tensors), blocks are used where the caller passes them.  A KV cache
-is blocked over its batch axis only: its heads and sequence stay whole,
-as the activations that write them do.
+whole tensors), blocks are used where the caller passes them.
 
-**Activations keep the global view.**  With no mesh active, or under
-``use_mesh(None, None)``, ``constrain`` is an exact no-op, as in the
-reference.  Under an active mesh (a ``DeviceMesh`` from
-``dist.compat.make_mesh``) it resolves the spec, checks the rank and
-returns ``x`` itself: inside a layer every rank computes whole activations
-(outside the SPMD regions of ``dist.collectives``: the ring, the decode
-ring, the shard_map MoE, the data-parallel steps), where the reference
-computes them tensor-parallel — a recorded departure.
+**Layers compute on this rank's block where the rules split them.**
+With no mesh active, or under ``use_mesh(None, None)``, ``constrain`` is
+an exact no-op, as in the reference.  Under an active mesh (a
+``DeviceMesh`` from ``dist.compat.make_mesh``) it resolves the spec,
+checks the rank and returns ``x`` itself.  The reference's
+``with_sharding_constraint`` makes XLA compute the attention heads, the
+MLP and the vocabulary tensor-parallel over ``model``; the port does the
+same explicitly, Megatron's layout: where :func:`split_axes` (the mesh
+axes the active rules put on one dimension of an activation, after dedup
+and divisibility) names axes for the ``heads``, ``kv_heads``, ``mlp`` or
+``vocab`` dimension, the layer computes on this rank's block
+(``models.attention``, ``models.layers``, the cross-entropy of
+``train.step``), with ``collectives.copy_to`` on its whole input and
+``collectives.reduce_from`` on a row-parallel output.  :func:`take` gives
+the weight block the layer computes with: a :class:`Block` held so is used
+as it is, other axes gathered; a whole leaf is cut at use
+(``collectives.split``), so the global view and the blocked layout run the
+same program.  Where the spec leaves the dimension whole the layer gathers
+its weights and computes whole, as before.  Under ``train_rules(
+seq_parallel=True)`` dedup gives ``model`` to the sequence, so the ring
+path computes every layer whole.  The SSM, xLSTM and MoE cores keep
+whole activations (the MoE's experts are a shard_map region of their own).
+A KV cache is blocked over its batch axis and, where the rules split them,
+its KV heads (:func:`cache_shardings`): the k and v projections write this
+rank's KV heads.
 ``tree_shardings``/``batch_shardings`` give per leaf the resolved spec and
 its DTensor placements.
 """
@@ -207,6 +223,20 @@ def active_rules() -> Optional[ShardingRules]:
     return stack[-1][1] if stack else None
 
 
+def bind_frame(fn):
+    """``fn`` run under the mesh frame active now, wherever it is called:
+    a checkpoint's recompute runs on autograd's device thread on the card,
+    where this thread's frame is not active."""
+    if not _stack():
+        return fn
+    mesh, rules = active_mesh(), active_rules()
+
+    def run(*args, **kwargs):
+        with use_mesh(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
+
+
 def constrain(x, *logical_axes: Optional[str]):
     """``x`` itself: with no mesh active at once; under an active mesh
     after the rank check and the spec's resolution.  Activations keep the
@@ -220,6 +250,23 @@ def constrain(x, *logical_axes: Optional[str]):
                          f"rank-{x.ndim} tensor {tuple(x.shape)}")
     rules.spec(logical_axes, shape=x.shape, mesh=mesh)
     return x
+
+
+def split_axes(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
+               dim: int) -> tuple:
+    """The mesh axes of more than one rank that the active rules put on
+    dimension ``dim`` of a tensor with ``logical_axes`` and ``shape``, after
+    dedup and divisibility (what ``constrain`` resolves); () with no mesh
+    active.  The layers compute on this rank's block of that dimension
+    where it names any."""
+    mesh, rules = active_mesh(), active_rules()
+    if mesh is None or rules is None:
+        return ()
+    sizes = _axis_sizes(mesh)
+    entry = rules.spec(logical_axes, shape=shape, mesh=mesh)[dim]
+    if not any(sizes[n] > 1 for n in names_of(entry)):
+        return ()
+    return names_of(entry)
 
 
 # --------------------------------------------------------------------------
@@ -264,14 +311,15 @@ def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
 
 def cache_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     """A :class:`Sharding` per leaf of a cache's ParamSpec tree in the
-    blocked layout: the entry of its "batch" dimension only (module
-    docstring)."""
+    blocked layout: the entries of its "batch" and "kv_heads" dimensions
+    only (module docstring); the sequence, and recurrent state, stay
+    whole."""
     from repro_torch.models.module import tree_map
 
     def one(spec):
         axes = spec.logical_axes or (None,) * len(spec.shape)
         resolved = _sharding(axes, spec.shape, mesh, rules).spec
-        return _placed(tuple(e if ax == "batch" else None
+        return _placed(tuple(e if ax in ("batch", "kv_heads") else None
                              for e, ax in zip(resolved, axes)), mesh)
 
     return tree_map(one, tree)
@@ -404,6 +452,34 @@ def gather_tree(tree: Any) -> Any:
     return _map(lambda leaf: collectives.gather(leaf.local, leaf.mesh,
                                                 leaf.spec)
                 if isinstance(leaf, Block) else leaf, tree)
+
+
+def whole_shape(leaf) -> tuple:
+    """The whole leaf's shape, for a Block or a tensor."""
+    return leaf.whole_shape() if isinstance(leaf, Block) else tuple(leaf.shape)
+
+
+def take(leaf, dim: Optional[int] = None, axes: tuple = ()):
+    """The tensor a layer computes with for one param leaf: with ``axes``
+    (the active mesh's, :func:`split_axes`) this rank's block of dimension
+    ``dim`` over them, whole along every other dimension; without, the
+    whole leaf.  A :class:`Block` held over exactly those axes there is
+    used as it is, its other axes gathered (``collectives.gather``); a
+    Block held otherwise is gathered whole first; a whole tensor is cut to
+    its block (``collectives.split``: its backward all-gathers the
+    gradient)."""
+    if isinstance(leaf, Block):
+        spec = leaf.spec
+        if axes and tuple(names_of(spec[dim])) == tuple(axes):
+            rest = tuple(None if i == dim else e for i, e in enumerate(spec))
+            if not any(names_of(e) for e in rest):
+                return leaf.local
+            return collectives.gather(leaf.local, leaf.mesh, rest)
+        leaf = collectives.gather(leaf.local, leaf.mesh, spec)
+    if not axes:
+        return leaf
+    spec = tuple(tuple(axes) if i == dim else None for i in range(leaf.ndim))
+    return collectives.split(leaf, active_mesh(), spec)
 
 
 def held_batch_shardings(batch_specs: Mapping[str, Any], mesh,

@@ -28,8 +28,12 @@ reaches its Pallas kernel either.
 **Memory as the port holds it.**  The cell's arguments are the blocked
 layout's (``dist.sharding``, ``layout: "blocked"`` in the result): each
 param and AdamW moment is this rank's block under its ``tree_shardings``
-spec, the KV cache and the batch this rank's rows; each layer gathers its
-params where it uses them, and activations stay whole.
+spec, the KV cache this rank's rows and, where the rules split them, its
+KV heads (``cache_shardings``), and the batch this rank's rows.  Where the
+rules split the heads, the MLP or the vocabulary over ``model``, those
+layers compute on this rank's block of weights and activations, as the
+reference's SPMD program does; every other layer gathers its params where
+it uses them and computes whole.
 ``memory_per_device_bytes["total_bytes"]`` is the peak of one rank's live
 storages over the step, arguments included.  Beside it,
 ``sharded_argument_bytes`` is the reference's sharded argument figure:
@@ -352,7 +356,8 @@ def build_cell(arch_name: str, shape_name: str, mesh, *,
     """Returns (fn, arg_shapes, in_shardings, out_shardings, donate, model,
     shape): ``arg_shapes`` are this rank's blocks as meta tensors (no
     allocation; ``dist.sharding.Block`` where a spec splits a leaf, the
-    cache and the batch split over their batch dimension only), the
+    batch split over its batch dimension, the cache over its batch and
+    KV heads: ``cache_shardings``), the
     shardings the reference's ``dist.sharding.Sharding`` trees, ``donate``
     the arguments the step writes in place.
 

@@ -22,6 +22,22 @@ branch is ``dist.ring_attention.ring_attention`` instead (k and v
 expanded), and the decode step with ``stream_kv`` reads the cache through
 ``ring_decode``, as in the reference.
 
+**Heads over the mesh.**  Under an active mesh whose rules put ``model``
+(or any axes) on the ``heads`` dimension of q (``dist.sharding.
+split_axes``), the layer computes this rank's heads, as the reference's
+SPMD program does: q (and k, v where the rules split the KV heads too) is
+a column-parallel product on this rank's block of the weights, the
+attention runs on the local heads (the flash kernel included), and ``wo``
+is a row-parallel product whose partial output is summed over the axes
+(``collectives.reduce_from``).  Where the KV heads stay whole (fewer KV
+heads than ranks), every rank projects them whole and its q heads read
+their group's one KV head (:func:`_kv_for_heads`); ``collectives.copy_to``
+on k and v then sums the ranks' shares of their gradient.  The ring
+(``ring=True`` where it splits the sequence) and the decode ring
+(``stream_kv``) compute every head on every rank, as before.  The decode
+step attends on the local heads where the reference gathers q whole
+(``heads_act``): the same values, other collectives.
+
 The torch paths keep the JAX order of work: scores in q's type, then fp32;
 the probabilities cast back to q's type before the product with v.
 ``attention_decode_step`` writes the new token's k and v into the cache
@@ -36,9 +52,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
 from repro_torch.dist.masking import NEG_INF, PAD_SENTINEL, mask_bias
 from repro_torch.dist.ring_attention import ring_attention, ring_decode
-from repro_torch.dist.sharding import _axis_sizes, active_mesh, constrain
+from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
+                                       split_axes, take)
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import rope
@@ -63,22 +81,71 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         -1, (h, k))
 
 
-def _project_qkv(cfg, params, x, kv_src=None):
+def head_axes(cfg: ArchConfig, b: int, s: int) -> tuple:
+    """(the mesh axes q's heads are split over, those of the KV heads) for
+    activations of ``b`` x ``s`` positions under the active rules; ((), ())
+    where the heads stay whole.  The KV heads are split only over the
+    heads' axes."""
+    hd = cfg.resolved_head_dim
+    heads = split_axes(("batch", "seq", "heads", "head_dim"),
+                       (b, s, cfg.n_heads, hd), 2)
+    if not heads:
+        return (), ()
+    kv = split_axes(("batch", "seq", "kv_heads", "head_dim"),
+                    (b, s, cfg.n_kv_heads, hd), 2)
+    return heads, (kv if kv == heads else ())
+
+
+def _kv_for_heads(k: torch.Tensor, n_heads: int, axes: tuple) -> torch.Tensor:
+    """The one KV head of whole k [B,T,KV,D] that this rank's q heads (its
+    block over ``axes`` of ``n_heads``) read, as [B,T,1,D]: where the KV
+    heads stay whole (KV not divisible by the ranks) and the heads split,
+    each rank's heads lie in one group."""
+    index, blocks = collectives.block_index(active_mesh(), axes)
+    local = n_heads // blocks
+    group = n_heads // k.shape[2]
+    if group % local:
+        raise ValueError(f"attention: {local} heads a rank span KV groups of "
+                         f"{group}")
+    first = index * local // group
+    return k[:, :, first:first + 1]
+
+
+def _project_qkv(cfg, params, x, kv_src=None, axes=((), ())):
+    """q, k, v; with ``axes`` (:func:`head_axes`) q on this rank's heads,
+    k and v on its KV heads where those are split, else whole."""
     kv_src = x if kv_src is None else kv_src
-    q = _project(x, params["wq"])
-    k = _project(kv_src, params["wk"])
-    v = _project(kv_src, params["wv"])
+    heads, kv_axes = axes
+    if heads:
+        mesh = active_mesh()
+        q = _project(collectives.copy_to(x, mesh, heads),
+                     take(params["wq"], 1, heads))
+        if kv_axes:
+            src = collectives.copy_to(kv_src, mesh, heads)
+            k = _project(src, take(params["wk"], 1, kv_axes))
+            v = _project(src, take(params["wv"], 1, kv_axes))
+        else:
+            k = collectives.copy_to(_project(kv_src, take(params["wk"])),
+                                    mesh, heads)
+            v = collectives.copy_to(_project(kv_src, take(params["wv"])),
+                                    mesh, heads)
+    else:
+        q = _project(x, take(params["wq"]))
+        k = _project(kv_src, take(params["wk"]))
+        v = _project(kv_src, take(params["wv"]))
     q = constrain(q, "batch", "seq", "heads", "head_dim")
     k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
     v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
-    """einsum("bshd,hdk->bsk") as one product in ``dtype``."""
+def _out_proj(out: torch.Tensor, wo, dtype, heads: tuple = ()) -> torch.Tensor:
+    """einsum("bshd,hdk->bsk") as one product in ``dtype``; with ``heads``
+    the row-parallel product of this rank's heads, summed over them."""
+    wo = take(wo, 0, heads)
     h, hd, d = wo.shape
-    return torch.matmul(out.to(dtype).flatten(-2),
-                        wo.to(dtype).reshape(h * hd, d))
+    y = torch.matmul(out.to(dtype).flatten(-2), wo.to(dtype).reshape(h * hd, d))
+    return collectives.reduce_from(y, active_mesh(), heads) if heads else y
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -271,7 +338,9 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     branch runs the hand kernel on a CUDA tensor unless ``use_kernel`` is
     False (module docstring)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, params, x, kv_src)
+    ring_mesh = _ring_mesh(s) if ring and kv_src is None else None
+    axes = ((), ()) if ring_mesh is not None else head_axes(cfg, b, s)
+    q, k, v = _project_qkv(cfg, params, x, kv_src, axes)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if use_rope:
@@ -280,23 +349,26 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
             k.shape[1], device=x.device)[None, :]
         k = rope(k, kv_pos, cfg.rope_theta)
     kv = (k, v)
-    ring_mesh = _ring_mesh(s) if ring and kv_src is None else None
+    heads, kv_axes = axes
+    if heads and not kv_axes:
+        k, v = (_kv_for_heads(t, cfg.n_heads, heads) for t in (k, v))
+    h = q.shape[2]
     if local_block and window > 0 and causal and s > window:
-        out = attend_local(q, _expand_kv(k, cfg.n_heads),
-                           _expand_kv(v, cfg.n_heads), window=window)
+        out = attend_local(q, _expand_kv(k, h), _expand_kv(v, h),
+                           window=window)
     elif ring_mesh is not None:
-        out = ring_attention(q, _expand_kv(k, cfg.n_heads),
-                             _expand_kv(v, cfg.n_heads), mesh=ring_mesh,
-                             axis_name="model", causal=causal, window=window)
+        out = ring_attention(q, _expand_kv(k, h), _expand_kv(v, h),
+                             mesh=ring_mesh, axis_name="model", causal=causal,
+                             window=window)
     else:
         if use_kernel and on_cuda(q, k, v):
             out = _attend_kernel(q, k, v, causal=causal, window=window)
         else:
-            out = attend_chunked(q, _expand_kv(k, cfg.n_heads),
-                                 _expand_kv(v, cfg.n_heads), causal=causal,
-                                 window=window, k_chunk=k_chunk)
+            out = attend_chunked(q, _expand_kv(k, h), _expand_kv(v, h),
+                                 causal=causal, window=window,
+                                 k_chunk=k_chunk)
     out = constrain(out, "batch", "seq", "heads", "head_dim")
-    y = _out_proj(out, params["wo"], x.dtype)
+    y = _out_proj(out, params["wo"], x.dtype, heads)
     y = constrain(y, "batch", "seq", "embed")
     if return_kv:
         return y, kv
@@ -316,17 +388,17 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
     ring (``dist.ring_attention.ring_decode``): with ``serve_rules(
     long_context=True)`` each rank reads its ``cache_seq`` shard and only
     softmax stats travel; with no mesh active it is the dense
-    ``attend_decode``, as in the reference."""
+    ``attend_decode``, as in the reference.  Where the rules split the
+    heads (module docstring) the cache holds either every KV head or this
+    rank's block of them (``dist.sharding.cache_shardings``), told apart
+    by its shape."""
     dtype = x.dtype
     index = int(cache_index)
-    q = _project(x, params["wq"])
-    k_new = _project(x, params["wk"])
-    v_new = _project(x, params["wv"])
-    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    axes = ((), ()) if stream_kv else head_axes(cfg, x.shape[0], 1)
+    heads, kv_axes = axes
+    q, k_new, v_new = _project_qkv(cfg, params, x, axes=axes)
     q = constrain(q, "batch", "seq", "heads_act", "head_dim")
-    k_new = constrain(k_new, "batch", "seq", "kv_heads", "head_dim")
     k_new = constrain(k_new, "batch", "seq", "kv_heads_act", "head_dim")
-    v_new = constrain(v_new, "batch", "seq", "kv_heads", "head_dim")
     v_new = constrain(v_new, "batch", "seq", "kv_heads_act", "head_dim")
     pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
                      device=x.device)
@@ -336,15 +408,30 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
+    # a cache of every KV head where this rank projects only its own: the
+    # whole token is written and this rank's block read
+    whole = bool(kv_axes) and k_cache.shape[2] != k_new.shape[2]
     if update_cache:
+        if whole:
+            spec = (None, None, kv_axes, None)
+            mesh = active_mesh()
+            k_new = collectives._gather_whole(k_new, mesh, spec)
+            v_new = collectives._gather_whole(v_new, mesh, spec)
         # one token slice of each cache, written in place
         k_cache[:, index:index + 1] = k_new.to(k_cache.dtype)
         v_cache[:, index:index + 1] = v_new.to(v_cache.dtype)
+    if whole:
+        spec = (None, None, kv_axes, None)
+        k_cache, v_cache = (collectives.block(c, active_mesh(), spec)
+                            for c in (k_cache, v_cache))
+    elif heads and not kv_axes:
+        k_cache, v_cache = (_kv_for_heads(c, cfg.n_heads, heads)
+                            for c in (k_cache, v_cache))
     if stream_kv:
         out = ring_decode(q, k_cache.to(dtype), v_cache.to(dtype), index,
                           window=window, start=start)
     else:
         out = attend_decode(q, k_cache.to(dtype), v_cache.to(dtype), index,
                             window=window, start=start)
-    y = _out_proj(out, params["wo"], dtype)
+    y = _out_proj(out, params["wo"], dtype, heads)
     return y, cache

@@ -5,6 +5,15 @@ All layers are (spec-builder, apply-fn) pairs over ParamSpec trees; compute
 is carried out in ``cfg.compute_dtype`` (bf16 by default) with fp32 master
 parameters.  ``gelu`` is the tanh approximation, as ``jax.nn.gelu``'s
 default is (plain ``F.gelu`` is the erf form, another function).
+
+Under an active mesh whose rules split the ``mlp`` or ``vocab`` dimension
+(``dist.sharding.split_axes``) the MLP, the embedding and the unembedding
+compute on this rank's block, as the reference's SPMD program does: the
+MLP's up products column-parallel and its down product row-parallel with
+the partial sums added over the axes; the embedding looks up the tokens in
+this rank's vocabulary rows, zeroes the others and sums over the axes; the
+unembedding returns this rank's vocabulary block of the logits.  Params may
+be blocks (``dist.sharding.Block``); ``take`` gives the block a layer uses.
 """
 from __future__ import annotations
 
@@ -12,7 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (active_mesh, constrain, split_axes,
+                                       take, whole_shape)
 from repro_torch.models.module import ParamSpec
 
 
@@ -92,16 +103,40 @@ def embedding_spec(vocab: int, d: int) -> dict:
                                init="embed", init_scale=d ** -0.5)}
 
 
+def vocab_axes(b: int, s: int, vocab: int) -> tuple:
+    """The mesh axes the active rules split the vocabulary of [b, s]
+    logits over; () where it stays whole."""
+    return split_axes(("batch", "seq", "vocab"), (b, s, vocab), 2)
+
+
 def embed(params: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     # gather, then cast: the reference casts the whole table first, which
     # gives the same numbers
-    out = params["table"][tokens.long()].to(compute_dtype)
+    table = params["table"]
+    axes = vocab_axes(*tokens.shape, whole_shape(table)[0])
+    if not axes:
+        out = take(table)[tokens.long()].to(compute_dtype)
+        return constrain(out, "batch", "seq", "embed")
+    mesh = active_mesh()
+    rows = take(table, 0, axes)
+    index, _ = collectives.block_index(mesh, axes)
+    local = tokens.long() - index * rows.shape[0]
+    mine = (local >= 0) & (local < rows.shape[0])
+    # one rank holds each token's row, the others add exact zeros
+    part = torch.where(mine[..., None], rows[torch.where(mine, local, 0)], 0)
+    out = collectives.reduce_from(part, mesh, axes).to(compute_dtype)
     return constrain(out, "batch", "seq", "embed")
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 (loss stability); table shared with embed when tied."""
-    logits = torch.matmul(x.float(), params["table"].float().t())
+    """Logits in fp32 (loss stability); table shared with embed when tied.
+    Under a split vocabulary, this rank's block of them."""
+    table = params["table"]
+    axes = vocab_axes(*x.shape[:-1], whole_shape(table)[0])
+    x32 = x.float()
+    if axes:
+        x32 = collectives.copy_to(x32, active_mesh(), axes)
+    logits = torch.matmul(x32, take(table, 0, axes).float().t())
     return constrain(logits, "batch", "seq", "vocab")
 
 
@@ -125,12 +160,18 @@ def mlp_spec(kind: str, d: int, d_ff: int) -> dict:
 
 def mlp(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
+    d_ff = whole_shape(params["w_up"])[1]
+    axes = split_axes(("batch", "seq", "mlp"), (*x.shape[:-1], d_ff),
+                      x.ndim - 1)
+    mesh = active_mesh()
+    if axes:
+        x = collectives.copy_to(x, mesh, axes)
     if kind in ("swiglu", "geglu"):
-        g = torch.matmul(x, params["w_gate"].to(dtype))
-        u = torch.matmul(x, params["w_up"].to(dtype))
+        g = torch.matmul(x, take(params["w_gate"], 1, axes).to(dtype))
+        u = torch.matmul(x, take(params["w_up"], 1, axes).to(dtype))
         h = (F.silu(g) if kind == "swiglu" else gelu(g)) * u
     else:
-        h = torch.matmul(x, params["w_up"].to(dtype))
+        h = torch.matmul(x, take(params["w_up"], 1, axes).to(dtype))
         if kind == "squared_relu":
             h = torch.relu(h).square()
         elif kind == "gelu":
@@ -138,7 +179,9 @@ def mlp(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
         else:
             raise ValueError(f"unknown mlp kind {kind}")
     h = constrain(h, "batch", "seq", "mlp")
-    out = torch.matmul(h, params["w_down"].to(dtype))
+    out = torch.matmul(h, take(params["w_down"], 0, axes).to(dtype))
+    if axes:
+        out = collectives.reduce_from(out, mesh, axes)
     return constrain(out, "batch", "seq", "embed")
 
 

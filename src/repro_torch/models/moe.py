@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import _axis_sizes, active_mesh, constrain
+from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
+                                       use_mesh)
 from repro_torch.models.layers import gelu, mlp, mlp_spec
 from repro_torch.models.module import ParamSpec
 
@@ -49,9 +50,12 @@ def _act(cfg: ArchConfig, g: torch.Tensor) -> torch.Tensor:
 
 
 def _shared(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The shared expert's output [B*S, d] in fp32."""
+    """The shared expert's output [B*S, d] in fp32, computed whole on every
+    rank (no frame: ``mlp`` splits nothing), as the experts around it."""
     kind = cfg.mlp_kind if cfg.mlp_kind != "geglu" else "swiglu"
-    return mlp(kind, params["shared"], x).reshape(-1, x.shape[-1]).float()
+    with use_mesh(None, None):
+        y = mlp(kind, params["shared"], x)
+    return y.reshape(-1, x.shape[-1]).float()
 
 
 def _route(cfg: ArchConfig, router_w, x_flat):

@@ -14,8 +14,13 @@ layers' chunked branch through the hand flash-attention kernel on a CUDA
 tensor (``use_kernel=False``: the plain ``attend_chunked``).
 
 Params may be held as blocks (``dist.sharding.Block``, a mesh's blocked
-layout): the embedding, the learned positions, the final norms and the
-unembedding are gathered where they are used, the layers by the stack.
+layout): the learned positions and the final norms are gathered where
+they are used, the layers by the stack.  The embedding and the
+unembedding take their table's vocabulary block where the active rules
+split the vocabulary (``models.layers``): ``forward``, ``prefill`` and
+``decode_step`` then return this rank's block of the logits
+(:meth:`Model.vocab_axes` names the axes), and ``unembed_table`` this
+rank's rows of the table.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, torch_dtype
-from repro_torch.dist.sharding import constrain, gather_tree
+from repro_torch.dist.sharding import constrain, gather_tree, take
 from repro_torch.models import module
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import apply_norm, embed, embedding_spec, norm_spec, unembed
+from repro_torch.models.layers import (apply_norm, embed, embedding_spec,
+                                       norm_spec, unembed, vocab_axes)
 from repro_torch.models.module import ParamSpec
 
 
@@ -116,7 +122,7 @@ class Model:
         """Token embeddings, the patches prepended, learned positions
         added."""
         cfg = self.cfg
-        x = embed(gather_tree(params["embed"]), batch["tokens"], dtype)
+        x = embed(params["embed"], batch["tokens"], dtype)
         if cfg.frontend == "patch" and "patches" in batch:
             x = torch.cat([batch["patches"].to(dtype), x], dim=1)
             x = constrain(x, "batch", "seq", "embed")
@@ -130,7 +136,8 @@ class Model:
                 k_chunk: int = 1024, local_block: bool = False,
                 ring: bool = False, remat_policy: str = "full",
                 return_hidden: bool = False, use_kernel: bool = True) -> tuple:
-        """Returns (logits [B,S,V], aux_loss) — or the final hidden states
+        """Returns (logits [B,S,V] — this rank's vocabulary block under a
+        split, module docstring —, aux_loss), or the final hidden states
         [B,S,d] with ``return_hidden``."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
@@ -156,10 +163,19 @@ class Model:
                           impl=cfg.norm_impl)
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return unembed(gather_tree(params.get("unembed", params["embed"])), x)
+        return unembed(params.get("unembed", params["embed"]), x)
 
-    def unembed_table(self, params: dict) -> torch.Tensor:
-        return gather_tree(params.get("unembed", params["embed"]))["table"]
+    def vocab_axes(self, b: int, s: int) -> tuple:
+        """The mesh axes the active rules split the vocabulary of [b, s]
+        logits over (this rank's block is the ``index``-th of their
+        ranks' product, ``collectives.block_index``); () for whole
+        logits."""
+        return vocab_axes(b, s, self.cfg.vocab_size)
+
+    def unembed_table(self, params: dict, axes: tuple = ()) -> torch.Tensor:
+        """The unembedding table: whole, or this rank's vocabulary rows
+        over ``axes`` (:meth:`vocab_axes`)."""
+        return take(params.get("unembed", params["embed"])["table"], 0, axes)
 
     # -- prefill: forward + populate decode cache ----------------------------
     def prefill(self, params: dict, batch: dict, max_seq: int, *,
@@ -188,7 +204,7 @@ class Model:
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         index = int(cache_index)
-        x = embed(gather_tree(params["embed"]), tokens, dtype)
+        x = embed(params["embed"], tokens, dtype)
         if cfg.positional == "learned":
             table = gather_tree(params["pos_embed"])["table"]
             x = x + table[index:index + 1].to(dtype)[None]

@@ -10,11 +10,15 @@ each stacked leaf per period.  The same structure drives ``forward``
 (train/prefill) and ``decode_step`` (KV-cache/state decode).
 
 ``remat`` (and ``remat_policy``) wrap each period in
-``torch.utils.checkpoint`` under autograd; without a gradient they change
-no number.  A layer's params may be held as blocks
+``torch.utils.checkpoint`` under autograd, the recompute under the mesh
+frame of the forward (``dist.sharding.bind_frame``); without a gradient
+they change no number.  A layer's params may be held as blocks
 (``dist.sharding.Block``): each layer gathers its own just before it runs
 (inside the checkpointed period, so the recompute gathers them again and
-no whole weight outlives its layer).  ``stack_decode`` updates the cache it is given in place and
+no whole weight outlives its layer).  The attention and MLP weights are
+gathered only along the axes the layer does not compute on: under a mesh
+that splits their heads or ``mlp`` dimension they compute on this rank's
+block (``models.attention``, ``models.layers``, :func:`_held`).  ``stack_decode`` updates the cache it is given in place and
 returns it: each layer writes one token slice of its KV cache and its
 recurrent state into the stacked tensors, never a copy of the cache.
 """
@@ -27,7 +31,7 @@ import torch
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import gather_tree
+from repro_torch.dist.sharding import bind_frame, gather_tree
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -128,6 +132,17 @@ def _ffn(cfg, kind, params, x):
         h2 = apply_norm(cfg.norm_kind, params["norm2"], x, impl=cfg.norm_impl)
         x = x + mlp(cfg.mlp_kind, params["mlp"], h2)
     return x, None
+
+
+# the sub-trees whose layers take their own weight blocks
+_TAKEN = ("attn", "cross", "mlp")
+
+
+def _held(params: dict) -> dict:
+    """One block's params as its layers use them: the attention and MLP
+    leaves as they are held (each layer takes the block it computes on,
+    ``dist.sharding.take``), every other leaf whole (``gather_tree``)."""
+    return {k: v if k in _TAKEN else gather_tree(v) for k, v in params.items()}
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -331,7 +346,7 @@ def _checkpointed(body, remat_policy: str):
             checkpoint.create_selective_checkpoint_contexts, policy)
 
     def run(x, period_params):
-        return checkpoint.checkpoint(body, x, period_params,
+        return checkpoint.checkpoint(bind_frame(body), x, period_params,
                                      use_reentrant=False,
                                      context_fn=context_fn)
     return run
@@ -354,7 +369,7 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
             if f"p{i}" not in period_params:
                 continue
             x, aux = block_forward(cfg, kind,
-                                   gather_tree(period_params[f"p{i}"]), x,
+                                   _held(period_params[f"p{i}"]), x,
                                    **kw)
             aux_p = aux_p + aux
         return x, aux_p
@@ -371,7 +386,7 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     # tail layers continue the pattern: layer full*period + i has pattern
     # position i (full*period % period == 0)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
-        x, aux = block_forward(cfg, _tail_kind(cfg, i), gather_tree(p), x,
+        x, aux = block_forward(cfg, _tail_kind(cfg, i), _held(p), x,
                                **kw)
         aux_total = aux_total + aux
     return x, aux_total
@@ -395,14 +410,14 @@ def stack_prefill(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
             if key not in period_params:
                 continue
             x, period_cache[key] = block_prefill(
-                cfg, kind, gather_tree(period_params[key]), x, **kw)
+                cfg, kind, _held(period_params[key]), x, **kw)
         periods.append(period_cache)
     if periods:
         cache["scan"] = tree_map(lambda *leaves: torch.stack(leaves),
                                  *periods)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
         x, cache["tail"][key] = block_prefill(cfg, _tail_kind(cfg, i),
-                                              gather_tree(p), x, **kw)
+                                              _held(p), x, **kw)
     return x, cache
 
 
@@ -431,12 +446,12 @@ def stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,
                 continue
             layer_cache = _period(cache["scan"][key], li)
             x, c_new = block_decode(cfg, kind,
-                                    gather_tree(period_params[key]), x,
+                                    _held(period_params[key]), x,
                                     layer_cache, cache_index, **kw)
             _write_back(layer_cache, c_new)
     for i, (key, p) in enumerate(sorted(params.get("tail", {}).items())):
         layer_cache = cache["tail"][key]
-        x, c_new = block_decode(cfg, _tail_kind(cfg, i), gather_tree(p), x,
+        x, c_new = block_decode(cfg, _tail_kind(cfg, i), _held(p), x,
                                 layer_cache, cache_index, **kw)
         _write_back(layer_cache, c_new)
     return x, cache

@@ -18,6 +18,14 @@ blocked cache; with whole tokens the prefill returns the whole cache, and
 a decode step writes every rank's rows into a whole cache (the global
 view: its rows are all-gathered each step).
 
+Where the active rules split the vocabulary or the heads
+(``dist.sharding`` module docstring), the model returns this rank's
+vocabulary block of the logits and writes this rank's KV heads: both
+steps gather the [B, 1, V] rows whole before sampling (the returned
+logits are whole, as the reference's), and the prefill returns the KV
+heads whole, or, for blocked tokens, the cache blocked over its batch
+and, where ``cache_shardings`` splits them, its KV heads.
+
 Sampling with a temperature draws from ``softmax(logits / T)`` through
 ``torch.multinomial`` with an explicit ``torch.Generator``: the reference's
 ``jax.random.categorical`` draws from the same distribution, but not the
@@ -32,8 +40,9 @@ import torch
 
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
-                                       batch_shardings, local_batch,
-                                       use_mesh)
+                                       batch_shardings, cache_shardings,
+                                       local, local_batch, use_mesh)
+from repro_torch.models.attention import head_axes
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 
@@ -78,17 +87,51 @@ def _rest(mesh, entry):
                                  if n not in names])
 
 
-def _cache_specs(model: Model, cache, entry):
+def _whole(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    return collectives._gather_whole(t, mesh, spec)
+
+
+def _entry(axes: tuple):
+    """A spec entry for ``axes``: None, one name, or a tuple of names."""
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _whole_vocab(model: Model, logits: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, S', V] logits whole from this rank's vocabulary block of a step
+    over ``s`` positions, under the frame the model ran in."""
+    axes = model.vocab_axes(logits.shape[0], s) \
+        if active_mesh() is not None else ()
+    if not axes:
+        return logits
+    return _whole(logits, active_mesh(), (None, None, _entry(axes)))
+
+
+def _cache_specs(model: Model, cache, rows, kv=None):
     """Per cache leaf, the spec that splits its batch dimension over
-    ``entry`` (the dimension named "batch" in ``model.cache_specs``)."""
+    ``rows`` and its KV heads over ``kv`` (the dimensions named "batch"
+    and "kv_heads" in ``model.cache_specs``)."""
     def one(leaf, spec):
-        dim = spec.logical_axes.index("batch")
-        return (None,) * dim + (entry,) + (None,) * (leaf.ndim - dim - 1)
+        return tuple(rows if ax == "batch" else kv if ax == "kv_heads"
+                     else None for ax in spec.logical_axes)
     return tree_map(one, cache, model.cache_specs(1, 1))
 
 
-def _whole(t: torch.Tensor, mesh, spec) -> torch.Tensor:
-    return collectives._gather_whole(t, mesh, spec)
+def _prefill_cache(model: Model, cache, mesh, held, specs, rules, shape):
+    """The prefill's cache (this rank's block under ``specs``) as the
+    caller holds it: whole, or (``held``: blocked tokens) blocked as
+    ``cache_shardings`` puts it over a cache of ``shape`` (batch,
+    max_seq)."""
+    if not held:
+        return tree_map(lambda c, spec: _whole(c, mesh, spec), cache, specs)
+    target = tree_map(lambda sh: sh.spec, cache_shardings(
+        model.cache_specs(*shape), mesh, rules))
+
+    def one(c, spec, want):
+        if spec != want:
+            c = collectives.block(_whole(c, mesh, spec), mesh, want).clone(
+                memory_format=torch.contiguous_format)
+        return Block(c, want, mesh)
+    return tree_map(one, cache, specs, target)
 
 
 def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
@@ -99,8 +142,9 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
     def serve_step(params, cache, tokens, cache_index):
         region = _region(tokens)
         if region is None:
-            logits, cache = model.decode_step(params, cache, tokens,
-                                              cache_index)
+            logits, _ = model.decode_step(params, tree_map(local, cache),
+                                          tokens, cache_index)
+            logits = _whole_vocab(model, logits, 1)
             next_tokens = sample(logits, None, cfg.temperature)
             return next_tokens, logits, cache
         mesh, rules, entry = region
@@ -114,6 +158,7 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
         rest = _rest(mesh, entry)
         with use_mesh(rest, rules if rest is not None else None):
             logits, _ = model.decode_step(params, views, part, cache_index)
+            logits = _whole_vocab(model, logits, 1)
             next_tokens = sample(logits, None, cfg.temperature)
         for c, v, spec in zip(leaves(cache), leaves(views), leaves(specs)):
             if not isinstance(c, Block):       # the global view's rows
@@ -130,28 +175,39 @@ def make_prefill_step(model: Model, max_seq: int,
     len(tokens)).  Under a mesh that splits the batch, a data-parallel
     region (module docstring)."""
 
+    def run(params, batch):
+        """(the first tokens, the cache, the KV heads' spec entry) under
+        the active frame."""
+        b, s = batch["tokens"].shape
+        logits, cache = model.prefill(params, batch, max_seq,
+                                      k_chunk=cfg.k_chunk)
+        last = _whole_vocab(model, logits[:, -1:], s)
+        del logits
+        kv = (_entry(head_axes(model.cfg, b, s)[1])
+              if active_mesh() is not None else None)
+        return sample(last, None, cfg.temperature), cache, kv
+
     def prefill_step(params, batch):
         region = _region(batch["tokens"])
         if region is None:
-            logits, cache = model.prefill(params, batch, max_seq,
-                                          k_chunk=cfg.k_chunk)
-            next_tokens = sample(logits[:, -1:], None, cfg.temperature)
+            next_tokens, cache, kv = run(params, batch)
+            if kv is not None:
+                cache = _prefill_cache(model, cache, active_mesh(), False,
+                                       _cache_specs(model, cache, None, kv),
+                                       None, None)
             return next_tokens, cache
         mesh, rules, entry = region
         part, _ = local_batch(batch, mesh, rules)
         rest = _rest(mesh, entry)
         with use_mesh(rest, rules if rest is not None else None):
-            logits, cache = model.prefill(params, part, max_seq,
-                                          k_chunk=cfg.k_chunk)
-            next_tokens = sample(logits[:, -1:], None, cfg.temperature)
-        del logits
-        specs = _cache_specs(model, cache, entry)
-        if isinstance(batch["tokens"], Block):
-            cache = tree_map(lambda c, spec: Block(c, spec, mesh), cache,
-                             specs)
-        else:
-            cache = tree_map(lambda c, spec: _whole(c, mesh, spec), cache,
-                             specs)
+            next_tokens, cache, kv = run(params, part)
+        tokens = batch["tokens"]
+        held = isinstance(tokens, Block)
+        shape = ((tokens.whole_shape() if held else tokens.shape)[0],
+                 max_seq)
+        cache = _prefill_cache(model, cache, mesh, held,
+                               _cache_specs(model, cache, entry, kv),
+                               rules, shape)
         return _whole(next_tokens, mesh, (entry,)), cache
 
     return prefill_step

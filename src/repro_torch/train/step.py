@@ -37,6 +37,14 @@ weighted by its share of the global batch's counted tokens.  The loss is
 ranks' means would be wrong whenever the masks differ.  The aux loss is
 weighted alike (it is zero for a dense model).
 
+**Tensor parallelism.**  Under a mesh whose rules split the heads, the
+MLP or the vocabulary over ``model`` (``dist.sharding`` module
+docstring), the forward computes on this rank's blocks, and the
+cross-entropy reads this rank's vocabulary block of the logits: a max
+all-reduced outside autograd, the sums of exponentials and the gold logit
+psum'd, so the loss is the same on every rank, and the z-loss is taken
+from the whole logsumexp.  The fp32 logits stay, as in the reference.
+
 **Blocked state.**  Params and AdamW's moments may be held as blocks
 (``dist.sharding.Block``), and the batch too (the launcher under
 ``--data-parallel``, the dry-run).  Each layer gathers its params where it
@@ -60,8 +68,8 @@ from torch.utils import checkpoint
 
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
-                                       gather_tree, local, local_batch,
-                                       use_mesh)
+                                       bind_frame, gather_tree, local,
+                                       local_batch, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -70,13 +78,39 @@ from repro_torch.optim.adamw import AdamW, AdamWState
 IGNORE_LABEL = -100
 
 
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor,
+              axes: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, the label's logit) of fp32 logits [..., V] at labels
+    [...] (each a valid index).  With ``axes`` the logits are this rank's
+    vocabulary block over the active mesh's ``axes``: the max is
+    all-reduced (no gradient), the exponentials' sums and the owning
+    rank's gold logit are psum'd together (``collectives.reduce_from``),
+    so every rank gets the whole values; only the summation order departs
+    from the whole logits'."""
+    if not axes:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
+    mesh = active_mesh()
+    index, _ = collectives.block_index(mesh, axes)
+    v = logits.shape[-1]
+    m = collectives.pmax(logits.amax(dim=-1), mesh, axes)
+    local = labels - index * v
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    sums = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                        torch.where(mine, gold[..., 0], 0.0)])
+    sums = collectives.reduce_from(sums, mesh, axes)
+    return torch.log(sums[0]) + m, sums[1]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_loss: float = 1e-4) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean CE over non-ignored positions (+ z-loss). logits fp32 [B,S,V]."""
+                  z_loss: float = 1e-4, vocab_axes: tuple = ()
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over non-ignored positions (+ z-loss). logits fp32 [B,S,V],
+    or this rank's vocabulary block over ``vocab_axes``."""
     mask = labels != IGNORE_LABEL
     safe_labels = torch.where(mask, labels, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
+    lse, gold = _lse_gold(logits, safe_labels, vocab_axes)
     nll = (lse - gold) * mask
     zl = z_loss * torch.square(lse) * mask
     denom = torch.clamp(mask.sum(), min=1)
@@ -97,27 +131,32 @@ class TrainStepConfig:
     grad_compression: bool = False
 
 
-def _ce_segment(h, lab, t32):
+def _ce_segment(h, lab, t32, axes=()):
     """One chunked-CE segment's (nll sum, z sum, count)."""
-    logits = torch.einsum("bsd,vd->bsv", h.to(torch.float32), t32)
+    h32 = h.to(torch.float32)
+    if axes:
+        h32 = collectives.copy_to(h32, active_mesh(), axes)
+    logits = torch.einsum("bsd,vd->bsv", h32, t32)
     mask = lab != IGNORE_LABEL
     safe = torch.where(mask, lab, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse, gold = _lse_gold(logits, safe, axes)
     return (((lse - gold) * mask).sum(), (torch.square(lse) * mask).sum(),
             mask.sum())
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int,
-                          z_loss: float = 1e-4
+                          z_loss: float = 1e-4, vocab_axes: tuple = ()
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """CE over [B,S,d] hidden states without materialising [B,S,V] logits.
 
     Loops over sequence segments; each computes its logits, LSE and gold
     logit and is recomputed in the backward pass (a checkpoint per segment
     under autograd), so peak logits memory is O(B * chunk * V) instead of
-    O(B * S * V)."""
+    O(B * S * V).  With ``vocab_axes`` ``table`` is this rank's
+    vocabulary rows (``Model.unembed_table``) and each segment's logits
+    its block, whose logsumexp and gold logit are reduced over the axes
+    (:func:`_lse_gold`)."""
     b, s, d = hidden.shape
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
@@ -133,10 +172,10 @@ def chunked_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
         h = hidden[:, c * chunk:(c + 1) * chunk]
         lab = labels[:, c * chunk:(c + 1) * chunk]
         if grad:
-            seg = checkpoint.checkpoint(_ce_segment, h, lab, t32,
-                                        use_reentrant=False)
+            seg = checkpoint.checkpoint(bind_frame(_ce_segment), h, lab, t32,
+                                        vocab_axes, use_reentrant=False)
         else:
-            seg = _ce_segment(h, lab, t32)
+            seg = _ce_segment(h, lab, t32, vocab_axes)
         nll, zl, count = nll + seg[0], zl + seg[1], count + seg[2]
     denom = torch.clamp(count, min=1).to(torch.float32)
     return (nll + z_loss * zl) / denom, nll / denom
@@ -165,15 +204,17 @@ def make_loss_fn(model: Model, cfg: TrainStepConfig, *,
                                         remat_policy=cfg.remat_policy,
                                         return_hidden=True,
                                         use_kernel=use_kernel)
+            axes = model.vocab_axes(*labels.shape)
             loss, ce = chunked_cross_entropy(
-                hidden, model.unembed_table(params), labels,
-                chunk=cfg.ce_seq_chunk, z_loss=cfg.z_loss)
+                hidden, model.unembed_table(params, axes), labels,
+                chunk=cfg.ce_seq_chunk, z_loss=cfg.z_loss, vocab_axes=axes)
         else:
             logits, aux = model.forward(params, batch, remat=cfg.remat,
                                         k_chunk=cfg.k_chunk,
                                         local_block=cfg.local_block,
                                         use_kernel=use_kernel)
-            loss, ce = cross_entropy(logits, labels, cfg.z_loss)
+            loss, ce = cross_entropy(logits, labels, cfg.z_loss,
+                                     model.vocab_axes(*labels.shape))
         total = loss + cfg.aux_loss_weight * aux
         return total, {"ce": ce, "aux": aux}
     return loss_fn

@@ -161,8 +161,12 @@ PORT_SCRIPT = textwrap.dedent("""
         report["ranks"][label] = all(p == prints[0] for p in prints)
 
     def forward(model, params, mesh, rules):
+        # under a split vocabulary each rank returns its block of the
+        # logits: gathered whole here
         with torch.no_grad(), shd.use_mesh(mesh, rules):
-            return model.forward(params, {"tokens": tokens}, remat=False)[0]
+            logits = model.forward(params, {"tokens": tokens}, remat=False)[0]
+            axes = model.vocab_axes(*tokens.shape)
+        return collectives._gather_whole(logits, mesh, (None, None, axes))
 
     def serve(model, params, mesh, rules, blocked):
         batch = {"tokens": tokens[:, :PRE]}

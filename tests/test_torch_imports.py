@@ -2,6 +2,7 @@
 chip_smoke.py, imports jax or any module of the JAX package ``repro``."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -77,6 +78,18 @@ def test_port_files_exist():
                    "examples/autotune_attention.py",
                    "examples/train_100m.py"):
         assert f"src/repro_torch/{module}" in names
+
+
+# the port's multi-process tests: each holds the port's dist layer to the
+# JAX package, imported or run (only tests reach both)
+DIST_TESTS = ("test_torch_dist.py", "test_torch_dist_train.py",
+              "test_torch_dist_blocked.py", "test_torch_dist_tp.py")
+
+
+@pytest.mark.parametrize("name", DIST_TESTS)
+def test_dist_tests_hold_the_port_to_the_reference(name):
+    text = (ROOT / "tests" / name).read_text()
+    assert re.search(r"\brepro\.", text) and "repro_torch." in text
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
