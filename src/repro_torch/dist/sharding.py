@@ -51,11 +51,15 @@ as it is, other axes gathered; a whole leaf is cut at use
 same program.  Where the spec leaves the dimension whole the layer gathers
 its weights and computes whole, as before.  Under ``train_rules(
 seq_parallel=True)`` dedup gives ``model`` to the sequence, so the ring
-path computes every layer whole.  The SSM, xLSTM and MoE cores keep
-whole activations (the MoE's experts are a shard_map region of their own).
-A KV cache is blocked over its batch axis and, where the rules split them,
-its KV heads (:func:`cache_shardings`): the k and v projections write this
-rank's KV heads.
+path computes every layer whole.  Hymba's SSM branch runs on this rank's
+``mlp`` channels, the mLSTM on its channels and, where the rules split
+them, its heads, the sLSTM's gate product on its block of each gate
+(``models.ssm``, ``models.xlstm``; :func:`take_parts` cuts a leaf whose
+axis concatenates parts), and the MoE's shared expert is the split MLP;
+the MoE's experts are a shard_map region of their own.  A cache is
+blocked over its batch axis and, where the rules split them, its KV
+heads, SSM channels and mLSTM heads (:func:`cache_shardings`): the layers
+write this rank's block of each.
 ``tree_shardings``/``batch_shardings`` give per leaf the resolved spec and
 its DTensor placements.
 """
@@ -309,17 +313,23 @@ def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     return tree_map(one, tree)
 
 
+# the cache dimensions the blocked layout splits: the rows, and the state
+# the layers compute on blocks of (the KV heads, hymba's SSM channels, the
+# mLSTM's heads)
+_CACHE_AXES = ("batch", "kv_heads", "mlp", "heads")
+
+
 def cache_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     """A :class:`Sharding` per leaf of a cache's ParamSpec tree in the
-    blocked layout: the entries of its "batch" and "kv_heads" dimensions
-    only (module docstring); the sequence, and recurrent state, stay
-    whole."""
+    blocked layout: the entries of its "batch", "kv_heads", "mlp" and
+    "heads" dimensions only (module docstring); the sequence, and the
+    sLSTM's state, stay whole."""
     from repro_torch.models.module import tree_map
 
     def one(spec):
         axes = spec.logical_axes or (None,) * len(spec.shape)
         resolved = _sharding(axes, spec.shape, mesh, rules).spec
-        return _placed(tuple(e if ax in ("batch", "kv_heads") else None
+        return _placed(tuple(e if ax in _CACHE_AXES else None
                              for e, ax in zip(resolved, axes)), mesh)
 
     return tree_map(one, tree)
@@ -480,6 +490,29 @@ def take(leaf, dim: Optional[int] = None, axes: tuple = ()):
         return leaf
     spec = tuple(tuple(axes) if i == dim else None for i in range(leaf.ndim))
     return collectives.split(leaf, active_mesh(), spec)
+
+
+def take_parts(leaf, dim: int, axes: tuple, parts: int):
+    """:func:`take` for a leaf whose dimension ``dim`` concatenates
+    ``parts`` equal parts (the mLSTM's ``w_up`` = [core_in | gate], the
+    sLSTM's ``w_gates`` = [z | i | f | o]): with ``axes``, this rank's
+    block of each part, concatenated in the parts' order, whole along every
+    other dimension; without, the whole leaf.  A contiguous block of the
+    concatenated axis (what a :class:`Block` holds there) is not that: on
+    4 ranks ranks 0-1 would hold only the first half's channels.  A Block
+    is therefore gathered whole first; the cut is ``collectives.split``'s
+    (its backward all-gathers the gradient)."""
+    if isinstance(leaf, Block):
+        leaf = collectives.gather(leaf.local, leaf.mesh, leaf.spec)
+    if not axes:
+        return leaf
+    shape = tuple(leaf.shape)
+    grouped = leaf.reshape(shape[:dim] + (parts, shape[dim] // parts)
+                           + shape[dim + 1:])
+    spec = tuple(tuple(axes) if i == dim + 1 else None
+                 for i in range(grouped.ndim))
+    block = collectives.split(grouped, active_mesh(), spec)
+    return block.flatten(dim, dim + 1)
 
 
 def held_batch_shardings(batch_specs: Mapping[str, Any], mesh,

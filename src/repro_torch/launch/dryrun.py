@@ -28,12 +28,17 @@ reaches its Pallas kernel either.
 **Memory as the port holds it.**  The cell's arguments are the blocked
 layout's (``dist.sharding``, ``layout: "blocked"`` in the result): each
 param and AdamW moment is this rank's block under its ``tree_shardings``
-spec, the KV cache this rank's rows and, where the rules split them, its
-KV heads (``cache_shardings``), and the batch this rank's rows.  Where the
-rules split the heads, the MLP or the vocabulary over ``model``, those
-layers compute on this rank's block of weights and activations, as the
-reference's SPMD program does; every other layer gathers its params where
-it uses them and computes whole.
+spec, the cache this rank's rows and, where the rules split them, its
+KV heads, SSM channels and mLSTM heads (``cache_shardings``), and the
+batch this rank's rows.  Where the rules split the heads, the MLP (the
+MoE's shared expert too), hymba's SSM channels, the xLSTM cores' channels
+and heads or the vocabulary over ``model``, those layers compute on this
+rank's block of weights and activations, as the reference's SPMD program
+does; every other layer gathers its params where it uses them and
+computes whole.  The layers' sequential loops keep only their carries for
+the backward (``models.layers.scan_step``, the reference's
+``jax.checkpoint``), so the recompute of a checkpointed period holds one
+step's intermediates at a time.
 ``memory_per_device_bytes["total_bytes"]`` is the peak of one rank's live
 storages over the step, arguments included.  Beside it,
 ``sharded_argument_bytes`` is the reference's sharded argument figure:

@@ -5,7 +5,9 @@ package's ``models/attention.py``.
   * ``attend_chunked`` — q-block x KV-chunk tiling with online softmax:
     peak score memory O(B*H*q_chunk*k_chunk) instead of O(B*H*Sq*Sk).  The
     plain-torch adaptation of flash attention, with Python loops in place
-    of ``lax.map``/``lax.scan``.
+    of ``lax.map``/``lax.scan``; under autograd each KV chunk's step is
+    recomputed in the backward (``layers.scan_step``, the reference's
+    ``jax.checkpoint``), so only the carry is kept per tile.
   * ``attend_local``   — block-banded sliding window, O(S*2w).
   * ``attend_decode``  — one query position against a KV cache, GQA in
     grouped form.
@@ -59,7 +61,7 @@ from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
                                        split_axes, take)
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import rope, scan_step
 from repro_torch.models.module import ParamSpec
 
 
@@ -173,7 +175,7 @@ def attend_full(q, k, v, *, causal: bool, window: int = 0,
 
 
 def _chunk_body(scale, causal, window, q, q_pos, carry, kv_chunk):
-    """Online-softmax update for one KV chunk."""
+    """Online-softmax update for one KV chunk (remat'ed in the loop)."""
     acc, m, l = carry
     k_c, v_c, k_pos = kv_chunk
     s = torch.einsum("bshd,bthd->bhst", q, k_c).float() * scale
@@ -196,8 +198,9 @@ def _attend_kv_scan(q, k_r, v_r, p_r, q_pos, *, causal,
              torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
                         device=q.device),
              torch.zeros((b, h, sq), dtype=torch.float32, device=q.device))
+    body = scan_step(_chunk_body)       # the reference's jax.checkpoint
     for chunk in zip(k_r, v_r, p_r):
-        carry = _chunk_body(scale, causal, window, q, q_pos, carry, chunk)
+        carry = body(scale, causal, window, q, q_pos, carry, chunk)
     acc, _, l = carry
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)

@@ -14,22 +14,91 @@ the partial sums added over the axes; the embedding looks up the tokens in
 this rank's vocabulary rows, zeroes the others and sums over the axes; the
 unembedding returns this rank's vocabulary block of the logits.  Params may
 be blocks (``dist.sharding.Block``); ``take`` gives the block a layer uses.
+
+:func:`scan_step` is the counterpart of the reference's ``jax.checkpoint``
+on a ``lax.scan`` body: the layers' sequential loops (attention's KV
+chunks, the SSM's and the mLSTM's chunks, the sLSTM's steps) run each step
+through it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import (active_mesh, constrain, split_axes,
-                                       take, whole_shape)
+from repro_torch.dist.sharding import (active_mesh, bind_frame, constrain,
+                                       split_axes, take, whole_shape)
 from repro_torch.models.module import ParamSpec
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+class _Remat(torch.autograd.Function):
+    """One remat'ed step (:func:`scan_step`): the forward runs the step
+    without recording and saves its tensor arguments with
+    ``save_for_backward``; the backward runs the step again with a
+    gradient and differentiates it.  Saved through the saved-tensor
+    hooks, the arguments are discarded by an enclosing checkpoint's
+    forward (the transformer's period) and made again by its recompute,
+    where ``torch.utils.checkpoint``'s non-reentrant form would hold a
+    nested step's arguments for every layer of the forward."""
+
+    @staticmethod
+    def forward(ctx, fn, spec, out_spec, *flat):
+        out, tree = pytree.tree_flatten(fn(*pytree.tree_unflatten(
+            list(flat), spec)))
+        out_spec.append(tree)
+        ctx.fn, ctx.spec = fn, spec
+        ctx.slots = [isinstance(a, torch.Tensor) for a in flat]
+        ctx.flat = [None if slot else a for a, slot in zip(flat, ctx.slots)]
+        ctx.needs = [slot and a.requires_grad
+                     for a, slot in zip(flat, ctx.slots)]
+        ctx.save_for_backward(*(a for a in flat
+                                if isinstance(a, torch.Tensor)))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = iter(ctx.saved_tensors)
+        flat = [next(saved).detach().requires_grad_(need) if slot else a
+                for a, slot, need in zip(ctx.flat, ctx.slots, ctx.needs)]
+        with torch.enable_grad():
+            out = pytree.tree_leaves(ctx.fn(*pytree.tree_unflatten(
+                flat, ctx.spec)))
+        pairs = [(o, g) for o, g in zip(out, grads)
+                 if g is not None and o.requires_grad]
+        wanted = [a for a, need in zip(flat, ctx.needs) if need]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs and wanted else ())
+        return (None, None, None) + tuple(
+            next(got, None) if need else None for need in ctx.needs)
+
+
+def scan_step(fn):
+    """``fn``, one step of a layer's sequential loop, as the reference's
+    ``jax.checkpoint`` runs a scan body: under autograd only the step's
+    arguments (the carry and the step's slices) are kept and the step is
+    recomputed in the backward (:class:`_Remat`), under the mesh frame
+    active now (``dist.sharding.bind_frame``); without a gradient ``fn``
+    itself.  The values are ``fn``'s.  A step returns a tree of fresh
+    tensors (a view would keep its base alive with the next step's
+    arguments) and takes slices of what is alive anyway."""
+    if not torch.is_grad_enabled():
+        return fn
+    bound = bind_frame(fn)
+
+    def run(*args):
+        flat, spec = pytree.tree_flatten(args)
+        out_spec = []
+        out = _Remat.apply(bound, spec, out_spec, *flat)
+        return pytree.tree_unflatten(list(out), out_spec[0])
+    return run
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,10 @@ expert FFN batched over E.  The reference's scatters (``.at[].set(mode=
 destinations past the table are dropped, never written — and accumulating
 ``index_add_``/``index_put_``, where duplicate tokens add.
 
-``moe_reference`` is the dense oracle used by the tests.  The shard_map
+``moe_reference`` is the dense oracle used by the tests.  The shared
+expert is ``layers.mlp`` (on this rank's block of its hidden width under a
+mesh that splits ``mlp``) in every dispatch but the shard_map one, which
+carries it on its f-shard.  The shard_map
 dispatch (``moe_apply_shardmap``) is an SPMD region on
 ``torch.distributed`` (``dist.collectives``): every rank takes its block of
 the tokens (data axes) and of the experts (``model``), and one psum over
@@ -23,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
-                                       use_mesh)
+                                       gather_tree)
 from repro_torch.models.layers import gelu, mlp, mlp_spec
 from repro_torch.models.module import ParamSpec
 
@@ -50,11 +53,12 @@ def _act(cfg: ArchConfig, g: torch.Tensor) -> torch.Tensor:
 
 
 def _shared(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The shared expert's output [B*S, d] in fp32, computed whole on every
-    rank (no frame: ``mlp`` splits nothing), as the experts around it."""
+    """The shared expert's output [B*S, d] in fp32: ``layers.mlp``, as the
+    reference calls it, so under a mesh that splits ``mlp`` it computes on
+    this rank's block of its hidden width (its weights whole or held as
+    blocks)."""
     kind = cfg.mlp_kind if cfg.mlp_kind != "geglu" else "swiglu"
-    with use_mesh(None, None):
-        y = mlp(kind, params["shared"], x)
+    y = mlp(kind, params["shared"], x)
     return y.reshape(-1, x.shape[-1]).float()
 
 
@@ -218,7 +222,7 @@ def moe_apply_shardmap(cfg: ArchConfig, params: dict, x: torch.Tensor):
               params["w_down"]]
     specs = [x_spec, (None, None), w_spec, w_spec, w_spec]
     if cfg.shared_expert:                      # f-dim sharded over 'model'
-        sh = params["shared"]
+        sh = gather_tree(params["shared"])
         inputs += [sh["w_gate"], sh["w_up"], sh["w_down"]]
         specs += [(None, "model"), (None, "model"), ("model", None)]
     x_loc, router, wg, wu, wd, *shared = collectives.shard(inputs, mesh,

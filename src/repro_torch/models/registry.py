@@ -172,6 +172,14 @@ class Model:
         logits."""
         return vocab_axes(b, s, self.cfg.vocab_size)
 
+    def state_axes(self, b: int, s: int) -> dict:
+        """{the logical axis of a cache leaf: the mesh axes its layer
+        computes on a block of} for a step over [b, s] tokens under the
+        active rules: the KV heads (attention), the SSM's channels
+        ("mlp", hymba's ``h_ssm``) and the mLSTM's heads ("heads", its
+        C, n, m); () for each that stays whole."""
+        return tfm.state_axes(self.cfg, b, s)
+
     def unembed_table(self, params: dict, axes: tuple = ()) -> torch.Tensor:
         """The unembedding table: whole, or this rank's vocabulary rows
         over ``axes`` (:meth:`vocab_axes`)."""

@@ -15,12 +15,18 @@ frame of the forward (``dist.sharding.bind_frame``); without a gradient
 they change no number.  A layer's params may be held as blocks
 (``dist.sharding.Block``): each layer gathers its own just before it runs
 (inside the checkpointed period, so the recompute gathers them again and
-no whole weight outlives its layer).  The attention and MLP weights are
-gathered only along the axes the layer does not compute on: under a mesh
-that splits their heads or ``mlp`` dimension they compute on this rank's
-block (``models.attention``, ``models.layers``, :func:`_held`).  ``stack_decode`` updates the cache it is given in place and
-returns it: each layer writes one token slice of its KV cache and its
-recurrent state into the stacked tensors, never a copy of the cache.
+no whole weight outlives its layer).  The attention, MLP, SSM-branch,
+xLSTM and shared-expert weights are gathered only along the axes the
+layer does not compute on: under a mesh that splits their heads or
+``mlp`` dimension they compute on this rank's block (``models.attention``,
+``models.layers``, ``models.ssm`` through :func:`_fuse_ssm`,
+``models.xlstm``, ``models.moe``; :func:`_held`).  Inside a layer the
+sequential loops remat each step (``layers.scan_step``): the period's
+recompute keeps one step's intermediates at a time.  ``stack_decode``
+updates the cache it is given in place and returns it: each layer writes
+one token slice of its KV cache and its recurrent state (whole, or this
+rank's SSM channels or mLSTM heads, as the cache holds it) into the
+stacked tensors, never a copy of the cache.
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ import torch
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import bind_frame, gather_tree
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (active_mesh, bind_frame, gather_tree,
+                                       split_axes, take)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -111,12 +119,37 @@ def block_cache_spec(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
 # Per-block forward / decode
 # ---------------------------------------------------------------------------
 
+def ssm_axes(cfg: ArchConfig, b: int, s: int) -> tuple:
+    """The mesh axes the active rules split hymba's SSM channels (its
+    ``d_inner`` = d_model, the "mlp" dimension of ``ssm_in``'s output)
+    over for activations of ``b`` x ``s`` positions; () where they stay
+    whole."""
+    return split_axes(("batch", "seq", "mlp"), (b, s, cfg.d_model), 2)
+
+
+def state_axes(cfg: ArchConfig, b: int, s: int) -> dict:
+    """``Model.state_axes``: per logical axis of a cache leaf, the mesh
+    axes its layer computes on this rank's block of."""
+    return {"kv_heads": attn.head_axes(cfg, b, s)[1],
+            "mlp": ssm_axes(cfg, b, s),
+            "heads": xlstm_mod.mlstm_axes(cfg, b, s, 2 * cfg.d_model)[1]}
+
+
 def _fuse_ssm(cfg, params, h, a, x_dtype, ssm_fn):
     """Hymba's parallel heads: the SSM branch beside attention output
-    ``a``, the two normalised and averaged; returns (mix, ssm state)."""
-    u = torch.matmul(h, params["ssm_in"].to(x_dtype))
-    s_out, state = ssm_fn(params["ssm"], u)
-    s_out = torch.matmul(s_out, params["ssm_out"].to(x_dtype))
+    ``a``, the two normalised and averaged; returns (mix, ssm state).
+    Under a mesh that splits the channels (:func:`ssm_axes`) ``ssm_in`` is
+    column-parallel, the SSM runs on this rank's channels (``ssm_fn``
+    takes them and the axes) and ``ssm_out`` is row-parallel."""
+    axes = ssm_axes(cfg, h.shape[0], h.shape[1])
+    mesh = active_mesh()
+    if axes:
+        h = collectives.copy_to(h, mesh, axes)
+    u = torch.matmul(h, take(params["ssm_in"], 1, axes).to(x_dtype))
+    s_out, state = ssm_fn(params["ssm"], u, axes=axes)
+    s_out = torch.matmul(s_out, take(params["ssm_out"], 0, axes).to(x_dtype))
+    if axes:
+        s_out = collectives.reduce_from(s_out, mesh, axes)
     mix = 0.5 * (apply_norm("rmsnorm", params["fuse_attn_norm"], a, impl=cfg.norm_impl)
                  + apply_norm("rmsnorm", params["fuse_ssm_norm"], s_out, impl=cfg.norm_impl))
     return mix, state
@@ -134,15 +167,26 @@ def _ffn(cfg, kind, params, x):
     return x, None
 
 
-# the sub-trees whose layers take their own weight blocks
-_TAKEN = ("attn", "cross", "mlp")
+# the sub-trees and leaves whose layers take their own weight blocks: the
+# attention's, the MLP's, hymba's SSM projections and the xLSTM cores'
+_TAKEN = ("attn", "cross", "mlp", "ssm_in", "ssm_out",
+          "w_up", "wq", "wk", "wv", "w_if", "w_down", "w_gates")
 
 
 def _held(params: dict) -> dict:
-    """One block's params as its layers use them: the attention and MLP
-    leaves as they are held (each layer takes the block it computes on,
-    ``dist.sharding.take``), every other leaf whole (``gather_tree``)."""
-    return {k: v if k in _TAKEN else gather_tree(v) for k, v in params.items()}
+    """One block's params as its layers use them: the leaves of
+    ``_TAKEN`` and the MoE's shared expert as they are held (each layer
+    takes the block it computes on, ``dist.sharding.take``), every other
+    leaf whole (``gather_tree``)."""
+    out = {}
+    for k, v in params.items():
+        if k == "moe":
+            v = {kk: vv if kk == "shared" else gather_tree(vv)
+                 for kk, vv in v.items()}
+        elif k not in _TAKEN:
+            v = gather_tree(v)
+        out[k] = v
+    return out
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -253,7 +297,8 @@ def block_decode(cfg: ArchConfig, kind: str, params: dict, x: torch.Tensor,
     if kind == "hybrid":
         a, new_cache["h_ssm"] = _fuse_ssm(
             cfg, params, h, a, x.dtype,
-            lambda p, u: ssm_mod.ssm_decode_step(p, u, cache["h_ssm"]))
+            lambda p, u, axes: ssm_mod.ssm_decode_step(p, u, cache["h_ssm"],
+                                                       axes))
     x = x + a
     if "xk" in cache and "cross" in params:
         hx = apply_norm(cfg.norm_kind, params["norm_x"], x, impl=cfg.norm_impl)

@@ -4,9 +4,21 @@ port of the JAX package's ``models/xlstm.py``.
 mLSTM training/prefill uses the *chunkwise* form: a sequential loop over
 sequence chunks carrying the stabilised state (C, n, m), quadratic
 attention-like compute inside each chunk — O(S*chunk) instead of O(S^2).
-The sLSTM is a per-step loop (the reference's ``lax.scan``).  Decode is
-the O(1) recurrent step.  Stabilisation follows the xLSTM paper (max-state
-m).
+The sLSTM is a per-step loop (the reference's ``lax.scan``).  Each chunk
+and each step is recomputed in the backward (``layers.scan_step``, the
+reference's ``jax.checkpoint``).  Decode is the O(1) recurrent step.
+Stabilisation follows the xLSTM paper (max-state m).
+
+Under a mesh whose rules split ``mlp`` (and the heads) the cores compute
+on this rank's block, Megatron's layout: the mLSTM's up product is
+column-parallel on this rank's channels of each half of ``w_up``
+(``dist.sharding.take_parts``), q, k, v and the gates are row-parallel
+sums over those channels (then this rank's heads of them where the heads
+split), the chunkwise core and its state (C, n, m) run on this rank's
+heads (every head where they do not split), and ``w_down`` is
+row-parallel.  The
+sLSTM's gate product is column-parallel on this rank's block of each of
+z, i, f and o, gathered whole for the recurrence (:func:`_slstm_gates`).
 """
 from __future__ import annotations
 
@@ -14,8 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import constrain
-from repro_torch.models.layers import apply_norm, norm_spec
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (active_mesh, constrain, split_axes,
+                                       take, take_parts)
+from repro_torch.models.layers import apply_norm, norm_spec, scan_step
 from repro_torch.models.module import ParamSpec
 
 NEG_INF = -1e30
@@ -49,13 +63,66 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         -1, (h, d))
 
 
-def _mlstm_gates(params, u):
-    """u: [B,S,di] -> (log_i, log_f): [B,S,H] in fp32."""
-    h2 = params["w_if"].shape[1] // 2
-    g = torch.matmul(u.float(), params["w_if"].float()) + params["b_if"]
+def mlstm_axes(cfg: ArchConfig, b: int, s: int, di: int) -> tuple:
+    """(the mesh axes the active rules split the mLSTM's ``mlp`` channels
+    over, those of its heads); ((), ()) where they stay whole.  The heads
+    split only where the channels do, over the same axes."""
+    axes = split_axes(("batch", "seq", "mlp"), (b, s, di), 2)
+    if not axes:
+        return (), ()
+    heads = split_axes(("batch", "seq", "heads", "head_dim"),
+                       (b, s, cfg.n_heads, di // cfg.n_heads), 2)
+    if heads and heads != axes:
+        raise ValueError(f"mLSTM: heads over {heads}, channels over {axes}")
+    return axes, heads
+
+
+def _mlstm_up(params, u, axes):
+    """(core_in, gate): the up product, column-parallel on this rank's
+    block of each half of ``w_up`` where ``axes``."""
+    if axes:
+        u = collectives.copy_to(u, active_mesh(), axes)
+    up = torch.matmul(u, take_parts(params["w_up"], 1, axes, 2).to(u.dtype))
+    half = up.shape[-1] // 2
+    return up[..., :half], up[..., half:]
+
+
+def _mlstm_inputs(params, core_in, axes, heads):
+    """q, k, v [B,S,H,dh] in core_in's type and the gates (log_i, log_f)
+    [B,S,H] in fp32.  With ``axes`` (core_in this rank's channels) each is
+    a row-parallel product on this rank's rows of its weight (the block
+    the rules hold), summed over the axes; with ``heads`` then this rank's
+    heads of it."""
+    mesh = active_mesh()
+
+    def whole(t):
+        return collectives.reduce_from(t, mesh, axes) if axes else t
+
+    q, k, v = (whole(_heads(core_in, take(params[w], 0, axes)))
+               for w in ("wq", "wk", "wv"))
+    g = whole(torch.matmul(core_in.float(),
+                           take(params["w_if"], 0, axes).float())) \
+        + params["b_if"]
+    h2 = g.shape[-1] // 2
     log_i = g[..., :h2]                               # pre-activation ~ log input gate
     log_f = F.logsigmoid(g[..., h2:])                 # sigmoid forget gate
-    return log_i, log_f
+    if heads:
+        def mine(t):
+            return collectives.split(t, mesh, (None, None, tuple(heads))
+                                     + (None,) * (t.ndim - 3))
+        q, k, v, log_i, log_f = map(mine, (q, k, v, log_i, log_f))
+    return q, k, v, log_i, log_f
+
+
+def _mlstm_down(params, h_tilde, gate, axes, heads):
+    """The gated output product: h_tilde [B,S,C] (this rank's heads, or
+    every head) to [B,S,d], row-parallel over ``axes``."""
+    mesh = active_mesh()
+    if axes and not heads:
+        h_tilde = collectives.split(h_tilde, mesh, (None, None, tuple(axes)))
+    gated = h_tilde * F.silu(gate)
+    y = torch.matmul(gated, take(params["w_down"], 0, axes).to(gated.dtype))
+    return collectives.reduce_from(y, mesh, axes) if axes else y
 
 
 def _mlstm_chunk(scale, carry, chunk):
@@ -94,18 +161,16 @@ def _mlstm_chunk(scale, carry, chunk):
 
 def mlstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
                 chunk: int = 256, state=None) -> tuple:
-    """mLSTM block forward.  x: [B,S,d] -> (y [B,S,d], final state)."""
+    """mLSTM block forward.  x: [B,S,d] -> (y [B,S,d], final state).
+    Under a mesh that splits the heads the state is this rank's heads'."""
     b, s, d = x.shape
     di = 2 * d
-    h = cfg.n_heads
-    dh = di // h
+    dh = di // cfg.n_heads
+    axes, heads = mlstm_axes(cfg, b, s, di)
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    up = torch.matmul(u, params["w_up"].to(x.dtype))
-    core_in, gate = up[..., :di], up[..., di:]
-    q = _heads(core_in, params["wq"])
-    k = _heads(core_in, params["wk"])
-    v = _heads(core_in, params["wv"])
-    log_i, log_f = _mlstm_gates(params, core_in)
+    core_in, gate = _mlstm_up(params, u, axes)
+    q, k, v, log_i, log_f = _mlstm_inputs(params, core_in, axes, heads)
+    h = q.shape[2]
 
     if state is None:
         f32 = {"dtype": torch.float32, "device": x.device}
@@ -121,35 +186,43 @@ def mlstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
         log_i = F.pad(log_i, (0, 0, 0, pad), value=NEG_INF)
         log_f = F.pad(log_f, (0, 0, 0, pad))   # f=1 would drift m; 0 ok
     scale = dh ** -0.5
+    step = scan_step(_mlstm_chunk)      # the reference's jax.checkpoint
     hs = []
-    for c in range(n_chunks):
-        part = slice(c * L, (c + 1) * L)
-        state, h_c = _mlstm_chunk(scale, state, tuple(
-            t[:, part] for t in (q, k, v, log_i, log_f)))
+    for chunk_in in zip(*(t.split(L, dim=1)
+                          for t in (q, k, v, log_i, log_f))):
+        state, h_c = step(scale, state, chunk_in)
         hs.append(h_c)
     h_tilde = torch.cat(hs, dim=1)[:, :s]
-    h_tilde = h_tilde.reshape(b, s, di).to(x.dtype)
-    gated = h_tilde * F.silu(gate)
-    y = torch.matmul(gated, params["w_down"].to(x.dtype))
+    h_tilde = h_tilde.reshape(b, s, h * dh).to(x.dtype)
+    y = _mlstm_down(params, h_tilde, gate, axes, heads)
     return constrain(y, "batch", "seq", "embed"), state
+
+
+def _own_heads(state, heads, n_heads):
+    """(the state on this rank's heads, whether it was given whole): a
+    decode cache holds either every head or this rank's block
+    (``dist.sharding.cache_shardings``), told apart by its shape."""
+    if not heads or state[0].shape[1] != n_heads:
+        return state, False
+    mesh = active_mesh()
+    return tuple(collectives.block(t, mesh, (None, tuple(heads))
+                                   + (None,) * (t.ndim - 2))
+                 for t in state), True
 
 
 def mlstm_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
                       state) -> tuple:
-    """One token through an mLSTM block.  x: [B,1,d]."""
+    """One token through an mLSTM block.  x: [B,1,d].  The new state comes
+    back as the state was given: whole, or this rank's heads."""
     b, _, d = x.shape
     di = 2 * d
-    h = cfg.n_heads
-    dh = di // h
-    C, n, m = state
+    dh = di // cfg.n_heads
+    axes, heads = mlstm_axes(cfg, b, 1, di)
+    (C, n, m), whole = _own_heads(state, heads, cfg.n_heads)
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    up = torch.matmul(u, params["w_up"].to(x.dtype))
-    core_in, gate = up[..., :di], up[..., di:]
-    q = _heads(core_in, params["wq"])[:, 0]
-    k = _heads(core_in, params["wk"])[:, 0]
-    v = _heads(core_in, params["wv"])[:, 0]
-    log_i, log_f = _mlstm_gates(params, core_in)
-    log_i, log_f = log_i[:, 0], log_f[:, 0]                  # [B,H]
+    core_in, gate = _mlstm_up(params, u, axes)
+    q, k, v, log_i, log_f = (t[:, 0] for t in _mlstm_inputs(
+        params, core_in, axes, heads))
     m_new = torch.maximum(log_f + m, log_i)
     f_p = torch.exp(log_f + m - m_new)[..., None]
     i_p = torch.exp(log_i - m_new)[..., None]
@@ -160,9 +233,15 @@ def mlstm_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
     num = torch.einsum("bhde,bhe->bhd", C_new, q32)
     den = torch.einsum("bhd,bhd->bh", n_new, q32)
     h_tilde = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-    h_tilde = h_tilde.reshape(b, 1, di).to(x.dtype)
-    y = torch.matmul(h_tilde * F.silu(gate), params["w_down"].to(x.dtype))
-    return y, (C_new, n_new, m_new)
+    h_tilde = h_tilde.reshape(b, 1, -1).to(x.dtype)
+    y = _mlstm_down(params, h_tilde, gate, axes, heads)
+    new = (C_new, n_new, m_new)
+    if whole:
+        mesh = active_mesh()
+        new = tuple(collectives._gather_whole(t, mesh, (None, tuple(heads))
+                                              + (None,) * (t.ndim - 2))
+                    for t in new)
+    return y, new
 
 
 # ---------------------------------------------------------------------------
@@ -203,18 +282,39 @@ def _slstm_cell(params, h_heads, carry, x_row):
     return (c_new, n_new, m_new, h_new), h_new
 
 
+def _slstm_gates(params, u) -> torch.Tensor:
+    """The input gates xg [B,S,4d] in fp32, whole.  Under a mesh that
+    splits ``mlp`` the product is column-parallel on this rank's block of
+    each of z, i, f and o (``take_parts``) and gathered whole once: the
+    reference's cell feeds head j's recurrent output to the j-th quarter
+    of the concatenated gates, so no rank's channels close under the
+    recurrence, which runs whole on every rank."""
+    b, s, d = u.shape
+    axes = split_axes(("batch", "seq", "mlp"), (b, s, d), 2)
+    if not axes:
+        return torch.matmul(u.float(), take(params["w_gates"]).float())
+    mesh = active_mesh()
+    part = torch.matmul(collectives.copy_to(u.float(), mesh, axes),
+                        take_parts(params["w_gates"], 1, axes, 4).float())
+    part = part.unflatten(-1, (4, -1))
+    whole = collectives.gather(part, mesh, (None,) * (part.ndim - 1)
+                               + (tuple(axes),))
+    return whole.flatten(-2)
+
+
 def slstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor,
                 state=None) -> tuple:
     """sLSTM block forward (sequential over S).  x: [B,S,d]."""
     b, s, d = x.shape
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    xg = torch.matmul(u.float(), params["w_gates"].float())   # [B,S,4d]
+    xg = _slstm_gates(params, u)                              # [B,S,4d]
     if state is None:
         z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = (z, z, z, z)
+    step = scan_step(_slstm_cell)       # the reference's jax.checkpoint
     hs = []
-    for t in range(s):
-        state, h_t = _slstm_cell(params, cfg.n_heads, state, xg[:, t])
+    for x_row in xg.unbind(1):      # one gradient buffer, not one per step
+        state, h_t = step(params, cfg.n_heads, state, x_row)
         hs.append(h_t)
     y = torch.matmul(torch.stack(hs, dim=1).to(x.dtype),
                      params["w_out"].to(x.dtype))
@@ -224,7 +324,7 @@ def slstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor,
 def slstm_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
                       state) -> tuple:
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    xg = torch.matmul(u.float(), params["w_gates"].float())[:, 0]
+    xg = _slstm_gates(params, u)[:, 0]
     state, h = _slstm_cell(params, cfg.n_heads, state, xg)
     y = torch.matmul(h.to(x.dtype), params["w_out"].to(x.dtype))[:, None]
     return y, state

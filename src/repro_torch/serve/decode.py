@@ -18,13 +18,15 @@ blocked cache; with whole tokens the prefill returns the whole cache, and
 a decode step writes every rank's rows into a whole cache (the global
 view: its rows are all-gathered each step).
 
-Where the active rules split the vocabulary or the heads
-(``dist.sharding`` module docstring), the model returns this rank's
-vocabulary block of the logits and writes this rank's KV heads: both
-steps gather the [B, 1, V] rows whole before sampling (the returned
-logits are whole, as the reference's), and the prefill returns the KV
-heads whole, or, for blocked tokens, the cache blocked over its batch
-and, where ``cache_shardings`` splits them, its KV heads.
+Where the active rules split the vocabulary, the heads or the recurrent
+channels (``dist.sharding`` module docstring), the model returns this
+rank's vocabulary block of the logits and writes this rank's KV heads,
+SSM channels and mLSTM heads (``Model.state_axes``): both steps gather
+the [B, 1, V] rows whole before sampling (the returned logits are whole,
+as the reference's), and the prefill returns that state whole, or, for
+blocked tokens, the cache blocked over its batch and, where
+``cache_shardings`` splits them, its KV heads, SSM channels and mLSTM
+heads.
 
 Sampling with a temperature draws from ``softmax(logits / T)`` through
 ``torch.multinomial`` with an explicit ``torch.Generator``: the reference's
@@ -42,7 +44,6 @@ from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
                                        batch_shardings, cache_shardings,
                                        local, local_batch, use_mesh)
-from repro_torch.models.attention import head_axes
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 
@@ -106,13 +107,16 @@ def _whole_vocab(model: Model, logits: torch.Tensor, s: int) -> torch.Tensor:
     return _whole(logits, active_mesh(), (None, None, _entry(axes)))
 
 
-def _cache_specs(model: Model, cache, rows, kv=None):
+def _cache_specs(model: Model, cache, rows, axes=None):
     """Per cache leaf, the spec that splits its batch dimension over
-    ``rows`` and its KV heads over ``kv`` (the dimensions named "batch"
-    and "kv_heads" in ``model.cache_specs``)."""
+    ``rows`` and each dimension ``axes`` names (a dict from the logical
+    axes of ``Model.state_axes`` to spec entries: the KV heads, hymba's
+    SSM channels, the mLSTM's heads) over its entry."""
+    axes = axes or {}
+
     def one(leaf, spec):
-        return tuple(rows if ax == "batch" else kv if ax == "kv_heads"
-                     else None for ax in spec.logical_axes)
+        return tuple(rows if ax == "batch" else axes.get(ax)
+                     for ax in spec.logical_axes)
     return tree_map(one, cache, model.cache_specs(1, 1))
 
 
@@ -176,37 +180,38 @@ def make_prefill_step(model: Model, max_seq: int,
     region (module docstring)."""
 
     def run(params, batch):
-        """(the first tokens, the cache, the KV heads' spec entry) under
+        """(the first tokens, the cache, the spec entries of the state the
+        layers computed on blocks of, ``Model.state_axes``) under
         the active frame."""
         b, s = batch["tokens"].shape
         logits, cache = model.prefill(params, batch, max_seq,
                                       k_chunk=cfg.k_chunk)
         last = _whole_vocab(model, logits[:, -1:], s)
         del logits
-        kv = (_entry(head_axes(model.cfg, b, s)[1])
-              if active_mesh() is not None else None)
-        return sample(last, None, cfg.temperature), cache, kv
+        blocks = ({k: _entry(v) for k, v in model.state_axes(b, s).items()
+                   if v} if active_mesh() is not None else {})
+        return sample(last, None, cfg.temperature), cache, blocks
 
     def prefill_step(params, batch):
         region = _region(batch["tokens"])
         if region is None:
-            next_tokens, cache, kv = run(params, batch)
-            if kv is not None:
+            next_tokens, cache, blocks = run(params, batch)
+            if blocks:
                 cache = _prefill_cache(model, cache, active_mesh(), False,
-                                       _cache_specs(model, cache, None, kv),
-                                       None, None)
+                                       _cache_specs(model, cache, None,
+                                                    blocks), None, None)
             return next_tokens, cache
         mesh, rules, entry = region
         part, _ = local_batch(batch, mesh, rules)
         rest = _rest(mesh, entry)
         with use_mesh(rest, rules if rest is not None else None):
-            next_tokens, cache, kv = run(params, part)
+            next_tokens, cache, blocks = run(params, part)
         tokens = batch["tokens"]
         held = isinstance(tokens, Block)
         shape = ((tokens.whole_shape() if held else tokens.shape)[0],
                  max_seq)
         cache = _prefill_cache(model, cache, mesh, held,
-                               _cache_specs(model, cache, entry, kv),
+                               _cache_specs(model, cache, entry, blocks),
                                rules, shape)
         return _whole(next_tokens, mesh, (entry,)), cache
 

@@ -9,7 +9,7 @@ killed at the first failure or the deadline).  On a world of 2 as
 ``("model",)`` and a world of 4 as ``("data", "model")`` of (2, 2), for
 gemma3-1b (4 heads split 2 a rank, its one KV head whole: every rank's q
 heads read it) and yi-9b (its 2 KV heads split too) at ``reduced()`` with
-fp32 compute and the JAX package's weights, every rank runs:
+fp32 params and compute and the JAX package's weights, every rank runs:
 
   * ``forward`` under ``train_rules()``: each rank's vocabulary block of
     the logits, gathered whole and held to the JAX package's;
@@ -72,17 +72,17 @@ HAND_REL = 1e-6     # copy_to / reduce_from / split against hand values
 
 def _cfg(cfgs, name):
     return dataclasses.replace(cfgs.ARCHS[name].reduced(),
-                               compute_dtype="float32")
+                               compute_dtype="float32", param_dtype="float32")
 
 
-def _inputs(path):
+def _inputs(path, archs=ARCHS):
     """The JAX weights, the tokens, and the JAX package's forward logits,
     decode logits and greedy tokens."""
     arrays, dtypes, want = {}, {}, {}
     rng = np.random.RandomState(0)
     tokens = rng.randint(1, 256, (B, S)).astype(np.int32)
     arrays["tokens"] = tokens
-    for name in ARCHS:
+    for name in archs:
         model = jbuild(_cfg(jconfigs, name))
         params = model.init_params(jax.random.PRNGKey(0))
         for key, leaf in _flat(jax.tree.map(np.asarray, params)).items():
@@ -104,7 +104,7 @@ def _inputs(path):
     return dtypes, want
 
 
-PORT_SCRIPT = textwrap.dedent("""
+_SCRIPT = textwrap.dedent("""
     import dataclasses, json, sys
     import numpy as np
     import torch
@@ -133,7 +133,8 @@ PORT_SCRIPT = textwrap.dedent("""
 
     def cfg_of(name):
         return dataclasses.replace(configs.ARCHS[name].reduced(),
-                                   compute_dtype="float32")
+                                   compute_dtype="float32",
+                                   param_dtype="float32")
 
     def weights(name):
         tree = {}
@@ -369,6 +370,7 @@ PORT_SCRIPT = textwrap.dedent("""
             out[f"{key}/nomesh_tokens"] = torch.cat(ntoks, dim=1).numpy()
             for i, lg in enumerate(wlogits):
                 out[f"{key}/decode{i}"] = lg.numpy()
+    %s
     if rank == 0:
         np.savez(sys.argv[3], **out)
         with open(sys.argv[4], "w") as fh:
@@ -376,7 +378,17 @@ PORT_SCRIPT = textwrap.dedent("""
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     print("PORT_OK")
-""") % (ARCHS, MESHES, (B, S, PRE, STEPS))
+""")
+
+
+def port_script(archs, extra: str = "pass") -> str:
+    """Each rank's script for ``archs``; ``extra`` (dedented code) runs
+    after the per-arch cases, before rank 0 writes the report."""
+    return _SCRIPT % (archs, MESHES, (B, S, PRE, STEPS),
+                      textwrap.dedent(extra).strip())
+
+
+PORT_SCRIPT = port_script(ARCHS)
 
 
 @pytest.fixture(scope="module")

@@ -9,10 +9,15 @@ the last snapshot lies within SNAP_BYTES of the step's peak.  The figures
 are counts, equal on any host.
 
     PYTHONPATH=src python3 tools/dryrun_peak.py [--arch gemma3-1b]
-        [--shape train_4k] [--multi-pod] [--top 20]
+        [--shape train_4k] [--multi-pod] [--top 20] [--layers N]
+
+``--layers N`` cuts the arch to its first N layers (the dry-run's
+``get_arch`` replaced for the run), for a cell whose full depth traces
+too long.
 """
 import argparse
 import collections
+import dataclasses
 import sys
 import weakref
 from pathlib import Path
@@ -67,18 +72,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--layers", type=int, default=0)
     args = ap.parse_args(argv)
     counters = []
     real, dryrun.OpCounter = dryrun.OpCounter, PeakCounter
+    full = dryrun.get_arch
+    if args.layers:
+        dryrun.get_arch = lambda name: dataclasses.replace(
+            full(name), n_layers=args.layers)
     try:
         cell = dryrun.run_cell(args.arch, args.shape,
                                multi_pod=args.multi_pod, verbose=False,
                                counter_out=counters)
     finally:
-        dryrun.OpCounter = real
+        dryrun.OpCounter, dryrun.get_arch = real, full
     counter = counters[0]
     peak = counter.peak_bytes
-    print(f"{args.arch} {args.shape} {dryrun.mesh_name_of(args.multi_pod)}: "
+    print(f"{args.arch}{f' ({args.layers} layers)' if args.layers else ''} "
+          f"{args.shape} {dryrun.mesh_name_of(args.multi_pod)}: "
           f"peak {peak} bytes = {peak / 2**30:.2f} GiB a rank, "
           f"{cell['per_device_flops']:.4g} FLOPs; the labels below at "
           f"{counter.snap_bytes} bytes = {counter.snap_bytes / 2**30:.2f} GiB")
