@@ -278,7 +278,30 @@ Phases, each of which fails the run (non-zero exit) on error:
    planted fault (``reduce_from``'s backward a psum) above the bound;
    (5c) (2b)'s prompts and steps through ``make_prefill_step``/
    ``make_serve_step`` under ``serve_rules()``: the tokens equal (2b)'s
-   one-process run's by the margin rule, 2 flash launches a rank.  The
+   one-process run's by the margin rule, 2 flash launches a rank.  (5f)
+   The global MoE dispatch in DIST_RANKS children of its own
+   (``--moe-child``): qwen3-moe-235b-a22b at full width (d_model 4096,
+   64/4 heads of 128, 128 experts of 1536, top-8, vocabulary 151936) cut
+   to 1 of 94 layers, fp32, S = 2048, on a ``("model",)`` mesh of 4 (B =
+   1, 32 experts a rank) and on (2, 2) ``("data", "model")`` (B = 2, the
+   second row one token repeated so that its data shard overflows its
+   experts; 64 experts a rank, the train, prefill and decode steps
+   data-parallel regions that route the whole batch), the params held as
+   blocks drawn leaf by leaf: the logits, one ``make_train_step`` step's
+   loss and every gradient leaf, and the prefill + 4 decode tokens against
+   one process's, which rank 0 runs first while the others wait (its
+   results on the host, each rank's block sent to it), within
+   DIST_TP_REC_TOL; the planted per-shard routing (on (2, 2): the logits
+   of a forward inside a data-parallel region of the rows) and the
+   experts' ``reduce_from`` made a psum (on 4: a step's MoE gradients)
+   above the bound; the (token,
+   slot)s dropped routing the whole batch (as one process) and per shard
+   (which must differ), the expert bytes held a rank, each rank's step
+   peak beside one process's and flash launches equal to its.  (5g)
+   xlstm-1.3b's first layer (an mLSTM) at full width, B = 1, S = 1024, in
+   DIST_ROWS_RANKS children (``--rows-child``) on a ``("model",)`` mesh of
+   8, which its 4 heads do not divide: (5e)'s checks, with C held as each
+   rank's 128 of its 1024 value rows.  The
    decode ring (2) reads each rank's vocabulary block of the logits
    gathered whole.  The counters are zeroed just before; every rank and
    child reports its launches, and their sum is the ``dist`` path's.
@@ -299,7 +322,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    heads, MLP and vocabulary computed on each rank's block where the rules
    split them: ``decode_32k`` at most 8.45 GiB a rank at pod16x16 and 5.19
    GiB (and lower) at pod2x16x16, ``train_4k`` at most 97 GiB and 2.0e14
-   FLOPs a rank, printed beside the JAX package's dry-run figures.  (a) The tuner on the card at gemma3-1b's attention width (h
+   FLOPs a rank, printed beside the JAX package's dry-run figures; and
+   llama4-maverick ``train_4k`` cut to 2 of 48 layers, whose FLOPs and
+   bytes a rank must equal the CPU's (MOE_LAUNCH_CPU), its experts'
+   products on 8 of 128 experts a rank, none over all 128.  (a) The tuner
+   on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
    ``best_schedule`` for those and S = 3072 (also measured over the
@@ -3759,8 +3786,10 @@ DIST_TP_TRAIN_LAYERS = 2       # (5b): gemma3-1b cut to 2 of 26 layers
 DIST_TP_TRAIN_SEQ = 2048       # (5b): B = 1
 # (5d) hymba-1.5b and (5e) xlstm-1.3b tensor-parallel: (layers, B = 1
 # tokens) at full width; hymba cut to 2 of 32 layers, xlstm to one period
-# (7 mLSTM and 1 sLSTM) of 48
-DIST_TP_RECURRENT = {"hymba-1.5b": (2, 2048), "xlstm-1.3b": (8, 1024)}
+# (7 mLSTM and 1 sLSTM) of 48 and to 256 tokens (from 1024 when (5g)
+# came to carry the mLSTM core at 1024: the sLSTM steps one token at a
+# time, thrice a step)
+DIST_TP_RECURRENT = {"hymba-1.5b": (2, 2048), "xlstm-1.3b": (8, 256)}
 DIST_TP_REC_STEPS = 4          # decode tokens after the prefill
 # logits, loss and gradient leaves against one process: the row-parallel
 # psums add in another order, and hymba's norm of its SSM branch and the
@@ -3771,6 +3800,20 @@ DIST_TP_REC_STEPS = 4          # decode tokens after the prefill
 # the largest
 DIST_TP_REC_TOL = 2e-4
 DIST_MOE_SHARED = "llama4-maverick-400b-a17b"   # its shared expert, reduced()
+# (5f) the global MoE dispatch: DIST_MOE_GLOBAL at full width cut to 1 of
+# its 94 layers (llama4 at full width does not fit: its experts are 32 GB
+# a layer in bf16), fp32, S = DIST_MOE_GLOBAL_SEQ, on DIST_RANKS ranks:
+# (label, mesh shape, axis names, B)
+DIST_MOE_GLOBAL = "qwen3-moe-235b-a22b"
+DIST_MOE_GLOBAL_SEQ = 2048
+DIST_MOE_GLOBAL_MESHES = (("model4", (4,), ("model",), 1),
+                          ("2x2", (2, 2), ("data", "model"), 2))
+DIST_MOE_GLOBAL_STEPS = 4      # decode tokens after the prefill
+DIST_MOE_GLOBAL_TIMEOUT_S = 300.0   # the ranks wait on rank 0's one process
+# (5g) the mLSTM core on value rows: (arch, layers, B = 1 tokens) on a
+# ("model",) mesh of DIST_ROWS_RANKS, whose 4 heads it does not divide
+DIST_ROWS = ("xlstm-1.3b", 1, 1024)
+DIST_ROWS_RANKS = 8
 DP_TOL = {"nccl": 1e-6, "gloo": 1e-5}
 DIST_DEADLINE_S = 300    # each group of child processes, from its start
 DIST_GROUP_TIMEOUT_S = 120.0   # a collective no peer answers fails the rank
@@ -4329,14 +4372,18 @@ class _PlantedReduce:
         return self._real.psum(t, mesh, names)
 
 
-def _dist_tp_recurrent(arch, mesh, K, rank, device) -> dict:
-    """(5d)/(5e): ``arch`` at full width cut to DIST_TP_RECURRENT's layers,
-    fp32, B = 1, tensor-parallel on the ("model",) mesh of the ranks with
+def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
+                       seq=None, plant_cut=False) -> dict:
+    """(5d)/(5e)/(5g): ``arch`` at full width cut to ``layers`` (by default
+    DIST_TP_RECURRENT's layers and tokens), fp32, B = 1, tensor-parallel
+    on the ("model",) mesh of the ranks with
     the params held as blocks: the forward's logits (each rank's
     vocabulary block where it is split), one make_train_step step's loss
     and every gradient leaf, the same step with the planted fault (the
     row-parallel ``reduce_from`` of the recurrent layer's module made a
-    psum), a prefill and DIST_TP_REC_STEPS decode steps with the cache
+    psum; with ``plant_cut`` instead the forward with the mLSTM's gate
+    and ``w_down`` cut contiguously, where the value rows cut them per
+    head), a prefill and DIST_TP_REC_STEPS decode steps with the cache
     held as blocks; on rank 0 each against one process on the same
     weights.  Per rank the walls, staged bytes, the step's peak and the
     flash launches of each part."""
@@ -4347,7 +4394,7 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device) -> dict:
     from repro_torch.dist import collectives
     from repro_torch.dist.sharding import (Block, cache_shardings,
                                            gather_tree, serve_rules,
-                                           shard_tree, train_rules,
+                                           shard_tree, take, train_rules,
                                            tree_shardings, use_mesh)
     from repro_torch.models import build_model, module
     from repro_torch.models import transformer, xlstm
@@ -4355,7 +4402,8 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device) -> dict:
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
     from repro_torch.train.step import TrainStepConfig, make_train_step
 
-    layers, seq = DIST_TP_RECURRENT[arch]
+    if layers is None:
+        layers, seq = DIST_TP_RECURRENT[arch]
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers,
                               compute_dtype="float32")
     model = build_model(cfg)
@@ -4461,20 +4509,41 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device) -> dict:
     rec["axes"] = axes
     prints = collectives.all_ranks(collectives.fingerprint(logits))
     rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
+    bad = None
+    if plant_cut:
+        # the gate's and w_down's rows cut contiguously where the value
+        # rows take each head's block of them (a forward's fault)
+        rec["fault_name"] = "the gate and w_down cut contiguously"
+        real = xlstm.take_parts
+
+        def contiguous(leaf, dim, axes, parts):
+            if parts == cfg.n_heads:
+                return take(leaf, dim, axes)
+            return real(leaf, dim, axes, parts)
+        xlstm.take_parts = contiguous
+        try:
+            bad, _ = forward(True)
+        finally:
+            xlstm.take_parts = real
     if rank == 0:
         (want, _), rec["one_forward"] = timed(False, lambda: forward(False))
         rec["forward_err"] = _rel_err(logits, want)
+        if plant_cut:
+            rec["fault_err"] = _rel_err(bad, want)
         del want
-    del logits
+    del logits, bad
     loss, got, rec["step"] = step(True)
     rec["loss"] = loss
     _same_on_ranks(f"the tensor-parallel {arch} step's loss", loss)
-    real = plant.collectives
-    plant.collectives = _PlantedReduce(real)
-    try:
-        bad_loss, bad, _ = step(True)
-    finally:
-        plant.collectives = real
+    bad = None
+    if not plant_cut:
+        rec["fault_name"] = "the recurrent layer's reduce_from a psum"
+        real = plant.collectives
+        plant.collectives = _PlantedReduce(real)
+        try:
+            _, bad, _ = step(True)
+        finally:
+            plant.collectives = real
     if rank == 0:
         want_loss, want, rec["one_step"] = step(False)
         errs = {path: _rel_err(g, w) for (path, g), (_, w) in zip(
@@ -4482,9 +4551,9 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device) -> dict:
         worst = max(errs, key=errs.get)
         rec["loss_err"] = abs(loss - want_loss) / abs(want_loss)
         rec["grad_err"], rec["grad_worst"] = errs[worst], worst
-        rec["fault_err"] = max(_rel_err(g, w) for g, w in zip(
-            module.leaves(bad), module.leaves(want)))
-        rec["fault_loss"] = bad_loss
+        if not plant_cut:
+            rec["fault_err"] = max(_rel_err(g, w) for g, w in zip(
+                module.leaves(bad), module.leaves(want)))
         del want
     del got, bad
     toks, _, rec["held"], rec["decode"] = decode(True)
@@ -4550,6 +4619,546 @@ def _dist_moe_shared(device) -> dict:
         out[dispatch] = {"err": (y - ref).abs().max().item(),
                          "grad_err": max((g - w).abs().max().item()
                                          for g, w in zip(grads, want))}
+    return out
+
+
+def _grads_only(captured: list):
+    """An AdamW without moments that appends each step's gradient tree
+    (Blocks where the params are) to ``captured`` and leaves the params as
+    they are: (5f) holds the gradients, and one process's moments would
+    take 30 GB of the card at its size."""
+    from repro_torch.dist.sharding import Block
+    from repro_torch.models import module
+    from repro_torch.optim.adamw import AdamW, AdamWState
+
+    class GradsOnly(AdamW):
+        def init(self, params):
+            return AdamWState(step=torch.zeros((), dtype=torch.int32),
+                              mu={}, nu={})
+
+        def update(self, grads, state, params):
+            captured.append(module.tree_map(
+                lambda g, p: p.with_local(g) if isinstance(p, Block) else g,
+                grads, params))
+            return params, state, torch.zeros(())
+    return GradsOnly(learning_rate=0.0)
+
+
+def _blocked_init(model, mesh, rules, device, seed: int = 0):
+    """``model.init_params`` of ``seed`` held as this rank's blocks under
+    ``rules`` (``shard_tree``), one leaf at a time: each leaf drawn whole
+    on the card from its own generator, as ``module.init`` draws it, then
+    cut and freed, so that no rank holds the whole params."""
+    from repro_torch.dist.sharding import shard_tree, tree_shardings
+    from repro_torch.models import module
+
+    specs = model.param_specs()
+    count = iter(range(len(module.leaves(specs))))
+
+    def one(spec, sh):
+        g = torch.Generator(device=device)
+        g.manual_seed(module._fold_in(seed, next(count)))
+        return shard_tree(spec.instantiate(g, device), sh, mesh)
+    return module.tree_map(one, specs, tree_shardings(specs, mesh, rules))
+
+
+def _coords(mesh, rank: int) -> dict:
+    """Global rank ``rank``'s coordinate along each of ``mesh``'s axes
+    (laid out row-major, as ``init_device_mesh`` lays them)."""
+    return dict(zip(mesh.mesh_dim_names,
+                    (int(c) for c in np.unravel_index(rank,
+                                                      tuple(mesh.shape)))))
+
+
+def _block_at(t: torch.Tensor, spec, mesh, rank: int) -> torch.Tensor:
+    """The block of ``t`` that global rank ``rank`` holds under ``spec``."""
+    from repro_torch.dist.collectives import axis_size, names_of
+
+    coords = _coords(mesh, rank)
+    for dim, entry in enumerate(spec):
+        index, blocks = 0, 1
+        for name in names_of(entry):
+            size = axis_size(mesh, name)
+            index, blocks = index * size + coords[name], blocks * size
+        if blocks > 1:
+            length = t.shape[dim] // blocks
+            t = t.narrow(dim, index * length, length)
+    return t
+
+
+def _against_host(got, spec, mesh, rank: int, want, need) -> float:
+    """max |got - want's block| over max |want|, where ``got`` is this
+    rank's block (on the card) of a tensor that rank 0 holds whole on the
+    host (``want``: the tensor and its largest magnitude; None on the
+    other ranks), sent block by block over gloo to the ranks in ``need``;
+    nan on the others."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+
+    mine = None
+    if rank == 0:
+        want, top = want
+        for r in need:
+            if r:
+                dist.send(_block_at(want, spec, mesh, r).contiguous(), r)
+        mine = _block_at(want, spec, mesh, 0)
+    elif rank in need:
+        mine = torch.empty(got.shape, dtype=got.dtype)
+        dist.recv(mine, 0)
+    top = collectives.all_ranks(top if rank == 0 else None)[0]
+    if mine is None:
+        return float("nan")
+    return _max_diff(got, mine) / max(top, 1e-30)
+
+
+def _max_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| with one temporary on ``got``'s device (``want``
+    may lie on the host)."""
+    d = want.to(got.device, dtype=torch.float32, copy=True)
+    d.sub_(got)
+    return d.abs_().max().item()
+
+
+def _moe_leaves(tree) -> list:
+    """The (path, leaf) pairs of the MoE's router and experts."""
+    return [(p, x) for p, x in _paths(tree)
+            if re.search(r"moe/(router|w_gate|w_up|w_down)$", p)]
+
+
+def _dist_moe_global(mesh, rows: int, K, rank: int, world: int,
+                     device) -> dict:
+    """(5f): DIST_MOE_GLOBAL at full width cut to 1 layer, fp32, B = ``rows``
+    S = DIST_MOE_GLOBAL_SEQ (with 2 rows the second is one token repeated,
+    so that its data shard overflows its experts' capacity), on ``mesh``
+    under train_rules() with the params held as blocks (each rank's
+    experts a Block over "model"), through the global MoE dispatch: the
+    forward's logits, one make_train_step step's loss and every gradient
+    leaf, a prefill and DIST_MOE_GLOBAL_STEPS decode steps, against the
+    same in one process, which rank 0 runs first while the other ranks
+    wait, keeping its results on the host (each rank's block of them sent
+    to it over gloo; on the (2, 2) mesh to the ranks of data coordinate 0
+    only, the others held bit-equal to them).  The planted faults: on a
+    mesh with a data axis the per-shard routing (the dispatch blind to
+    the data-parallel region), on a forward inside a region of each
+    rank's rows against the same with the whole batch's routing; else
+    the experts' reduce_from a psum, on a step's MoE gradients.  The
+    (token, slot)s dropped under each routing, the expert bytes held, the
+    walls, staged bytes, peaks and flash launches."""
+    import dataclasses
+    import resource
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import collectives, compat
+    from repro_torch.dist.sharding import (Block, data_region, local,
+                                           serve_rules, train_rules,
+                                           use_mesh)
+    from repro_torch.models import build_model, module, moe
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+
+    cfg = dataclasses.replace(get_arch(DIST_MOE_GLOBAL), n_layers=1,
+                              compute_dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    seq, steps = DIST_MOE_GLOBAL_SEQ, DIST_MOE_GLOBAL_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    if rows > 1:
+        tokens[1] = tokens[1, 0]
+    tokens = tokens.to(device)
+    batch = {"tokens": tokens, "labels": tokens}
+    link, rules = mesh.transport, train_rules()
+    data = [n for n in mesh.mesh_dim_names if n != "model"]
+    need = [r for r in range(world)
+            if not any(_coords(mesh, r)[n] for n in data)]
+    drops = []
+    real_routing = moe._global_routing
+
+    def routing(*args):
+        out = real_routing(*args)
+        drops.append(int((out[3] >= cfg.n_experts * out[4]).sum()))
+        return out
+
+    def timed(on_mesh, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if on_mesh:
+            dist.barrier()
+        host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+        drops.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"wall_s": time.perf_counter() - t0,
+                     "host_bytes": link.host_bytes - host0[0],
+                     "host_s": link.host_s - host0[1],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "flash": _delta(K, before),
+                     "dropped": drops[0] if drops else None}
+
+    def frame(on_mesh, r):
+        return use_mesh(mesh if on_mesh else None, r if on_mesh else None)
+
+    def forward(params, on_mesh):
+        with torch.no_grad(), frame(on_mesh, rules):
+            logits, _ = model.forward(params, {"tokens": tokens},
+                                      remat=False)
+            axes = model.vocab_axes(rows, seq) if on_mesh else ()
+        return logits, axes
+
+    def step(params, on_mesh):
+        captured = []
+        opt = _grads_only(captured)
+        state = opt.init(params)
+        fn = make_train_step(model, opt, TrainStepConfig())
+
+        def run():
+            with frame(on_mesh, rules):
+                _, _, metrics = fn(params, state, batch)
+                return metrics["loss"].item()
+        loss, info = timed(on_mesh, run)
+        # the list gives the tree up: the optimizer's class (a reference
+        # cycle, freed only by the collector) keeps the list alive
+        return loss, captured.pop(), info
+
+    def region_forward(params):
+        part = collectives.block(tokens, mesh, (tuple(data), None))
+        with torch.no_grad(), data_region(mesh, tuple(data)), \
+                use_mesh(compat.submesh(mesh, ["model"]), rules):
+            return model.forward(params, {"tokens": part}, remat=False)[0]
+
+    def decode(params, on_mesh):
+        prefill = make_prefill_step(model, seq + steps)
+        serve = make_serve_step(model)
+
+        def run():
+            with torch.no_grad(), frame(on_mesh, serve_rules()):
+                tok, cache = prefill(params, {"tokens": tokens})
+                toks, last = [tok], []
+                for i in range(steps):
+                    tok, lg, cache = serve(params, cache, toks[-1], seq + i)
+                    toks.append(tok)
+                    last.append(lg[:, -1].float().cpu())
+                return torch.cat(toks, dim=1).tolist(), last
+        (toks, last), info = timed(on_mesh, run)
+        return toks, last, info
+
+    rec = {"rows": rows, "seq": seq, "need": need}
+    want = {}
+    moe._global_routing = routing
+    t0 = time.perf_counter()
+    try:
+        if rank == 0:
+            params = model.init_params(torch.Generator().manual_seed(0),
+                                       device=device)
+            (logits, _), rec["one_forward"] = timed(
+                False, lambda: forward(params, False))
+            want["logits"] = (logits.cpu(), logits.abs().max().item())
+            del logits
+            want["loss"], grads, rec["one_step"] = step(params, False)
+            want["grads"] = [(g.cpu(), g.abs().max().item())
+                             for g in module.leaves(grads)]
+            del grads
+            want["tokens"], want["rows"], rec["one_decode"] = decode(
+                params, False)
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+        rec["one_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = _blocked_init(model, mesh, rules, device)
+        rec["init_s"] = time.perf_counter() - t0
+        rec["expert_bytes"] = sum(
+            local(x).numel() * local(x).element_size()
+            for p, x in _moe_leaves(params) if not p.endswith("router"))
+        rec["expert_shape"] = [list(local(x).shape)
+                               for p, x in _moe_leaves(params)
+                               if p.endswith("w_gate")]
+        (logits, axes), rec["forward"] = timed(
+            True, lambda: forward(params, True))
+        spec = (None, None, tuple(axes) or None)
+        rec["forward_err"] = _against_host(logits, spec, mesh, rank,
+                                           want.get("logits"), need)
+        prints = collectives.all_ranks(collectives.fingerprint(logits))
+        del logits
+        if rank == 0:                   # the prefill's last position
+            want["last"] = want.pop("logits")[0][:, -1].clone()
+
+        loss, grads, rec["step"] = step(params, True)
+        rec["loss"] = loss
+        _same_on_ranks("the global MoE step's loss", loss)
+        t0 = time.perf_counter()
+        errs = {}
+        for i, (path, g) in enumerate(_paths(grads)):
+            spec = g.spec if isinstance(g, Block) else (None,) * g.ndim
+            errs[path] = _against_host(local(g), spec, mesh, rank,
+                                       want["grads"][i] if rank == 0
+                                       else None, need)
+            prints.append(collectives.fingerprint(local(g)))
+        rec["compare_s"] = time.perf_counter() - t0
+        worst = max((p for p in errs if errs[p] == errs[p]),
+                    key=errs.get, default=None)
+        rec["grad_err"] = errs[worst] if worst else float("nan")
+        rec["grad_worst"] = worst
+        rec["prints"] = prints
+        if rank == 0:
+            rec["loss_err"] = abs(loss - want["loss"]) / abs(want["loss"])
+            del want["grads"]
+        good = [(p, local(g).cpu()) for p, g in _moe_leaves(grads)] \
+            if not data else None
+        del grads
+        torch.cuda.empty_cache()
+
+        if data:
+            # the routing blind to the region: a forward over this rank's
+            # rows inside the region, against the same with the whole
+            # batch's routing
+            rec["fault"] = "per-shard routing"
+            rec["fault_on"] = "logits of a forward in the region"
+            got, _ = timed(True, lambda: region_forward(params))
+            real = moe.active_region
+            moe.active_region = lambda: None
+            try:
+                bad, bad_info = timed(True, lambda: region_forward(params))
+            finally:
+                moe.active_region = real
+            rec["fault_err"] = _rel_err(bad, got)
+            del got, bad
+        else:
+            rec["fault"] = "experts' reduce_from a psum"
+            rec["fault_on"] = "MoE gradients in a step"
+            real = moe.collectives
+            moe.collectives = _PlantedReduce(real)
+            try:
+                _, bad, bad_info = step(params, True)
+            finally:
+                moe.collectives = real
+            bad = [local(g) for _, g in _moe_leaves(bad)]   # the rest freed
+            rec["fault_err"] = max(
+                _max_diff(g, w) / max(w.abs().max().item(), 1e-30)
+                for g, (_, w) in zip(bad, good))
+            del bad, good
+        rec["fault_s"] = bad_info["wall_s"]
+        rec["fault_dropped"] = bad_info["dropped"]
+        torch.cuda.empty_cache()
+
+        toks, _, rec["decode"] = decode(params, True)
+        rec["tokens"] = toks
+        _same_on_ranks("the global MoE decode's tokens", toks)
+        del params
+        torch.cuda.empty_cache()
+        if rank == 0:
+            rec["note"] = _hold_tokens(
+                f"dist global MoE decode on {tuple(mesh.shape)}", toks,
+                want["tokens"], lambda b, j: want["rows"][j - 1][b] if j
+                else want["last"][b])
+            rec["one_dropped"] = rec["one_step"]["dropped"]
+    finally:
+        moe._global_routing = real_routing
+    rec["max_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return rec
+
+
+def moe_child(argv) -> int:
+    """``python3 chip_smoke.py --moe-child RANK WORLD URL OUT``: one rank of
+    phase_dist's (5f) on cuda:0, joined over gloo at URL, on each mesh of
+    DIST_MOE_GLOBAL_MESHES in turn; writes its report to OUT.RANK.json."""
+    from repro_torch.dist import compat
+
+    import gc
+
+    rank, world, url, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    K = _kernels()
+    device = compat.init_process_group(
+        DIST_DEVICE, backend="gloo", init_method=url, rank=rank,
+        world_size=world, timeout_s=DIST_MOE_GLOBAL_TIMEOUT_S)
+    rep = {"rank": rank}
+    for label, shape, names, rows in DIST_MOE_GLOBAL_MESHES:
+        mesh = compat.make_mesh(shape, names, device=device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep[label] = _dist_moe_global(mesh, rows, K, rank, world, device)
+        print(f"{label}: device memory left allocated "
+              f"{torch.cuda.memory_allocated()} bytes, host peak "
+              f"{rep[label]['max_rss_bytes']} bytes", flush=True)
+    rep["launches"] = launch_counts(K)
+    Path(f"{out}.{rank}.json").write_text(json.dumps(rep))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def rows_child(argv) -> int:
+    """``python3 chip_smoke.py --rows-child RANK WORLD URL OUT``: one rank of
+    phase_dist's (5g) on cuda:0 over gloo, on a ("model",) mesh of WORLD;
+    writes its report to OUT.RANK.json."""
+    from repro_torch.dist import compat
+
+    rank, world, url, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    K = _kernels()
+    device = compat.init_process_group(
+        DIST_DEVICE, backend="gloo", init_method=url, rank=rank,
+        world_size=world, timeout_s=DIST_GROUP_TIMEOUT_S)
+    mesh = compat.make_mesh((world,), ("model",), device=device)
+    arch, layers, seq = DIST_ROWS
+    rep = {"rank": rank, "rows": _dist_tp_recurrent(
+        arch, mesh, K, rank, device, layers, seq, plant_cut=True)}
+    rep["launches"] = launch_counts(K)
+    Path(f"{out}.{rank}.json").write_text(json.dumps(rep))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _group(mode: str, world: int, label: str, counts, env=None) -> tuple:
+    """``world`` children ``--MODE-child`` on cuda:0 over gloo, with
+    ``env`` added to their environment: (their reports, the wall)."""
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rank"
+        argvs = [[f"--{mode}-child", str(r), str(world),
+                  f"file://{tmp}/rendezvous", out] for r in range(world)]
+        t0 = time.perf_counter()
+        _children(argvs, [{**os.environ, **(env or {})}] * world, label)
+        wall = time.perf_counter() - t0
+        reps = [json.loads(Path(f"{out}.{r}.json").read_text())
+                for r in range(world)]
+    for rep in reps:
+        _add(counts, rep["launches"])
+    return reps, wall
+
+
+def _flash_of(part: dict) -> dict:
+    return {k: v for k, v in part["flash"].items() if v}
+
+
+def _dist_moe_global_report(counts, card) -> dict:
+    """(5f) in DIST_RANKS children: the prints and gates."""
+    from repro_torch.configs import get_arch
+
+    # the four ranks on (2, 2) hold 7.5 GB of params and as much of
+    # gradients each: the allocator's segments grow in place rather than
+    # leave each rank 3 GB reserved and unused
+    reps, wall = _group("moe", DIST_RANKS, "global MoE", counts, {
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    cfg = get_arch(DIST_MOE_GLOBAL)
+    whole = 3 * cfg.n_experts * cfg.d_model * cfg.expert_d_ff * 4
+    tol, out = DIST_TP_REC_TOL, {"moe_global_wall_s": wall}
+    print(f"dist: global MoE, {DIST_MOE_GLOBAL} at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.n_experts} experts of "
+          f"{cfg.expert_d_ff}, top-{cfg.moe_top_k}, vocabulary "
+          f"{cfg.vocab_size}) cut to 1 of {cfg.n_layers} layers, fp32, "
+          f"{DIST_RANKS} ranks on {DIST_DEVICE}: {wall:.1f} s; {card}")
+    for label, shape, names, rows in DIST_MOE_GLOBAL_MESHES:
+        r0 = reps[0][label]
+        model_n = shape[names.index("model")]
+        one = {p: _flash_of(r0[f"one_{p}"])
+               for p in ("forward", "step", "decode")}
+        for rep in reps:
+            rec = rep[label]
+            flash = {p: _flash_of(rec[p]) for p in ("forward", "step",
+                                                    "decode")}
+            print(f"dist: global MoE on {shape} {names} rank {rep['rank']}, "
+                  f"B={rows} S={rec['seq']}: experts held "
+                  f"{rec['expert_shape']} a leaf, {rec['expert_bytes']} "
+                  f"bytes of the whole {whole}; forward "
+                  f"{rec['forward']['wall_s']:.2f} s, train step "
+                  f"{rec['step']['wall_s']:.2f} s, "
+                  f"{rec['step']['host_bytes']} bytes staged in "
+                  f"{rec['step']['host_s']:.3f} s, peak "
+                  f"{rec['step']['peak_bytes'] / 2**30:.2f} GiB against one "
+                  f"process's {r0['one_step']['peak_bytes'] / 2**30:.2f} "
+                  f"GiB, host peak {rec['max_rss_bytes'] / 2**30:.1f} GiB; "
+                  f"prefill + {DIST_MOE_GLOBAL_STEPS} decode steps "
+                  f"{rec['decode']['wall_s']:.2f} s; flash launches "
+                  f"{json.dumps(flash)}, one process's {json.dumps(one)}; "
+                  f"{card}")
+            if flash != one:
+                raise RuntimeError(f"dist: global MoE rank {rep['rank']} "
+                                   f"launched {flash}, one process {one}")
+            if rec["expert_bytes"] * model_n != whole:
+                raise RuntimeError(f"dist: global MoE rank {rep['rank']} "
+                                   f"holds {rec['expert_bytes']} expert "
+                                   f"bytes of {whole}")
+        firsts = [rep[label] for rep in reps
+                  if rep["rank"] in reps[0][label]["need"]]
+        errs = [r["forward_err"] for r in firsts]
+        worst = max((r["grad_err"], r["grad_worst"]) for r in firsts)
+        # model is the mesh's last axis: rank r's replica of data
+        # coordinate 0 is r % model_n, and the ranks of model coordinate 0
+        # hold the data shards
+        replicas = all(rep[label]["prints"]
+                       == reps[rep["rank"] % model_n][label]["prints"]
+                       for rep in reps)
+        shards = range(0, DIST_RANKS, model_n)
+        whole_drop = sum(reps[r][label]["step"]["dropped"] for r in shards)
+        shard_drop = sum(reps[r][label]["fault_dropped"] for r in shards)
+        fault = max(rep[label]["fault_err"] for rep in reps)
+        print(f"dist: global MoE on {shape} against one process: logits "
+              f"{max(errs):.3g} of the largest (bound {tol}), the step's "
+              f"loss {r0['loss_err']:.3g} relative, gradients "
+              f"{worst[0]:.3g} of their leaf's largest at worst "
+              f"({worst[1]}), the data replicas "
+              f"{'bit-equal' if replicas else 'DIFFER'}; (token, slot)s "
+              f"dropped {whole_drop} routing the whole batch (one process "
+              f"{r0['one_dropped']}), {shard_drop} under the planted "
+              f"{r0['fault']}, whose {r0['fault_on']} land at "
+              f"{fault:.3g}; "
+              f"decode tokens against one process: {r0['note']}; rank 0's "
+              f"one-process run and the others' wait {r0['one_s']:.1f} s, "
+              f"the blocked init {r0['init_s']:.1f} s, the gradients sent "
+              f"and compared {r0['compare_s']:.1f} s, the planted run "
+              f"{r0['fault_s']:.1f} s; {card}")
+        if not (max(errs) <= tol and r0["loss_err"] <= tol
+                and worst[0] <= tol and replicas):
+            raise RuntimeError(f"dist: the global MoE on {shape} misses its "
+                               f"bound: {errs}, {r0['loss_err']}, {worst}, "
+                               f"replicas {replicas}")
+        if whole_drop != r0["one_dropped"] or not fault > tol:
+            raise RuntimeError(f"dist: the global MoE on {shape}: dropped "
+                               f"{whole_drop} against one process's "
+                               f"{r0['one_dropped']}, the planted fault "
+                               f"{fault:.3g}")
+        if len(names) > 1 and shard_drop == whole_drop:
+            raise RuntimeError(f"dist: the per-shard routing dropped as "
+                               f"many as the whole batch's ({whole_drop})")
+        out[f"moe_global_{label}"] = {
+            "logits": max(errs), "grads": worst[0],
+            "loss": r0["loss_err"], "fault": fault,
+            "dropped": [whole_drop, shard_drop],
+            "step_peak_bytes": [rep[label]["step"]["peak_bytes"]
+                                for rep in reps],
+            "one_step_peak_bytes": r0["one_step"]["peak_bytes"]}
+    return out
+
+
+def _dist_rows_report(counts, card) -> dict:
+    """(5g) in DIST_ROWS_RANKS children: the prints and gates, and C held
+    as each rank's block of its value rows."""
+    reps, wall = _group("rows", DIST_ROWS_RANKS, "value rows", counts)
+    arch, layers, seq = DIST_ROWS
+    cfg = _arch(arch)
+    dh = 2 * cfg.d_model // cfg.n_heads
+    rows = dh // DIST_ROWS_RANKS
+    print(f"dist: {arch}'s first layer (an mLSTM, {cfg.n_heads} heads of "
+          f"{dh}, which do not divide {DIST_ROWS_RANKS}) at full width, "
+          f"fp32, B=1 S={seq}, on a ('model',) mesh of {DIST_ROWS_RANKS} "
+          f"ranks on {DIST_DEVICE}: {wall:.1f} s; {card}")
+    out = _tp_recurrent_case(reps, "rows", arch, card)
+    held = reps[0]["rows"]["held"]
+    want = f"{rows}, {dh}) of "
+    if not any(want in h and h.endswith(f"{dh}, {dh})") for h in held):
+        raise RuntimeError(f"dist: {arch}'s C is not held as {rows} of "
+                           f"{dh} value rows a rank: {held}")
+    print(f"dist: {arch}'s C held as each rank's {rows} of {dh} value rows: "
+          f"{held}; {card}")
+    out["rows_wall_s"] = wall
     return out
 
 
@@ -4666,10 +5275,12 @@ def _children(argvs, envs, label) -> list:
                               stderr=subprocess.PIPE, text=True)
              for argv, env in zip(argvs, envs)]
     deadline = time.monotonic() + DIST_DEADLINE_S
+    first = None            # the child that failed first
     try:
         while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) \
-                    or time.monotonic() > deadline:
+            first = next((i for i, p in enumerate(procs)
+                          if p.poll() not in (None, 0)), None)
+            if first is not None or time.monotonic() > deadline:
                 break
             time.sleep(0.2)
     finally:
@@ -4677,7 +5288,9 @@ def _children(argvs, envs, label) -> list:
             if p.poll() is None:
                 p.kill()
     outs = [(p.wait(), p.stdout.read(), p.stderr.read()) for p in procs]
-    for i, (rc, out, err) in enumerate(outs):
+    order = ([first] if first is not None else []) + list(range(len(outs)))
+    for i in order:
+        rc, out, err = outs[i]
         if rc != 0:
             raise RuntimeError(f"dist: {label} child {i} exited {rc}: "
                                f"{out[-1500:]} {err[-3000:]}")
@@ -4924,68 +5537,7 @@ def _dist_tp_recurrent_report(reps, card) -> dict:
     """(5d)/(5e)'s prints and gates over the ranks' reports."""
     out = {}
     for arch in DIST_TP_RECURRENT:
-        key = f"tp_{arch}"
-        r0 = reps[0][key]
-        one = {part: {k: v for k, v in r0[f"one_{part}"]["flash"].items()
-                      if v} for part in ("forward", "step", "decode")}
-        for rep in reps:
-            rec = rep[key]
-            flash = {part: {k: v for k, v in rec[part]["flash"].items() if v}
-                     for part in ("forward", "step", "decode")}
-            print(f"dist: tensor-parallel {arch} rank {rep['rank']}, "
-                  f"{rec['layers']} layers at full width, fp32, B=1 "
-                  f"S={rec['seq']}, on a ('model',) mesh of {len(reps)} "
-                  f"with the params held as blocks: forward "
-                  f"{rec['forward']['wall_s']:.2f} s, "
-                  f"{rec['forward']['host_bytes']} bytes staged; train step "
-                  f"{rec['step']['wall_s']:.2f} s, "
-                  f"{rec['step']['host_bytes']} bytes staged in "
-                  f"{rec['step']['host_s']:.3f} s, peak "
-                  f"{rec['step']['peak_bytes'] / 2**30:.2f} GiB; prefill + "
-                  f"{DIST_TP_REC_STEPS} decode steps "
-                  f"{rec['decode']['wall_s']:.2f} s, cache blocks "
-                  f"{rec['held']}; flash launches {json.dumps(flash)}, one "
-                  f"process's {json.dumps(one)}; {card}")
-            if flash != one:
-                raise RuntimeError(f"dist: the tensor-parallel {arch} rank "
-                                   f"{rep['rank']} launched {flash}, one "
-                                   f"process {one}")
-            if _arch(arch).family == "ssm" and any(flash.values()):
-                raise RuntimeError(f"dist: {arch} launched {flash}")
-        tol = DIST_TP_REC_TOL
-        print(f"dist: tensor-parallel {arch} against one process: logits "
-              f"over {r0['axes'] or 'the whole vocabulary'} "
-              f"{r0['forward_err']:.3g} of the largest (bound "
-              f"{DIST_TP_REC_TOL}), the ranks' gathered logits "
-              f"{'bit-equal' if r0['ranks_bit_equal'] else 'DIFFER'}; the "
-              f"step's loss {r0['loss_err']:.3g} relative (bound "
-              f"{DIST_TP_REC_TOL}), gradients {r0['grad_err']:.3g} of "
-              f"their leaf's largest at worst ({r0['grad_worst']}, bound "
-              f"{tol}); planted fault (the recurrent layer's reduce_from a "
-              f"psum) {r0['fault_err']:.3g}; one process's step "
-              f"{r0['one_step']['wall_s']:.2f} s, peak "
-              f"{r0['one_step']['peak_bytes'] / 2**30:.2f} GiB; decode "
-              f"tokens against one process: {r0['note']}; {card}")
-        if arch == "hymba-1.5b":
-            print(f"dist: {arch}'s SSM scan without its remat kept at least "
-                  f"{_ssm_unrematted_bytes(arch, len(reps))} bytes a rank "
-                  f"(A_bar and Bx whole, [1, {r0['seq']}, "
-                  f"{_arch(arch).d_model // len(reps)}, "
-                  f"{_arch(arch).ssm_state}] fp32 a layer), "
-                  f"beside the step's peak "
-                  f"{r0['step']['peak_bytes'] / 2**30:.2f} GiB a rank; "
-                  f"{card}")
-        if not (r0["forward_err"] <= DIST_TP_REC_TOL
-                and r0["loss_err"] <= DIST_TP_REC_TOL
-                and r0["grad_err"] <= tol and r0["ranks_bit_equal"]):
-            raise RuntimeError(f"dist: the tensor-parallel {arch} step or "
-                               f"forward misses its bound: {r0}")
-        if not r0["fault_err"] > tol:
-            raise RuntimeError(f"dist: the bound misses the planted {arch} "
-                               f"reduce_from fault ({r0['fault_err']:.3g})")
-        out[f"tp_{arch}_grad_err"] = r0["grad_err"]
-        out[f"tp_{arch}_step_peak_bytes"] = [r[key]["step"]["peak_bytes"]
-                                             for r in reps]
+        out.update(_tp_recurrent_case(reps, f"tp_{arch}", arch, card))
     shared = reps[0]["moe_shared"]
     print(f"dist: {DIST_MOE_SHARED} reduced MoE with its shared expert on "
           f"(2, 2) ('data', 'model'), fp32: "
@@ -4996,6 +5548,74 @@ def _dist_tp_recurrent_report(reps, card) -> dict:
     for d, v in shared.items():
         if not (v["err"] <= DIST_MOE_TOL and v["grad_err"] <= DIST_MOE_TOL):
             raise RuntimeError(f"dist: the {d} MoE's shared expert {v}")
+    return out
+
+
+def _tp_recurrent_case(reps, key, arch, card) -> dict:
+    """One arch's prints and gates over the ranks' reports under
+    ``key``: (5d), (5e) and (5g)."""
+    out = {}
+    r0 = reps[0][key]
+    one = {part: {k: v for k, v in r0[f"one_{part}"]["flash"].items()
+                  if v} for part in ("forward", "step", "decode")}
+    for rep in reps:
+        rec = rep[key]
+        flash = {part: {k: v for k, v in rec[part]["flash"].items() if v}
+                 for part in ("forward", "step", "decode")}
+        print(f"dist: tensor-parallel {arch} rank {rep['rank']}, "
+              f"{rec['layers']} layers at full width, fp32, B=1 "
+              f"S={rec['seq']}, on a ('model',) mesh of {len(reps)} "
+              f"with the params held as blocks: forward "
+              f"{rec['forward']['wall_s']:.2f} s, "
+              f"{rec['forward']['host_bytes']} bytes staged; train step "
+              f"{rec['step']['wall_s']:.2f} s, "
+              f"{rec['step']['host_bytes']} bytes staged in "
+              f"{rec['step']['host_s']:.3f} s, peak "
+              f"{rec['step']['peak_bytes'] / 2**30:.2f} GiB; prefill + "
+              f"{DIST_TP_REC_STEPS} decode steps "
+              f"{rec['decode']['wall_s']:.2f} s, cache blocks "
+              f"{rec['held']}; flash launches {json.dumps(flash)}, one "
+              f"process's {json.dumps(one)}; {card}")
+        if flash != one:
+            raise RuntimeError(f"dist: the tensor-parallel {arch} rank "
+                               f"{rep['rank']} launched {flash}, one "
+                               f"process {one}")
+        if _arch(arch).family == "ssm" and any(flash.values()):
+            raise RuntimeError(f"dist: {arch} launched {flash}")
+    tol = DIST_TP_REC_TOL
+    print(f"dist: tensor-parallel {arch} against one process: logits "
+          f"over {r0['axes'] or 'the whole vocabulary'} "
+          f"{r0['forward_err']:.3g} of the largest (bound "
+          f"{DIST_TP_REC_TOL}), the ranks' gathered logits "
+          f"{'bit-equal' if r0['ranks_bit_equal'] else 'DIFFER'}; the "
+          f"step's loss {r0['loss_err']:.3g} relative (bound "
+          f"{DIST_TP_REC_TOL}), gradients {r0['grad_err']:.3g} of "
+          f"their leaf's largest at worst ({r0['grad_worst']}, bound "
+          f"{tol}); planted fault ({r0['fault_name']}) "
+          f"{r0['fault_err']:.3g}; one process's step "
+          f"{r0['one_step']['wall_s']:.2f} s, peak "
+          f"{r0['one_step']['peak_bytes'] / 2**30:.2f} GiB; decode "
+          f"tokens against one process: {r0['note']}; {card}")
+    if arch == "hymba-1.5b":
+        print(f"dist: {arch}'s SSM scan without its remat kept at least "
+              f"{_ssm_unrematted_bytes(arch, len(reps))} bytes a rank "
+              f"(A_bar and Bx whole, [1, {r0['seq']}, "
+              f"{_arch(arch).d_model // len(reps)}, "
+              f"{_arch(arch).ssm_state}] fp32 a layer), "
+              f"beside the step's peak "
+              f"{r0['step']['peak_bytes'] / 2**30:.2f} GiB a rank; "
+              f"{card}")
+    if not (r0["forward_err"] <= DIST_TP_REC_TOL
+            and r0["loss_err"] <= DIST_TP_REC_TOL
+            and r0["grad_err"] <= tol and r0["ranks_bit_equal"]):
+        raise RuntimeError(f"dist: the tensor-parallel {arch} step or "
+                           f"forward misses its bound: {r0}")
+    if not r0["fault_err"] > tol:
+        raise RuntimeError(f"dist: the bound misses the planted {arch} "
+                           f"reduce_from fault ({r0['fault_err']:.3g})")
+    out[f"{key}_grad_err"] = r0["grad_err"]
+    out[f"{key}_step_peak_bytes"] = [r[key]["step"]["peak_bytes"]
+                                     for r in reps]
     return out
 
 
@@ -5116,6 +5736,8 @@ def phase_dist(K, device, card: str, launcher: dict) -> tuple:
     zero_counts(K)
     counts = launch_counts(K)
     timing = _dist_ranks(counts, card)
+    timing.update(_dist_moe_global_report(counts, card))
+    timing.update(_dist_rows_report(counts, card))
     torch.cuda.empty_cache()
     timing.update(_dist_dp_nccl(K, device, card, launcher))
     _add(counts, launch_counts(K))
@@ -5161,6 +5783,14 @@ TRAIN_FLOPS_BOUND = 2.1e14
 # the JAX package's dry-run of train_4k at pod16x16 on the CPU
 # (``python -m repro.launch.dryrun``): FLOPs and GiB a rank, printed beside
 REFERENCE_TRAIN = (1.874e14, 25.77)
+# the global MoE dispatch on each rank's experts in the dry-run:
+# llama4-maverick train_4k at pod16x16 cut to 2 of its 48 layers (one
+# attention, one MoE layer), its per-rank FLOPs and bytes as the dry-run
+# counts them on a CPU (tests/dryrun_depth.py), and its experts a rank
+MOE_LAUNCH_ARCH = "llama4-maverick-400b-a17b"
+MOE_LAUNCH_LAYERS = 2
+MOE_LAUNCH_CPU = (245897615114240, 55983956421)
+MOE_LAUNCH_EXPERTS = (8, 128)
 
 
 def launch_child(argv) -> int:
@@ -5169,6 +5799,8 @@ def launch_child(argv) -> int:
     for decode_32k at both meshes, ``train_4k``'s from ``run_cell`` merged
     under its key), and OUT.child.json: the profile's top rows for
     ``train_4k``, the launch counts, whether CUDA was initialised."""
+    import dataclasses
+
     from repro_torch.launch import dryrun, profile
 
     torch.set_num_threads(1)
@@ -5184,7 +5816,25 @@ def launch_child(argv) -> int:
     out.write_text(json.dumps(doc, indent=1))
     traffic, flops, colls = profile.profile_counter(counters[0])
     profile.print_tables(traffic, flops, colls, PROFILE_TOP)
+    full = dryrun.get_arch
+    dryrun.get_arch = lambda name: dataclasses.replace(
+        full(name), n_layers=MOE_LAUNCH_LAYERS) \
+        if name == MOE_LAUNCH_ARCH else full(name)
+    counters = []
+    try:
+        moe = dryrun.run_cell(MOE_LAUNCH_ARCH, "train_4k", verbose=False,
+                              counter_out=counters)
+    finally:
+        dryrun.get_arch = full
+    rank, whole = MOE_LAUNCH_EXPERTS
+    moe["experts"] = {shape: v for (op, shape), v in counters[0].flops.items()
+                      if op == "aten.bmm"
+                      and shape.startswith(f"bf16[{rank},")}
+    moe["experts_whole"] = sorted({
+        shape for _, shape in counters[0].traffic
+        if shape.startswith(f"bf16[{whole},")})
     Path(f"{out}.child.json").write_text(json.dumps({
+        "moe": moe,
         "top": {"traffic": traffic[:PROFILE_TOP],
                 "flops": flops[:PROFILE_TOP], "colls": colls[:PROFILE_TOP]},
         "launches": launch_counts(K),
@@ -5407,6 +6057,26 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
         print(f"launch: profile {LAUNCH_ARCH}|train_4k|pod16x16 top "
               f"{PROFILE_TOP} by {name}: " + "; ".join(
                   f"{v / 1e9:.1f} G {op} {shp}" for v, op, shp, _ in rows))
+    moe = child["moe"]
+    mem = moe["memory_per_device_bytes"]["total_bytes"]
+    rank, whole = MOE_LAUNCH_EXPERTS
+    print(f"launch: dry-run {MOE_LAUNCH_ARCH}|train_4k|pod16x16 cut to "
+          f"{MOE_LAUNCH_LAYERS} layers, the global MoE dispatch on {rank} of "
+          f"{whole} experts a rank: {moe['per_device_flops']:.6e} FLOPs and "
+          f"{mem} bytes = {mem / 2**30:.2f} GiB a rank (the CPU's "
+          f"{MOE_LAUNCH_CPU[0]:.6e} and {MOE_LAUNCH_CPU[1]}), collectives "
+          f"{json.dumps(moe['collective_breakdown'])} bytes; the experts' "
+          f"products " + "; ".join(f"{shp} {v:.6e} FLOPs" for shp, v in
+                                    sorted(moe["experts"].items()))
+          + f"; tensors over all {whole} experts: "
+          f"{moe['experts_whole'] or 'none'}; fake trace "
+          f"{moe['lower_s']:.1f} s; {card}")
+    if (moe["per_device_flops"], mem) != MOE_LAUNCH_CPU \
+            or len(moe["experts"]) != 4 or moe["experts_whole"]:
+        raise RuntimeError(f"launch: the dry-run of {MOE_LAUNCH_ARCH}: "
+                           f"{moe['per_device_flops']}, {mem} bytes, "
+                           f"experts {moe['experts']}, whole "
+                           f"{moe['experts_whole']}")
     print(f"launch: the dry-run child {child['wall_s']:.1f} s, "
           f"{len(skips)} skip records, no kernel launched, CUDA never "
           f"initialised in it")
@@ -6018,6 +6688,10 @@ def main() -> int:
         return train_child(sys.argv[2:])
     if sys.argv[1:2] == ["--dist-child"]:
         return dist_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--moe-child"]:
+        return moe_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--rows-child"]:
+        return rows_child(sys.argv[2:])
     if sys.argv[1:2] == ["--dp-child"]:
         return dp_child(sys.argv[2:])
     if sys.argv[1:2] == ["--launch-child"]:

@@ -55,11 +55,15 @@ path computes every layer whole.  Hymba's SSM branch runs on this rank's
 ``mlp`` channels, the mLSTM on its channels and, where the rules split
 them, its heads, the sLSTM's gate product on its block of each gate
 (``models.ssm``, ``models.xlstm``; :func:`take_parts` cuts a leaf whose
-axis concatenates parts), and the MoE's shared expert is the split MLP;
-the MoE's experts are a shard_map region of their own.  A cache is
-blocked over its batch axis and, where the rules split them, its KV
-heads, SSM channels and mLSTM heads (:func:`cache_shardings`): the layers
-write this rank's block of each.
+axis concatenates parts; where its heads do not divide the axes the
+mLSTM's core runs on this rank's block of C's value rows), the MoE's
+shared expert is the split MLP and its experts compute on this rank's
+block of them (the global and local dispatches; the shard_map dispatch is
+a region of its own).  A cache is blocked over its batch axis and, where
+the rules split them, its KV heads, SSM channels and mLSTM heads or C's
+value rows (:func:`cache_shardings`): the layers write this rank's block
+of each.  A data-parallel region (:func:`data_region`) makes its batch
+axes known to the layers it runs.
 ``tree_shardings``/``batch_shardings`` give per leaf the resolved spec and
 its DTensor placements.
 """
@@ -227,16 +231,60 @@ def active_rules() -> Optional[ShardingRules]:
     return stack[-1][1] if stack else None
 
 
+class Region(NamedTuple):
+    """A data-parallel region (``train.step._data_parallel``,
+    ``serve.decode``'s steps): the whole ``mesh``, the batch ``axes`` it
+    cut this rank's rows over (blocks in ``local_batch``'s order, the first
+    axis outermost), and ``weight``, the factor the region multiplies this
+    rank's gradients by before summing them over ``axes`` (None where no
+    gradient is taken)."""
+
+    mesh: Any
+    axes: tuple
+    weight: Optional[torch.Tensor] = None
+
+
+def _regions() -> list:
+    regions = getattr(_STATE, "regions", None)
+    if regions is None:
+        regions = _STATE.regions = []
+    return regions
+
+
+@contextlib.contextmanager
+def data_region(mesh, axes: tuple, weight: Optional[torch.Tensor] = None):
+    """Make a data-parallel region known to the layers it runs (this
+    thread's enclosing calls): a layer that the reference computes over
+    the whole batch at once (``models.moe``'s global dispatch) reads the
+    batch axes from :func:`active_region` and reduces over them.  The
+    region's model runs under ``use_mesh`` of the rest of the mesh
+    inside it."""
+    _regions().append(Region(mesh, tuple(axes), weight))
+    try:
+        yield
+    finally:
+        _regions().pop()
+
+
+def active_region() -> Optional[Region]:
+    regions = _regions()
+    return regions[-1] if regions else None
+
+
 def bind_frame(fn):
-    """``fn`` run under the mesh frame active now, wherever it is called:
-    a checkpoint's recompute runs on autograd's device thread on the card,
-    where this thread's frame is not active."""
-    if not _stack():
+    """``fn`` run under the mesh frame and data-parallel region active
+    now, wherever it is called: a checkpoint's recompute runs on
+    autograd's device thread on the card, where this thread's frames are
+    not active."""
+    if not _stack() and not _regions():
         return fn
-    mesh, rules = active_mesh(), active_rules()
+    mesh, rules, region = active_mesh(), active_rules(), active_region()
 
     def run(*args, **kwargs):
-        with use_mesh(mesh, rules):
+        with contextlib.ExitStack() as frames:
+            if region is not None:
+                frames.enter_context(data_region(*region))
+            frames.enter_context(use_mesh(mesh, rules))
             return fn(*args, **kwargs)
     return run
 
@@ -315,19 +363,37 @@ def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
 
 # the cache dimensions the blocked layout splits: the rows, and the state
 # the layers compute on blocks of (the KV heads, hymba's SSM channels, the
-# mLSTM's heads)
-_CACHE_AXES = ("batch", "kv_heads", "mlp", "heads")
+# mLSTM's heads or its C's value rows)
+_CACHE_AXES = ("batch", "kv_heads", "mlp", "heads", "value_rows")
+
+# an mLSTM C's trailing logical axes: [heads, value rows, key columns]
+_MLSTM_C = ("heads", "head_dim", "head_dim")
+
+
+def cache_logical(logical_axes: Sequence[Optional[str]]) -> tuple:
+    """A cache leaf's logical axes as the blocked layout reads them: an
+    mLSTM C's value rows (its first ``head_dim``, v's head dim) named
+    ``"value_rows"``, which the rules split as the mLSTM's ``mlp``
+    channels (after dedup: only where its heads take no axis)."""
+    axes = tuple(logical_axes)
+    if axes[-3:] == _MLSTM_C:
+        return axes[:-2] + ("value_rows", "head_dim")
+    return axes
 
 
 def cache_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     """A :class:`Sharding` per leaf of a cache's ParamSpec tree in the
     blocked layout: the entries of its "batch", "kv_heads", "mlp" and
-    "heads" dimensions only (module docstring); the sequence, and the
-    sLSTM's state, stay whole."""
+    "heads" dimensions, and of an mLSTM C's value rows
+    (:func:`cache_logical`), only (module docstring); the sequence, and
+    the sLSTM's state, stay whole."""
     from repro_torch.models.module import tree_map
 
+    rules = ShardingRules({**rules.rules, "value_rows": rules.rules.get(
+        "mlp")})
+
     def one(spec):
-        axes = spec.logical_axes or (None,) * len(spec.shape)
+        axes = cache_logical(spec.logical_axes or (None,) * len(spec.shape))
         resolved = _sharding(axes, spec.shape, mesh, rules).spec
         return _placed(tuple(e if ax in _CACHE_AXES else None
                              for e, ax in zip(resolved, axes)), mesh)

@@ -17,6 +17,30 @@ dispatch (``moe_apply_shardmap``) is an SPMD region on
 ``torch.distributed`` (``dist.collectives``): every rank takes its block of
 the tokens (data axes) and of the experts (``model``), and one psum over
 ``model`` combines them.
+
+Under a mesh whose rules split ``expert`` (the reference's constraints on
+the dispatched tokens and the hidden units), the global and local
+dispatches compute this rank's block of the experts only: the routing, the
+positions, the combine weights and the aux loss are computed whole on
+every rank, as a replicated layer, the experts' weights are this rank's
+block (``dist.sharding.take``: held as a Block over ``expert``, or cut at
+use), the rows of the dispatch table that belong to its experts run the
+FFN, their weighted outputs are scattered into the tokens and summed over
+the axes (``collectives.reduce_from``); the tokens and the combine weights
+enter through ``collectives.copy_to``, so the router's and the input's
+gradients are whole on every rank.  The psum adds the experts in another
+order than one process's ``index_add_``.
+
+Inside a data-parallel region (``dist.sharding.data_region``: the train
+step's and the serve steps' regions, where each rank runs the model on its
+rows) the global dispatch routes the whole batch, as the reference does:
+the capacity is the whole batch's, each (token, slot)'s position adds to
+its place among this rank's tokens the counts of every earlier slot over
+all shards and of its slot in the shards before this one (each rank's
+per-slot, per-expert counts all-gathered), and the aux loss sums the
+densities and the mean probabilities over the batch axes before their
+product.  The local dispatch routes each shard as in the reference, whose
+aux loss is the whole batch's too.
 """
 from __future__ import annotations
 
@@ -25,8 +49,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
-                                       gather_tree)
+from repro_torch.dist.sharding import (_axis_sizes, active_mesh,
+                                       active_region, constrain, gather_tree,
+                                       split_axes, take)
 from repro_torch.models.layers import gelu, mlp, mlp_spec
 from repro_torch.models.module import ParamSpec
 
@@ -87,10 +112,80 @@ def _positions(expert_idx: torch.Tensor, e: int) -> torch.Tensor:
     return (pos * oh).sum(-1).reshape(*lead, k, n).transpose(-1, -2)
 
 
-def _aux(expert_idx: torch.Tensor, probs: torch.Tensor, e: int):
-    """Switch-style load-balancing loss: e * sum(density * mean prob)."""
-    density = F.one_hot(expert_idx[..., 0].reshape(-1), e).float().mean(0)
-    return e * torch.sum(density * probs.mean(0))
+def _whole_batch_positions(expert_idx: torch.Tensor, e: int, region
+                           ) -> torch.Tensor:
+    """:func:`_positions` of this rank's tokens [N,k] in the whole batch of
+    a data-parallel region: slot-major, the shards in the batch rows'
+    order.  A (token, slot)'s position is its place among this shard's
+    tokens of that slot and expert, plus the counts of every earlier slot
+    over all shards and of its slot in the shards before this one (each
+    rank's counts [k, E] all-gathered over the batch axes)."""
+    n, k = expert_idx.shape
+    onehot = F.one_hot(expert_idx, e)                          # [N,k,E]
+    within = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(-1)
+    counts = onehot.sum(0)                                     # [k,E]
+    every = collectives._gather_whole(counts[None], region.mesh,
+                                      (region.axes, None, None))
+    index, _ = collectives.block_index(region.mesh, region.axes)
+    totals = every.sum(0)
+    offset = torch.cumsum(totals, dim=0) - totals + every[:index].sum(0)
+    slots = torch.arange(k, device=expert_idx.device)[None, :]
+    return within + offset[slots, expert_idx]
+
+
+class _OverWeight(torch.autograd.Function):
+    """Identity forward; the cotangent divided by ``weight`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, weight):
+        ctx.save_for_backward(weight)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, = ctx.saved_tensors
+        return g / weight.to(g.dtype), None
+
+
+def _aux(expert_idx: torch.Tensor, probs: torch.Tensor, e: int,
+         region=None):
+    """Switch-style load-balancing loss: e * sum(density * mean prob).
+    In a data-parallel ``region`` over the whole batch: the densities
+    (no gradient) and the probabilities' sums are summed over the batch
+    axes before their product, so every rank gets the whole batch's loss.
+    The sum's backward is the identity (``reduce_from``), so each rank's
+    gradient reaches its own tokens' probabilities, divided by the
+    region's weight, which the region multiplies the rank's gradients by
+    before their sum."""
+    if region is None:
+        density = F.one_hot(expert_idx[..., 0].reshape(-1), e).float().mean(0)
+        return e * torch.sum(density * probs.mean(0))
+    _, shards = collectives.block_index(region.mesh, region.axes)
+    n = expert_idx[..., 0].numel() * shards
+    first = F.one_hot(expert_idx[..., 0].reshape(-1), e).float().sum(0)
+    density = collectives._all_reduce(first.detach(), region.mesh,
+                                      region.axes) / n
+    p = probs.reshape(-1, e).sum(0)
+    if region.weight is not None:
+        p = _OverWeight.apply(p, region.weight)
+    p = collectives.reduce_from(p, region.mesh, region.axes) / n
+    return e * torch.sum(density * p)
+
+
+def _expert_block(e: int, axes: tuple) -> tuple:
+    """(the first expert, the number of experts) of this rank's block over
+    ``axes`` (all of them without)."""
+    if not axes:
+        return 0, e
+    index, blocks = collectives.block_index(active_mesh(), axes)
+    return index * (e // blocks), e // blocks
+
+
+def _expert_weights(params: dict, axes: tuple, dtype) -> tuple:
+    """w_gate, w_up, w_down on this rank's experts (whole without
+    ``axes``), in ``dtype``."""
+    return tuple(take(params[k], 0, axes).to(dtype)
+                 for k in ("w_gate", "w_up", "w_down"))
 
 
 def _data_shards(x_batch: int) -> int:
@@ -151,34 +246,45 @@ def moe_apply_local(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
                          "batch", "expert", None)
     w_slot = constrain(w_slot.reshape(shards, e, cap), "batch", "expert", None)
 
-    xe = torch.gather(x_s, 1, dispatch.reshape(shards, e * cap, 1).expand(
-        shards, e * cap, d)).reshape(shards, e, cap, d) \
-        * occupied[..., None].to(x.dtype)
-    xe = constrain(xe, "batch", "expert", None, "embed")
+    # this rank's experts where the rules split them (module docstring)
+    axes = split_axes(("batch", "expert", None, "embed"), (shards, e, cap, d),
+                      1)
+    lo, e_loc = _expert_block(e, axes)
+    mesh = active_mesh()
+    if axes:
+        x_s = collectives.copy_to(x_s, mesh, axes)
+        w_slot = collectives.copy_to(w_slot, mesh, axes)
+    mine = slice(lo, lo + e_loc)
+    dispatch, occupied, w_slot = (a[:, mine] for a in (dispatch, occupied,
+                                                       w_slot))
+    xe = torch.gather(x_s, 1, dispatch.reshape(shards, e_loc * cap, 1)
+                      .expand(shards, e_loc * cap, d)).reshape(
+        shards, e_loc, cap, d) * occupied[..., None].to(x.dtype)
 
     dtype = x.dtype
-    g = torch.einsum("xecd,edf->xecf", xe, params["w_gate"].to(dtype))
-    u = torch.einsum("xecd,edf->xecf", xe, params["w_up"].to(dtype))
+    w_gate, w_up, w_down = _expert_weights(params, axes, dtype)
+    g = torch.einsum("xecd,edf->xecf", xe, w_gate)
+    u = torch.einsum("xecd,edf->xecf", xe, w_up)
     h = _act(cfg, g) * u
-    h = constrain(h, "batch", "expert", None, "expert_mlp")
-    ye = torch.einsum("xecf,efd->xecd", h, params["w_down"].to(dtype))
-    ye = constrain(ye, "batch", "expert", None, "embed")
+    ye = torch.einsum("xecf,efd->xecd", h, w_down)
 
     # combine via scatter-from-experts: each slot adds its weighted output
     # to its token (empty slots point at token 0 and add zeros)
     contrib = (ye * w_slot[..., None].to(ye.dtype)
                * occupied[..., None].to(ye.dtype))
     scatter_shard = torch.arange(shards, device=dev)[:, None].expand(
-        shards, e * cap).reshape(-1)
+        shards, e_loc * cap).reshape(-1)
     y = torch.zeros((shards, nl, d), dtype=torch.float32, device=dev)
     y.index_put_((scatter_shard, dispatch.reshape(-1)),
                  contrib.reshape(-1, d).float(), accumulate=True)
+    if axes:
+        y = collectives.reduce_from(y, mesh, axes)
     y = constrain(y, "batch", None, "embed")
 
     if cfg.shared_expert:
         y = y + _shared(cfg, params, x).reshape(shards, nl, d)
 
-    aux = _aux(expert_idx, probs, e)
+    aux = _aux(expert_idx, probs, e, active_region())
     y = y.reshape(b, s, d).to(x.dtype)
     return constrain(y, "batch", "seq", "embed"), aux
 
@@ -218,8 +324,8 @@ def moe_apply_shardmap(cfg: ArchConfig, params: dict, x: torch.Tensor):
     x_spec = ((batch_axes if len(batch_axes) > 1 else batch_axes[0])
               if batch_axes else None, None, None)
     w_spec = ("model", None, None)
-    inputs = [x, params["router"], params["w_gate"], params["w_up"],
-              params["w_down"]]
+    experts = gather_tree([params[k] for k in ("w_gate", "w_up", "w_down")])
+    inputs = [x, params["router"], *experts]
     specs = [x_spec, (None, None), w_spec, w_spec, w_spec]
     if cfg.shared_expert:                      # f-dim sharded over 'model'
         sh = gather_tree(params["shared"])
@@ -284,19 +390,16 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
         return moe_apply_local(cfg, params, x)
     b, s, d = x.shape
     n = b * s
-    e, k = cfg.n_experts, cfg.moe_top_k
-    cap = capacity(cfg, n)
+    e = cfg.n_experts
     x_flat = x.reshape(n, d)
     dev = x.device
 
-    expert_idx, weights, probs = _route(cfg, params["router"], x_flat)
-    pos_in_expert = _positions(expert_idx, e)                  # [N,k]
-    fits = pos_in_expert < cap
-    weights = weights * fits
+    expert_idx, weights, probs, flat_dest, cap = _global_routing(
+        cfg, params["router"], x_flat)
+    k = expert_idx.shape[1]
 
     # token ids into the [E, cap] dispatch table; past-the-table
     # destinations (tokens over capacity) are dropped
-    flat_dest = expert_idx * cap + torch.where(fits, pos_in_expert, e * cap)
     token_ids = torch.arange(n, device=dev)[:, None].expand(n, k)
     index = (torch.clamp(flat_dest, max=e * cap),)   # e*cap: the extra slot
     table = torch.zeros(e * cap + 1, dtype=torch.long, device=dev)
@@ -306,30 +409,66 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     dispatch = table[:e * cap].reshape(e, cap)
     occupied = occupied[:e * cap].reshape(e, cap)
 
-    xe = x_flat[dispatch] * occupied[..., None].to(x.dtype)     # [E,cap,d]
+    # this rank's experts where the rules split them (module docstring)
+    axes = split_axes(("expert", None, "embed"), (e, cap, d), 0)
+    lo, e_loc = _expert_block(e, axes)
+    mesh = active_mesh()
+    if axes:
+        x_flat = collectives.copy_to(x_flat, mesh, axes)
+        weights = collectives.copy_to(weights, mesh, axes)
+    mine = slice(lo, lo + e_loc)
+    xe = x_flat[dispatch[mine]] * occupied[mine, :, None].to(x.dtype)
     xe = constrain(xe, "expert", None, "embed")
 
     dtype = x.dtype
-    g = torch.einsum("ecd,edf->ecf", xe, params["w_gate"].to(dtype))
-    u = torch.einsum("ecd,edf->ecf", xe, params["w_up"].to(dtype))
+    w_gate, w_up, w_down = _expert_weights(params, axes, dtype)
+    g = torch.einsum("ecd,edf->ecf", xe, w_gate)
+    u = torch.einsum("ecd,edf->ecf", xe, w_up)
     h = _act(cfg, g) * u
     h = constrain(h, "expert", None, "expert_mlp")
-    ye = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(dtype))  # [E,cap,d]
+    ye = torch.einsum("ecf,efd->ecd", h, w_down)  # [E_loc,cap,d]
 
-    # combine: scatter-add expert outputs back to tokens, weighted
-    flat_src = flat_dest.reshape(-1)                           # [N*k] via [N,k]
-    gathered = ye.reshape(e * cap, d)[torch.clamp(flat_src, 0, e * cap - 1)]
+    # combine: scatter-add this rank's experts' outputs back to tokens,
+    # weighted; the other slots add zeros
+    flat_src = flat_dest.reshape(-1) - lo * cap                # [N*k]
+    held = (flat_src >= 0) & (flat_src < e_loc * cap)
+    gathered = ye.reshape(e_loc * cap, d)[
+        torch.clamp(flat_src, 0, e_loc * cap - 1)]
     gathered = gathered.float() * weights.reshape(-1)[:, None]
-    gathered = torch.where((flat_src < e * cap)[:, None], gathered, 0.0)
+    gathered = torch.where(held[:, None], gathered, 0.0)
     y = torch.zeros((n, d), dtype=torch.float32, device=dev)
     y.index_add_(0, token_ids.reshape(-1), gathered)
+    if axes:
+        y = collectives.reduce_from(y, mesh, axes)
 
     if cfg.shared_expert:
         y = y + _shared(cfg, params, x)
 
-    aux = _aux(expert_idx, probs, e)
+    aux = _aux(expert_idx, probs, e, active_region())
     y = y.reshape(b, s, d).to(x.dtype)
     return constrain(y, "batch", "seq", "embed"), aux
+
+
+def _global_routing(cfg: ArchConfig, router_w, x_flat) -> tuple:
+    """The global dispatch's routing of x_flat [N,d]: (expert_idx [N,k],
+    weights [N,k] with the dropped (token, slot)s zeroed, probs [N,E],
+    each (token, slot)'s place in the flat [E*cap] table (E*cap where it
+    is dropped), cap).  Over the whole batch inside a data-parallel region
+    (module docstring), else over x_flat's tokens."""
+    e = cfg.n_experts
+    region = active_region()
+    expert_idx, weights, probs = _route(cfg, router_w, x_flat)
+    if region is None:
+        cap = capacity(cfg, x_flat.shape[0])
+        pos_in_expert = _positions(expert_idx, e)              # [N,k]
+    else:
+        _, shards = collectives.block_index(region.mesh, region.axes)
+        cap = capacity(cfg, x_flat.shape[0] * shards)
+        pos_in_expert = _whole_batch_positions(expert_idx, e, region)
+    fits = pos_in_expert < cap
+    weights = weights * fits
+    flat_dest = expert_idx * cap + torch.where(fits, pos_in_expert, e * cap)
+    return expert_idx, weights, probs, flat_dest, cap
 
 
 def moe_reference(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -16,17 +16,18 @@ they change no number.  A layer's params may be held as blocks
 (``dist.sharding.Block``): each layer gathers its own just before it runs
 (inside the checkpointed period, so the recompute gathers them again and
 no whole weight outlives its layer).  The attention, MLP, SSM-branch,
-xLSTM and shared-expert weights are gathered only along the axes the
-layer does not compute on: under a mesh that splits their heads or
-``mlp`` dimension they compute on this rank's block (``models.attention``,
-``models.layers``, ``models.ssm`` through :func:`_fuse_ssm`,
-``models.xlstm``, ``models.moe``; :func:`_held`).  Inside a layer the
-sequential loops remat each step (``layers.scan_step``): the period's
-recompute keeps one step's intermediates at a time.  ``stack_decode``
-updates the cache it is given in place and returns it: each layer writes
-one token slice of its KV cache and its recurrent state (whole, or this
-rank's SSM channels or mLSTM heads, as the cache holds it) into the
-stacked tensors, never a copy of the cache.
+xLSTM, shared-expert and expert weights are gathered only along the axes
+the layer does not compute on: under a mesh that splits their heads,
+``mlp`` or ``expert`` dimension they compute on this rank's block
+(``models.attention``, ``models.layers``, ``models.ssm`` through
+:func:`_fuse_ssm`, ``models.xlstm``, ``models.moe``; :func:`_held`).
+Inside a layer the sequential loops remat each step
+(``layers.scan_step``): the period's recompute keeps one step's
+intermediates at a time.  ``stack_decode`` updates the cache it is given
+in place and returns it: each layer writes one token slice of its KV
+cache and its recurrent state (whole, or this rank's SSM channels, mLSTM
+heads or C's value rows, as the cache holds it) into the stacked
+tensors, never a copy of the cache.
 """
 from __future__ import annotations
 
@@ -128,11 +129,12 @@ def ssm_axes(cfg: ArchConfig, b: int, s: int) -> tuple:
 
 
 def state_axes(cfg: ArchConfig, b: int, s: int) -> dict:
-    """``Model.state_axes``: per logical axis of a cache leaf, the mesh
-    axes its layer computes on this rank's block of."""
+    """``Model.state_axes``: per logical axis of a cache leaf (the mLSTM
+    C's value rows named ``"value_rows"``, ``dist.sharding.cache_logical``),
+    the mesh axes its layer computes on this rank's block of."""
+    _, heads, rows = xlstm_mod.mlstm_axes(cfg, b, s, 2 * cfg.d_model)
     return {"kv_heads": attn.head_axes(cfg, b, s)[1],
-            "mlp": ssm_axes(cfg, b, s),
-            "heads": xlstm_mod.mlstm_axes(cfg, b, s, 2 * cfg.d_model)[1]}
+            "mlp": ssm_axes(cfg, b, s), "heads": heads, "value_rows": rows}
 
 
 def _fuse_ssm(cfg, params, h, a, x_dtype, ssm_fn):
@@ -173,15 +175,20 @@ _TAKEN = ("attn", "cross", "mlp", "ssm_in", "ssm_out",
           "w_up", "wq", "wk", "wv", "w_if", "w_down", "w_gates")
 
 
+# the MoE's leaves its dispatches take as held: the shared expert and the
+# experts' weights (``models.moe``); the router is used whole
+_MOE_TAKEN = ("shared", "w_gate", "w_up", "w_down")
+
+
 def _held(params: dict) -> dict:
     """One block's params as its layers use them: the leaves of
-    ``_TAKEN`` and the MoE's shared expert as they are held (each layer
-    takes the block it computes on, ``dist.sharding.take``), every other
-    leaf whole (``gather_tree``)."""
+    ``_TAKEN``, the MoE's shared expert and its experts' weights as they
+    are held (each layer takes the block it computes on,
+    ``dist.sharding.take``), every other leaf whole (``gather_tree``)."""
     out = {}
     for k, v in params.items():
         if k == "moe":
-            v = {kk: vv if kk == "shared" else gather_tree(vv)
+            v = {kk: vv if kk in _MOE_TAKEN else gather_tree(vv)
                  for kk, vv in v.items()}
         elif k not in _TAKEN:
             v = gather_tree(v)

@@ -15,12 +15,19 @@ column-parallel on this rank's channels of each half of ``w_up``
 (``dist.sharding.take_parts``), q, k, v and the gates are row-parallel
 sums over those channels (then this rank's heads of them where the heads
 split), the chunkwise core and its state (C, n, m) run on this rank's
-heads (every head where they do not split), and ``w_down`` is
-row-parallel.  The
+heads, and ``w_down`` is row-parallel.  Where the heads do not divide the
+axes the core runs on this rank's block of C's value rows (the ``d`` of
+``C[h, d, e]``, v's head dim) instead: v is cut to those rows after its
+sum, ``num``, ``C_new``, the intra-chunk product with v and ``h_tilde``
+are computed per value row, and q, k, the gates, ``den``, ``n`` and ``m``
+stay whole on every rank; the gate and ``w_down``'s rows are then cut in
+``h_tilde``'s per-head layout (``take_parts`` with H parts).  The
 sLSTM's gate product is column-parallel on this rank's block of each of
 z, i, f and o, gathered whole for the recurrence (:func:`_slstm_gates`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -65,34 +72,50 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def mlstm_axes(cfg: ArchConfig, b: int, s: int, di: int) -> tuple:
     """(the mesh axes the active rules split the mLSTM's ``mlp`` channels
-    over, those of its heads); ((), ()) where they stay whole.  The heads
-    split only where the channels do, over the same axes."""
+    over, those of its heads, those of C's value rows); ((), (), ()) where
+    they stay whole.  The heads split only where the channels do, over the
+    same axes; the value rows where the channels split and the heads do
+    not, over the channels' axes, if they divide each head's rows."""
     axes = split_axes(("batch", "seq", "mlp"), (b, s, di), 2)
     if not axes:
-        return (), ()
+        return (), (), ()
+    dh = di // cfg.n_heads
     heads = split_axes(("batch", "seq", "heads", "head_dim"),
-                       (b, s, cfg.n_heads, di // cfg.n_heads), 2)
+                       (b, s, cfg.n_heads, dh), 2)
     if heads and heads != axes:
         raise ValueError(f"mLSTM: heads over {heads}, channels over {axes}")
-    return axes, heads
+    _, blocks = collectives.block_index(active_mesh(), axes)
+    rows = axes if not heads and dh % blocks == 0 else ()
+    return axes, heads, rows
 
 
-def _mlstm_up(params, u, axes):
+def _mlstm_up(params, u, axes, rows, n_heads):
     """(core_in, gate): the up product, column-parallel on this rank's
-    block of each half of ``w_up`` where ``axes``."""
+    block of each half of ``w_up`` where ``axes``; with ``rows`` the gate
+    half is cut in ``h_tilde``'s per-head layout (each head's block of
+    value rows)."""
     if axes:
         u = collectives.copy_to(u, active_mesh(), axes)
-    up = torch.matmul(u, take_parts(params["w_up"], 1, axes, 2).to(u.dtype))
-    half = up.shape[-1] // 2
-    return up[..., :half], up[..., half:]
+    if not rows:
+        up = torch.matmul(u, take_parts(params["w_up"], 1, axes, 2)
+                          .to(u.dtype))
+        half = up.shape[-1] // 2
+        return up[..., :half], up[..., half:]
+    w = take(params["w_up"])
+    half = w.shape[1] // 2
+    core_in = torch.matmul(u, take(w[:, :half], 1, axes).to(u.dtype))
+    gate = torch.matmul(u, take_parts(w[:, half:], 1, rows, n_heads)
+                        .to(u.dtype))
+    return core_in, gate
 
 
-def _mlstm_inputs(params, core_in, axes, heads):
+def _mlstm_inputs(params, core_in, axes, heads, rows=()):
     """q, k, v [B,S,H,dh] in core_in's type and the gates (log_i, log_f)
     [B,S,H] in fp32.  With ``axes`` (core_in this rank's channels) each is
     a row-parallel product on this rank's rows of its weight (the block
     the rules hold), summed over the axes; with ``heads`` then this rank's
-    heads of it."""
+    heads of it; with ``rows`` v then this rank's value rows [B,S,H,dh/r]
+    of each head."""
     mesh = active_mesh()
 
     def whole(t):
@@ -111,24 +134,46 @@ def _mlstm_inputs(params, core_in, axes, heads):
             return collectives.split(t, mesh, (None, None, tuple(heads))
                                      + (None,) * (t.ndim - 3))
         q, k, v, log_i, log_f = map(mine, (q, k, v, log_i, log_f))
+    if rows:
+        v = collectives.split(v, mesh, (None,) * (v.ndim - 1) + (tuple(rows),))
     return q, k, v, log_i, log_f
 
 
-def _mlstm_down(params, h_tilde, gate, axes, heads):
-    """The gated output product: h_tilde [B,S,C] (this rank's heads, or
-    every head) to [B,S,d], row-parallel over ``axes``."""
+def _mlstm_down(params, h_tilde, gate, axes, heads, rows, n_heads):
+    """The gated output product: h_tilde [B,S,C] (this rank's heads, this
+    rank's value rows of every head, or every head) to [B,S,d],
+    row-parallel over ``axes``: on ``w_down``'s rows in h_tilde's layout
+    (with ``rows`` each head's block of value rows, ``take_parts`` with H
+    parts)."""
     mesh = active_mesh()
-    if axes and not heads:
+    if axes and not heads and not rows:
         h_tilde = collectives.split(h_tilde, mesh, (None, None, tuple(axes)))
     gated = h_tilde * F.silu(gate)
-    y = torch.matmul(gated, take(params["w_down"], 0, axes).to(gated.dtype))
+    w_down = (take_parts(params["w_down"], 0, rows, n_heads) if rows
+              else take(params["w_down"], 0, axes))
+    y = torch.matmul(gated, w_down.to(gated.dtype))
     return collectives.reduce_from(y, mesh, axes) if axes else y
 
 
-def _mlstm_chunk(scale, carry, chunk):
-    """Chunkwise mLSTM step.  carry: (C [B,H,dh,dh], n [B,H,dh], m [B,H])."""
+def _per_rows(rows):
+    """What a computation on this rank's value rows applies to a whole
+    tensor it shares with the whole computations (``den``, ``n``):
+    ``collectives.copy_to`` over ``rows``, whose backward sums the ranks'
+    shares of its cotangent, so the whole tensors' gradients are whole on
+    every rank; the identity without ``rows``."""
+    if not rows:
+        return lambda t: t
+    mesh = active_mesh()
+    return lambda t: collectives.copy_to(t, mesh, rows)
+
+
+def _mlstm_chunk(scale, carry, chunk, rows=()):
+    """Chunkwise mLSTM step.  carry: (C [B,H,dv,dh], n [B,H,dh], m [B,H]);
+    v and C hold dv value rows (dh, or this rank's block of them over
+    ``rows``)."""
+    shared = _per_rows(rows)
     C, n, m = carry
-    q, k, v, log_i, log_f = chunk         # q,k,v: [B,L,H,dh]; gates: [B,L,H]
+    q, k, v, log_i, log_f = chunk         # q,k: [B,L,H,dh]; v: [B,L,H,dv]
     q, k, v = q.float(), k.float(), v.float()
     L = q.shape[1]
     F_ = torch.cumsum(log_f, dim=1)                        # [B,L,H]
@@ -143,18 +188,21 @@ def _mlstm_chunk(scale, carry, chunk):
     D = torch.exp(logD - m_new_q[:, :, None, :])           # [B,L,L,H]
     qk = torch.einsum("blhd,bjhd->bljh", q, k) * scale     # [B,L,L,H]
     w_intra = D * qk
-    num = (torch.einsum("blh,bhde,blhe->blhd", g, C, q * scale)
-           + torch.einsum("bljh,bjhd->blhd", w_intra, v))  # [B,L,H,dh]
+    num = (torch.einsum("blh,bhde,blhe->blhd", shared(g), C,
+                        shared(q) * scale)
+           + torch.einsum("bljh,bjhd->blhd", shared(w_intra), v))  # [B,L,H,dv]
     den = (g * torch.einsum("bhd,blhd->blh", n, q * scale)
            + w_intra.sum(dim=2))                           # [B,L,H]
-    h_tilde = num / torch.maximum(den.abs(), torch.exp(-m_new_q))[..., None]
+    h_tilde = num / shared(torch.maximum(den.abs(),
+                                         torch.exp(-m_new_q)))[..., None]
     # end-of-chunk state update
     m_end = torch.maximum(m + F_[:, -1],
                           (F_[:, -1:, :] - F_ + log_i).amax(dim=1))
     decay_old = torch.exp(m + F_[:, -1] - m_end)           # [B,H]
     w_end = torch.exp(F_[:, -1:, :] - F_ + log_i - m_end[:, None, :])  # [B,L,H]
-    C_new = (decay_old[..., None, None] * C
-             + torch.einsum("blh,blhd,blhe->bhde", w_end, v, k))
+    C_new = (shared(decay_old)[..., None, None] * C
+             + torch.einsum("blh,blhd,blhe->bhde", shared(w_end), v,
+                            shared(k)))
     n_new = decay_old[..., None] * n + torch.einsum("blh,blhd->bhd", w_end, k)
     return (C_new, n_new, m_end), h_tilde
 
@@ -162,19 +210,21 @@ def _mlstm_chunk(scale, carry, chunk):
 def mlstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
                 chunk: int = 256, state=None) -> tuple:
     """mLSTM block forward.  x: [B,S,d] -> (y [B,S,d], final state).
-    Under a mesh that splits the heads the state is this rank's heads'."""
+    Under a mesh that splits the heads the state is this rank's heads';
+    where it splits the value rows, C is this rank's rows of every head
+    (n and m whole)."""
     b, s, d = x.shape
     di = 2 * d
     dh = di // cfg.n_heads
-    axes, heads = mlstm_axes(cfg, b, s, di)
+    axes, heads, rows = mlstm_axes(cfg, b, s, di)
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    core_in, gate = _mlstm_up(params, u, axes)
-    q, k, v, log_i, log_f = _mlstm_inputs(params, core_in, axes, heads)
-    h = q.shape[2]
+    core_in, gate = _mlstm_up(params, u, axes, rows, cfg.n_heads)
+    q, k, v, log_i, log_f = _mlstm_inputs(params, core_in, axes, heads, rows)
+    h, dv = q.shape[2], v.shape[3]
 
     if state is None:
         f32 = {"dtype": torch.float32, "device": x.device}
-        state = (torch.zeros((b, h, dh, dh), **f32),
+        state = (torch.zeros((b, h, dv, dh), **f32),
                  torch.zeros((b, h, dh), **f32),
                  torch.zeros((b, h), **f32))
 
@@ -186,61 +236,76 @@ def mlstm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
         log_i = F.pad(log_i, (0, 0, 0, pad), value=NEG_INF)
         log_f = F.pad(log_f, (0, 0, 0, pad))   # f=1 would drift m; 0 ok
     scale = dh ** -0.5
-    step = scan_step(_mlstm_chunk)      # the reference's jax.checkpoint
+    # the reference's jax.checkpoint
+    step = scan_step(functools.partial(_mlstm_chunk, rows=rows) if rows
+                     else _mlstm_chunk)
     hs = []
     for chunk_in in zip(*(t.split(L, dim=1)
                           for t in (q, k, v, log_i, log_f))):
         state, h_c = step(scale, state, chunk_in)
         hs.append(h_c)
     h_tilde = torch.cat(hs, dim=1)[:, :s]
-    h_tilde = h_tilde.reshape(b, s, h * dh).to(x.dtype)
-    y = _mlstm_down(params, h_tilde, gate, axes, heads)
+    h_tilde = h_tilde.reshape(b, s, h * dv).to(x.dtype)
+    y = _mlstm_down(params, h_tilde, gate, axes, heads, rows, cfg.n_heads)
     return constrain(y, "batch", "seq", "embed"), state
 
 
-def _own_heads(state, heads, n_heads):
-    """(the state on this rank's heads, whether it was given whole): a
-    decode cache holds either every head or this rank's block
-    (``dist.sharding.cache_shardings``), told apart by its shape."""
-    if not heads or state[0].shape[1] != n_heads:
+def _state_specs(state, heads, rows) -> tuple:
+    """Per leaf of (C, n, m), the spec of this rank's block: C, n and m
+    over ``heads`` on their head axis, or C over ``rows`` on its value
+    rows (n and m whole)."""
+    if heads:
+        return tuple((None, tuple(heads)) + (None,) * (t.ndim - 2)
+                     for t in state)
+    c_spec = (None, None, tuple(rows), None) if rows else (None,) * 4
+    return (c_spec,) + tuple((None,) * t.ndim for t in state[1:])
+
+
+def _own_state(state, heads, rows, n_heads, dh):
+    """(the state on this rank's heads or value rows, whether it was given
+    whole): a decode cache holds either the whole state or this rank's
+    block (``dist.sharding.cache_shardings``), told apart by C's shape."""
+    whole = tuple(state[0].shape[1:3]) == (n_heads, dh)
+    if not (heads or rows) or not whole:
         return state, False
     mesh = active_mesh()
-    return tuple(collectives.block(t, mesh, (None, tuple(heads))
-                                   + (None,) * (t.ndim - 2))
-                 for t in state), True
+    return tuple(collectives.block(t, mesh, spec) for t, spec in zip(
+        state, _state_specs(state, heads, rows))), True
 
 
 def mlstm_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
                       state) -> tuple:
     """One token through an mLSTM block.  x: [B,1,d].  The new state comes
-    back as the state was given: whole, or this rank's heads."""
+    back as the state was given: whole, or this rank's heads or value
+    rows."""
     b, _, d = x.shape
     di = 2 * d
     dh = di // cfg.n_heads
-    axes, heads = mlstm_axes(cfg, b, 1, di)
-    (C, n, m), whole = _own_heads(state, heads, cfg.n_heads)
+    axes, heads, rows = mlstm_axes(cfg, b, 1, di)
+    (C, n, m), whole = _own_state(state, heads, rows, cfg.n_heads, dh)
     u = apply_norm(cfg.norm_kind, params["norm"], x, impl=cfg.norm_impl)
-    core_in, gate = _mlstm_up(params, u, axes)
+    core_in, gate = _mlstm_up(params, u, axes, rows, cfg.n_heads)
     q, k, v, log_i, log_f = (t[:, 0] for t in _mlstm_inputs(
-        params, core_in, axes, heads))
+        params, core_in, axes, heads, rows))
     m_new = torch.maximum(log_f + m, log_i)
     f_p = torch.exp(log_f + m - m_new)[..., None]
     i_p = torch.exp(log_i - m_new)[..., None]
     k32, v32, q32 = k.float(), v.float(), q.float() * (dh ** -0.5)
-    C_new = f_p[..., None] * C + i_p[..., None] * torch.einsum(
-        "bhd,bhe->bhde", v32, k32)
+    shared = _per_rows(rows)
+    C_new = shared(f_p)[..., None] * C + shared(i_p)[..., None] * torch.einsum(
+        "bhd,bhe->bhde", v32, shared(k32))
     n_new = f_p * n + i_p * k32
-    num = torch.einsum("bhde,bhe->bhd", C_new, q32)
+    num = torch.einsum("bhde,bhe->bhd", C_new, shared(q32))
     den = torch.einsum("bhd,bhd->bh", n_new, q32)
-    h_tilde = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    h_tilde = num / shared(torch.maximum(den.abs(),
+                                         torch.exp(-m_new)))[..., None]
     h_tilde = h_tilde.reshape(b, 1, -1).to(x.dtype)
-    y = _mlstm_down(params, h_tilde, gate, axes, heads)
+    y = _mlstm_down(params, h_tilde, gate, axes, heads, rows, cfg.n_heads)
     new = (C_new, n_new, m_new)
     if whole:
         mesh = active_mesh()
-        new = tuple(collectives._gather_whole(t, mesh, (None, tuple(heads))
-                                              + (None,) * (t.ndim - 2))
-                    for t in new)
+        new = tuple(collectives._gather_whole(t, mesh, spec) for t, spec
+                    in zip(new, _state_specs(new, heads, rows)))
     return y, new
 
 

@@ -10,7 +10,9 @@ when the prompt lies on the card.
 Under an active mesh whose rules put the batch on mesh axes, both steps
 run as a data-parallel region, as ``train.step``'s does: each rank takes
 its block of the tokens (``dist.sharding.local_batch``) and of the cache
-along the batch, runs the model under the rest of the mesh, and the
+along the batch, runs the model under the rest of the mesh (the batch
+axes made known to the layers, ``dist.sharding.data_region``: the MoE's
+global dispatch routes the whole batch, as the reference's does), and the
 sampled tokens (and the decode logits) are gathered whole on every rank.
 A blocked cache (``dist.sharding.Block``s, ``cache_shardings``) is written
 in place and stays blocked, and a prefill of blocked tokens returns a
@@ -42,8 +44,9 @@ import torch
 
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
-                                       batch_shardings, cache_shardings,
-                                       local, local_batch, use_mesh)
+                                       batch_shardings, cache_logical,
+                                       cache_shardings, data_region, local,
+                                       local_batch, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 
@@ -111,12 +114,12 @@ def _cache_specs(model: Model, cache, rows, axes=None):
     """Per cache leaf, the spec that splits its batch dimension over
     ``rows`` and each dimension ``axes`` names (a dict from the logical
     axes of ``Model.state_axes`` to spec entries: the KV heads, hymba's
-    SSM channels, the mLSTM's heads) over its entry."""
+    SSM channels, the mLSTM's heads or C's value rows) over its entry."""
     axes = axes or {}
 
     def one(leaf, spec):
         return tuple(rows if ax == "batch" else axes.get(ax)
-                     for ax in spec.logical_axes)
+                     for ax in cache_logical(spec.logical_axes))
     return tree_map(one, cache, model.cache_specs(1, 1))
 
 
@@ -160,7 +163,8 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
         views = tree_map(lambda c, spec: c.local if isinstance(c, Block)
                          else collectives.block(c, mesh, spec), cache, specs)
         rest = _rest(mesh, entry)
-        with use_mesh(rest, rules if rest is not None else None):
+        with data_region(mesh, collectives.names_of(entry)), \
+                use_mesh(rest, rules if rest is not None else None):
             logits, _ = model.decode_step(params, views, part, cache_index)
             logits = _whole_vocab(model, logits, 1)
             next_tokens = sample(logits, None, cfg.temperature)
@@ -204,7 +208,8 @@ def make_prefill_step(model: Model, max_seq: int,
         mesh, rules, entry = region
         part, _ = local_batch(batch, mesh, rules)
         rest = _rest(mesh, entry)
-        with use_mesh(rest, rules if rest is not None else None):
+        with data_region(mesh, collectives.names_of(entry)), \
+                use_mesh(rest, rules if rest is not None else None):
             next_tokens, cache, blocks = run(params, part)
         tokens = batch["tokens"]
         held = isinstance(tokens, Block)

@@ -34,8 +34,13 @@ with the rest of the mesh active (no frame when nothing is left); and the
 gradients, loss and metrics are summed over the batch axes, each rank's
 weighted by its share of the global batch's counted tokens.  The loss is
 ``sum / mask.sum()`` over the *global* batch, so a plain mean of the
-ranks' means would be wrong whenever the masks differ.  The aux loss is
-weighted alike (it is zero for a dense model).
+ranks' means would be wrong whenever the masks differ.  The region is
+made known to the layers (``dist.sharding.data_region``): the MoE's global
+dispatch routes and takes its aux loss over the whole batch there, as the
+reference does, so the aux loss is the same on every rank; its gradient
+reaches each rank's share of the batch divided by the rank's weight (the
+share, or 1 for a rank with no counted token), so the weighted sum gives
+the whole gradient.
 
 **Tensor parallelism.**  Under a mesh whose rules split the heads, the
 MLP or the vocabulary over ``model`` (``dist.sharding`` module
@@ -68,8 +73,8 @@ from torch.utils import checkpoint
 
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
-                                       bind_frame, gather_tree, local,
-                                       local_batch, use_mesh)
+                                       bind_frame, data_region, gather_tree,
+                                       local, local_batch, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -276,16 +281,21 @@ def _data_parallel(grad_fn, model: Model):
         held = tree_map(lambda p: _gather_over(p, axes), params)
         rest = compat.submesh(mesh, [n for n in mesh.mesh_dim_names
                                      if n not in axes])
-        with use_mesh(rest, rules if rest is not None else None):
-            (loss, metrics), grads = grad_fn(held, part)
         count = (_pad_vision_labels(model, part) != IGNORE_LABEL).sum()
         total = count.clone()
         collectives.reduce_sum_([total], mesh, axes)
         share = count.float() / torch.clamp(total, min=1).float()
+        # the gradients' factor: the share, or 1 where it is 0 (no counted
+        # token: the CE's gradient is 0 there, and the terms the region's
+        # layers take over the whole batch keep their part)
+        weight = torch.where(share > 0, share, torch.ones_like(share))
+        with data_region(mesh, axes, weight), \
+                use_mesh(rest, rules if rest is not None else None):
+            (loss, metrics), grads = grad_fn(held, part)
         out = [loss * share] + [v * share for v in metrics.values()]
         grad_leaves = leaves(grads)
         for g in grad_leaves:
-            g.mul_(share.to(g.dtype))
+            g.mul_(weight.to(g.dtype))
         collectives.reduce_sum_(out + grad_leaves, mesh, axes)
         grads = tree_map(
             lambda g, p: collectives.block(g, mesh, _over(p.spec, axes)).clone()

@@ -70,8 +70,17 @@ CE_REL = 1e-6       # the vocabulary-parallel cross-entropy
 HAND_REL = 1e-6     # copy_to / reduce_from / split against hand values
 
 
+def _variant(cfgs, name):
+    """An arch's ``reduced()`` config, with the fields a name such as
+    ``"xlstm-1.3b+n_heads=2"`` sets after its "+" (integers)."""
+    arch, *fields = name.split("+")
+    cfg = cfgs.ARCHS[arch].reduced()
+    return dataclasses.replace(cfg, **{k: int(v) for k, v in (
+        f.split("=") for f in fields)})
+
+
 def _cfg(cfgs, name):
-    return dataclasses.replace(cfgs.ARCHS[name].reduced(),
+    return dataclasses.replace(_variant(cfgs, name),
                                compute_dtype="float32", param_dtype="float32")
 
 
@@ -132,8 +141,11 @@ _SCRIPT = textwrap.dedent("""
               "hand": {}, "ce": {}}
 
     def cfg_of(name):
-        return dataclasses.replace(configs.ARCHS[name].reduced(),
-                                   compute_dtype="float32",
+        # "arch+field=int+...": the arch's reduced() with those fields
+        arch, *fields = name.split("+")
+        cfg = dataclasses.replace(configs.ARCHS[arch].reduced(), **{
+            k: int(v) for k, v in (f.split("=") for f in fields)})
+        return dataclasses.replace(cfg, compute_dtype="float32",
                                    param_dtype="float32")
 
     def weights(name):
@@ -381,11 +393,13 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-def port_script(archs, extra: str = "pass") -> str:
-    """Each rank's script for ``archs``; ``extra`` (dedented code) runs
-    after the per-arch cases, before rank 0 writes the report."""
-    return _SCRIPT % (archs, MESHES, (B, S, PRE, STEPS),
-                      textwrap.dedent(extra).strip())
+def port_script(archs, extra: str = "pass", meshes=None) -> str:
+    """Each rank's script for ``archs`` (names as ``_variant`` reads them)
+    on ``meshes`` ({world: {name: (shape, axis names)}}, ``MESHES`` by
+    default); ``extra`` (dedented code) runs after the per-arch cases,
+    before rank 0 writes the report."""
+    return _SCRIPT % (archs, MESHES if meshes is None else meshes,
+                      (B, S, PRE, STEPS), textwrap.dedent(extra).strip())
 
 
 PORT_SCRIPT = port_script(ARCHS)

@@ -8,9 +8,10 @@ world of 2 as ``("model",)`` and a world of 4 as ``("data", "model")`` of
 (2, 2), for hymba-1.5b (its SSM over 32 of 64 channels a rank, its heads
 and KV heads split too), xlstm-1.3b (the mLSTM over 64 of 128 channels
 and 2 of 4 heads a rank, the sLSTM's gates over a block of each gate)
-and llama4-maverick (the shared expert over 32 of 64 hidden units a
-rank; on the world of 2 only, ``WORLD_ARCHS``) at ``reduced()`` with fp32
-params and compute and the JAX package's weights.
+and llama4-maverick (the shared expert over 32 of 64 hidden units and
+its global dispatch over 2 of 4 experts a rank; on the (2, 2) mesh the
+dispatch routes the whole batch from each rank's rows) at ``reduced()``
+with fp32 params and compute and the JAX package's weights.
 The JAX package's forward and ``repro.serve.decode`` steps give the
 reference logits and tokens.  Every rank runs the forward, the gradients
 of ``make_train_step``'s loss
@@ -24,7 +25,12 @@ Beside them:
     cut ``take`` makes is not that;
   * the MoE's local and shard_map dispatches with the shared expert under
     the mesh against ``moe_reference`` with no mesh, and the shared
-    expert's gradients against the no-mesh dispatch's.
+    expert's gradients against the no-mesh dispatch's; the global
+    dispatch on blocks of the experts (in a data-parallel region on the
+    (2, 2) mesh, with an expert overflowing) against the no-mesh global
+    dispatch, the per-shard routing planted above the bound;
+  * a train step on the (2, 2) mesh whose data shards count unequal
+    tokens: the router's gradient through the whole batch's aux loss.
 
 Bounds: logits within 1e-4 of the JAX package's largest logit; the loss
 within 1e-5 of the no-mesh step's, and every gradient leaf within 1e-5
@@ -52,11 +58,7 @@ from test_torch_dist_tp import (GRAD_REL, MESHES, REL, STEPS, _inputs,
 DEADLINE_S = 300            # both worlds, from their start
 GROUP_TIMEOUT_S = 120       # a collective no peer answers fails the rank
 ARCHS = ["hymba-1.5b", "xlstm-1.3b", "llama4-maverick-400b-a17b"]
-# llama4's global MoE dispatch runs on the ("model",) world only: inside
-# the data-parallel regions of the (2, 2) mesh it routes each data shard's
-# tokens with that shard's capacity and aux loss, where the reference
-# routes the whole batch (ROADMAP, Queue 3, fault 6)
-WORLD_ARCHS = {2: ARCHS, 4: ARCHS[:2]}
+WORLD_ARCHS = {2: ARCHS, 4: ARCHS}
 MOE_TOL = 1e-5              # chip_smoke.py's DIST_MOE_TOL
 # the gradients' bound per arch: xlstm-1.3b's mLSTM feeds the row-parallel
 # sums' rounding through its exponential gates and its 1/den, and its
@@ -66,6 +68,26 @@ GRAD_BOUND = {"hymba-1.5b": GRAD_REL, "xlstm-1.3b": 2e-5,
               "llama4-maverick-400b-a17b": GRAD_REL}
 
 EXTRA = """
+import contextlib
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k],
+                                                        f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
 report["parts"], report["moe"] = {}, {}
 from repro_torch.models.moe import moe_apply, moe_reference, moe_spec
 for mname, (shape, names) in MESHES[world].items():
@@ -137,6 +159,112 @@ for mname, (shape, names) in MESHES[world].items():
             "blocked_equal": torch.equal(y, yb) and all(
                 torch.equal(a, b) for a, b in zip(g, gb))}
         on_ranks(f"{key}/moe", [y] + g)
+
+    # the global dispatch with the experts held as blocks over "model",
+    # against the port's no-mesh moe_apply (moe_reference has no
+    # capacity); on the (2, 2) mesh inside a data-parallel region of the
+    # rows whose first shard's tokens are one token repeated, so that its
+    # expert overflows
+    from repro_torch.models import moe as moe_mod
+    gcfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    xg = x.clone()
+    xg[:2] = x[0, 0]
+    data = tuple(a for a in names if a != "model")
+    experts = ("w_gate", "w_up", "w_down")
+    whole_shapes = {tuple(params[k].shape) for k in experts}
+
+    def run_global(on_mesh, blocked=True, per_shard=False):
+        live = module.tree_map(lambda p: p.detach().clone()
+                               .requires_grad_(), params)
+        if on_mesh and blocked:
+            for k in experts:
+                spec = ("model", None, None)
+                live[k] = shd.Block(collectives.block(params[k], mesh, spec)
+                                    .clone().requires_grad_(), spec, mesh)
+        rows = xg
+        seen = []
+        with contextlib.ExitStack() as st:
+            if on_mesh:
+                if data:
+                    rows = collectives.block(xg, mesh, (data, None, None))
+                    st.enter_context(shd.data_region(mesh, data))
+                    st.enter_context(shd.use_mesh(compat.submesh(
+                        mesh, ["model"]), rules))
+                else:
+                    st.enter_context(shd.use_mesh(mesh, rules))
+                real = collectives._gather_whole
+
+                def recorded(t, m, spec):
+                    out = real(t, m, spec)
+                    seen.append(tuple(out.shape))
+                    return out
+                st.enter_context(patched(collectives, "_gather_whole",
+                                              recorded))
+                if per_shard:
+                    st.enter_context(patched(moe_mod, "active_region",
+                                                  lambda: None))
+            y, aux = moe_apply(gcfg, live, rows)
+            (y ** 2).sum().backward()
+            flat = moe_mod._global_routing(gcfg, live["router"],
+                                           rows.reshape(-1, rows.shape[-1]))
+            dropped = int((flat[3] >= gcfg.n_experts * flat[4]).sum())
+        grads = []
+        for k in ("router",) + experts + tuple("shared/" + s for s in shared):
+            leaf = live
+            for part in k.split("/"):
+                leaf = leaf[part]
+            grads.append(collectives._gather_whole(
+                leaf.local.grad, mesh, leaf.spec)
+                if isinstance(leaf, shd.Block) else leaf.grad)
+        counts = torch.tensor([dropped])
+        if on_mesh and data:
+            y = collectives._gather_whole(y.detach(), mesh, (data, None, None))
+            collectives.reduce_sum_(grads + [counts], mesh, data)
+        return (y.detach(), aux.detach(), grads, int(counts),
+                any(sh in whole_shapes for sh in seen),
+                [tuple(live[k].local.shape) if isinstance(live[k], shd.Block)
+                 else None for k in experts])
+
+    want_y, want_aux, want_g, want_drop, _, _ = run_global(False)
+    y, aux, g, drop, gathered, held_shapes = run_global(True)
+    wy, waux, wg, _, _, _ = run_global(True, blocked=False)
+    bad_y, bad_aux, _, bad_drop, _, _ = run_global(True, per_shard=True)
+    key = f"{mname}/global"
+    report["moe"][key] = {
+        "err": (y - want_y).abs().max().item(),
+        "aux": abs(aux - want_aux).item(),
+        "grad": max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(g, want_g)),
+        "blocked_equal": torch.equal(y, wy) and torch.equal(aux, waux)
+        and all(torch.equal(a, b) for a, b in zip(g, wg)),
+        "dropped": drop, "dropped_no_mesh": want_drop,
+        "dropped_per_shard": bad_drop,
+        "planted": max((bad_y - want_y).abs().max().item(),
+                       abs(bad_aux - want_aux).item()),
+        "gathered_whole": gathered, "held": held_shapes,
+        "experts": gcfg.n_experts}
+    on_ranks(f"{key}/moe", [y, aux] + g)
+
+    # a train step on the (2, 2) mesh whose data shards count unequal
+    # tokens (labels ignored on the first shard's rows): the aux loss's
+    # router gradient against the no-mesh step's
+    if data:
+        name = "llama4-maverick-400b-a17b"
+        model = build_model(cfg_of(name))
+        labels = tokens.clone()
+        labels[:B // 2, :S // 2 + 3] = IGNORE_LABEL
+        batch = {"tokens": tokens, "labels": labels}
+        fn = _data_parallel(_value_and_grad(make_loss_fn(
+            model, TrainStepConfig(ce_seq_chunk=8))), model)
+        (l0, m0), g0 = fn(weights(name), batch)
+        with shd.use_mesh(mesh, rules):
+            (l1, m1), g1 = fn(weights(name), batch)
+        r0 = [leaf for path, leaf in _paths(g0) if path.endswith("router")]
+        r1 = [leaf for path, leaf in _paths(g1) if path.endswith("router")]
+        report["unequal"] = {
+            "loss": rel(l1, l0), "aux": rel(m1["aux"], m0["aux"]),
+            "router": rel(r1, r0), "grads": rel(g1, g0), "routers": len(r0)}
+        on_ranks("unequal", [l1, g1])
 """
 
 
@@ -263,14 +391,43 @@ def test_take_parts_against_a_hand_cut(runs, world, mesh):
     assert not got["contiguous"], "a contiguous cut passed the hand check"
 
 
-@pytest.mark.parametrize("dispatch", ["local", "shardmap"])
+@pytest.mark.parametrize("dispatch", ["local", "shardmap", "global"])
 @pytest.mark.parametrize("world,mesh", MESH_CASES)
 def test_moe_shared_expert_on_blocks(runs, world, mesh, dispatch):
+    """The local and shard_map dispatches against ``moe_reference``; the
+    global one (experts held as blocks over "model", inside a
+    data-parallel region of the rows on the (2, 2) mesh) against the
+    port's no-mesh ``moe_apply``, with (token, slot)s dropped, each rank's
+    experts a block never gathered whole, and the per-shard routing
+    planted above the bound."""
     rep = _report(runs, world)
     got = rep["moe"][f"{mesh}/{dispatch}"]
     assert got["err"] <= MOE_TOL and got["grad"] <= MOE_TOL, got
     assert got["blocked_equal"], got
     assert rep["ranks"][f"{mesh}/{dispatch}/moe"]
+    if dispatch != "global":
+        return
+    assert got["aux"] <= MOE_TOL, got
+    assert got["dropped"] >= 1 and got["dropped"] == got["dropped_no_mesh"]
+    model_n = 2
+    assert all(shape[0] == got["experts"] // model_n
+               for shape in got["held"]), got
+    assert not got["gathered_whole"], got
+    if mesh == "2x2":
+        assert got["dropped_per_shard"] != got["dropped"], got
+        assert got["planted"] > MOE_TOL, got
+
+
+def test_moe_aux_gradient_with_unequal_shards(runs):
+    """A train step on the (2, 2) mesh whose data shards count unequal
+    tokens: the loss, the aux loss and the router's gradient (through the
+    whole batch's aux loss) against the no-mesh step's."""
+    got = _report(runs, 4)["unequal"]
+    assert got["routers"] >= 1, got
+    assert got["loss"] <= GRAD_REL and got["aux"] <= GRAD_REL, got
+    assert got["router"] <= GRAD_REL, got
+    assert got["grads"] <= GRAD_BOUND["llama4-maverick-400b-a17b"], got
+    assert _report(runs, 4)["ranks"]["unequal"]
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,135 @@
+"""The dry-run of the MoE's global dispatch on each rank's experts and of
+the mLSTM core on each rank's value rows, at full width on the fake group
+of ``pod16x16`` (``train_4k``: B = 256, S = 4096; 16 data by 16 model
+ranks).
+
+* llama4-maverick-400b-a17b cut to 2 of 48 layers (one attention layer,
+  one MoE layer: 128 experts of 8192, top-1), against the same cell with
+  the experts computed whole on every rank (``moe.split_axes`` made ()):
+  the dispatched tokens ``xe`` are [8, cap, d] a rank with ``cap`` the
+  whole batch's capacity, no [128, cap, .] tensor appears, the experts'
+  products count exactly 1/16 of the whole cell's FLOPs, and memory is
+  lower.
+* xlstm-1.3b cut to its first layer (an mLSTM: 4 heads of 1024, which do
+  not divide 16), against the same cell with the core's value rows whole
+  (``xlstm.mlstm_axes`` without them): C's carry is [16, 4, 64, 1024],
+  no [16, 4, 1024, 1024] tensor appears, and the total FLOPs fall by
+  exactly 15/16 of the value-row products, worked out from their shapes.
+"""
+import dataclasses
+
+import pytest
+
+B_RANK, SEQ, RANKS = 16, 4096, 16
+E, E_RANK, D, F = 128, 8, 5120, 8192         # llama4: experts, d, expert_d_ff
+H, DH, CHUNK = 4, 1024, 256                  # xlstm: heads, head dim, chunk
+
+
+def _cells(arch: str, layers: int, whole_patch) -> tuple:
+    """(the cell, its op counter) and the same with ``whole_patch(mp)``
+    applied."""
+    from repro_torch.launch import dryrun
+
+    full = dryrun.get_arch
+    out = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dryrun, "get_arch", lambda name: dataclasses.replace(
+            full(name), n_layers=layers))
+        for patch in (None, whole_patch):
+            if patch is not None:
+                patch(mp)
+            counters = []
+            cell = dryrun.run_cell(arch, "train_4k", verbose=False,
+                                   counter_out=counters)
+            out.append((cell, counters[0]))
+    return tuple(out)
+
+
+@pytest.fixture(scope="module")
+def experts():
+    from repro_torch.models import moe
+
+    return _cells("llama4-maverick-400b-a17b", 2,
+                  lambda mp: mp.setattr(moe, "split_axes", lambda *a: ()))
+
+
+@pytest.fixture(scope="module")
+def value_rows():
+    from repro_torch.models import xlstm
+
+    real = xlstm.mlstm_axes
+    return _cells("xlstm-1.3b", 1, lambda mp: mp.setattr(
+        xlstm, "mlstm_axes", lambda *a: real(*a)[:2] + ((),)))
+
+
+def _shapes(counter) -> set:
+    return {shape for _, shape in counter.traffic}
+
+
+def _cap() -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import capacity
+
+    return capacity(get_arch("llama4-maverick-400b-a17b"), 256 * SEQ)
+
+
+def test_dryrun_experts_dispatched_on_blocks(experts):
+    """``xe`` is this rank's 8 experts' rows at the whole batch's capacity
+    (10240), never all 128 experts'; whole in the other cell."""
+    (_, split), (_, whole) = experts
+    cap = _cap()
+    assert cap == 10240
+    assert f"bf16[{E_RANK},{cap},{D}]" in _shapes(split)
+    assert not any(s.startswith(f"bf16[{E},{cap},") for s in _shapes(split))
+    assert f"bf16[{E},{cap},{D}]" in _shapes(whole)
+
+
+# the experts' products by their output's trailing dimensions: the gate and
+# up products (and the backward's [cap, f] gradients), the down product
+# and the input's gradient, the three weights' gradients
+EXPERT_PRODUCTS = (f"{10240},{F}", f"{10240},{D}", f"{D},{F}", f"{F},{D}")
+
+
+@pytest.mark.parametrize("tail", EXPERT_PRODUCTS)
+def test_dryrun_expert_flops_a_sixteenth(experts, tail):
+    (_, split), (_, whole) = experts
+    got = split.flops[("aten.bmm", f"bf16[{E_RANK},{tail}]")]
+    want = whole.flops[("aten.bmm", f"bf16[{E},{tail}]")]
+    assert got > 0 and got * RANKS == want, (got, want)
+
+
+def test_dryrun_experts_memory_lower(experts):
+    (split, _), (whole, _) = experts
+    assert split["memory_per_device_bytes"]["total_bytes"] \
+        < whole["memory_per_device_bytes"]["total_bytes"]
+    assert split["per_device_flops"] < whole["per_device_flops"]
+
+
+def test_dryrun_mlstm_carry_by_value_rows(value_rows):
+    """C's carry is a rank's 64 of each head's 1024 value rows, never
+    whole; whole in the other cell."""
+    (_, split), (_, whole) = value_rows
+    assert f"f32[{B_RANK},{H},{DH // RANKS},{DH}]" in _shapes(split)
+    assert f"f32[{B_RANK},{H},{DH},{DH}]" not in _shapes(split)
+    assert f"f32[{B_RANK},{H},{DH},{DH}]" in _shapes(whole)
+
+
+def test_dryrun_mlstm_flops_fall_by_the_value_rows(value_rows):
+    """The value-row products, per chunk of 256 (16 a layer) at dv = dh
+    in the whole cell: C.q and C's update (2*B*H*L*dh*dv each) and the
+    intra-chunk weights times v (2*B*H*L*L*dv), each twice in the forward
+    (the chunk step and its recompute in the backward); the backward's
+    two operand gradients of each once, but C's of the first chunk (its
+    zero carry takes none).  The split cell computes 1/16 of each, so the
+    total falls by the other 15/16."""
+    (split, _), (whole, _) = value_rows
+    n = SEQ // CHUNK
+    x = 2 * B_RANK * H * CHUNK * DH * DH
+    y = 2 * B_RANK * H * CHUNK * CHUNK * DH
+    forward = 2 * n * (x + y + x)
+    backward = n * (2 * x + 2 * y + 2 * x) - x
+    want = (forward + backward) * (RANKS - 1) // RANKS
+    got = whole["per_device_flops"] - split["per_device_flops"]
+    assert got == want, (got, want)
+    assert split["memory_per_device_bytes"]["total_bytes"] \
+        < whole["memory_per_device_bytes"]["total_bytes"]

@@ -84,7 +84,8 @@ def test_port_files_exist():
 # JAX package, imported or run (only tests reach both)
 DIST_TESTS = ("test_torch_dist.py", "test_torch_dist_train.py",
               "test_torch_dist_blocked.py", "test_torch_dist_tp.py",
-              "test_torch_dist_tp_recurrent.py", "test_torch_remat.py")
+              "test_torch_dist_tp_recurrent.py", "test_torch_remat.py",
+              "test_torch_dist_value_rows.py")
 
 
 @pytest.mark.parametrize("name", DIST_TESTS)
