@@ -259,7 +259,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    the global dispatch's.  (4) ``launch.train --data-parallel``: in
    process on a world of one over NCCL with phase 9's launcher argv, the
    losses within 1e-6 of that run's, the warm step and tokens/s beside
-   its, the gradient all-reduce by events; then two ranks over gloo on
+   its, a step's gradient all-reduce calls summed by events; then two
+   ranks over gloo on
    ``cuda:0`` (``--dp-child``, torchrun's environment) and one process,
    2 of 26 layers at fp32 compute, the losses within 1e-5.  (5) The
    tensor-parallel layers, in the same DIST_RANKS children on a
@@ -298,17 +299,23 @@ Phases, each of which fails the run (non-zero exit) on error:
    slot)s dropped routing the whole batch (as one process) and per shard
    (which must differ), the expert bytes held a rank, each rank's step
    peak beside one process's and flash launches equal to its.  (5g)
-   xlstm-1.3b's first layer (an mLSTM) at full width, B = 1, S = 1024, in
+   xlstm-1.3b's first layer (an mLSTM) at full width, B = 2, S = 512, in
    DIST_ROWS_RANKS children (``--rows-child``) on a ``("model",)`` mesh of
    8, which its 4 heads do not divide: (5e)'s checks, with C held as each
-   rank's 128 of its 1024 value rows.  The
+   rank's 128 of its 1024 value rows, and the intra-chunk q.k on each
+   rank's one of the 8 (batch, head) pairs against the whole einsum on
+   the same inputs (bound DIST_TP_REC_TOL).  (5d) and (5e) print the
+   clipped blocked AdamW step's global norm: its peak bytes above what
+   was allocated when it began, beside one period's largest stacked
+   gradient leaf gathered whole.  The
    decode ring (2) reads each rank's vocabulary block of the logits
    gathered whole.  The counters are zeroed just before; every rank and
    child reports its launches, and their sum is the ``dist`` path's.
 11. launch — the launch analysis stack (``repro_torch.launch.{mesh,
    hlo_analysis,roofline,dryrun,profile}``) and ``autotune.tuner``.  The
-   dry-run runs in a child process (``--launch-child``) started first,
-   beside (a) and (c): gemma3-1b x ``train_4k`` (through ``run_cell``,
+   dry-run runs in a child process (``--launch-child``) started just
+   before the dist phase (it traces on the host beside it, and beside (a)
+   and (c)): gemma3-1b x ``train_4k`` (through ``run_cell``,
    its profile's top rows kept) and ``decode_32k`` at both meshes (the
    CLI, ``--both-meshes``), each on a fake process group of the mesh's
    ranks with fake CPU tensors; every cell ``ok`` with the reference's
@@ -325,7 +332,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    FLOPs a rank, printed beside the JAX package's dry-run figures; and
    llama4-maverick ``train_4k`` cut to 2 of 48 layers, whose FLOPs and
    bytes a rank must equal the CPU's (MOE_LAUNCH_CPU), its experts'
-   products on 8 of 128 experts a rank, none over all 128.  (a) The tuner
+   products on 8 of 128 experts a rank, no product or dispatched tokens
+   over all 128 (AdamW's global norm gathers one period of each expert
+   gradient whole, printed beside).  (a) The tuner
    on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
@@ -3810,9 +3819,11 @@ DIST_MOE_GLOBAL_MESHES = (("model4", (4,), ("model",), 1),
                           ("2x2", (2, 2), ("data", "model"), 2))
 DIST_MOE_GLOBAL_STEPS = 4      # decode tokens after the prefill
 DIST_MOE_GLOBAL_TIMEOUT_S = 300.0   # the ranks wait on rank 0's one process
-# (5g) the mLSTM core on value rows: (arch, layers, B = 1 tokens) on a
-# ("model",) mesh of DIST_ROWS_RANKS, whose 4 heads it does not divide
-DIST_ROWS = ("xlstm-1.3b", 1, 1024)
+# (5g) the mLSTM core on value rows: (arch, layers, B, tokens) on a
+# ("model",) mesh of DIST_ROWS_RANKS, whose 4 heads it does not divide;
+# B = 2 (from B = 1 at 1024 tokens, as many tokens) so that the B*H = 8
+# (batch, head) pairs divide the ranks and the intra-chunk q.k is split
+DIST_ROWS = ("xlstm-1.3b", 1, 2, 512)
 DIST_ROWS_RANKS = 8
 DP_TOL = {"nccl": 1e-6, "gloo": 1e-5}
 DIST_DEADLINE_S = 300    # each group of child processes, from its start
@@ -4373,10 +4384,10 @@ class _PlantedReduce:
 
 
 def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
-                       seq=None, plant_cut=False) -> dict:
+                       seq=None, plant_cut=False, batch=1) -> dict:
     """(5d)/(5e)/(5g): ``arch`` at full width cut to ``layers`` (by default
-    DIST_TP_RECURRENT's layers and tokens), fp32, B = 1, tensor-parallel
-    on the ("model",) mesh of the ranks with
+    DIST_TP_RECURRENT's layers and tokens), fp32, B = ``batch``,
+    tensor-parallel on the ("model",) mesh of the ranks with
     the params held as blocks: the forward's logits (each rank's
     vocabulary block where it is split), one make_train_step step's loss
     and every gradient leaf, the same step with the planted fault (the
@@ -4386,7 +4397,10 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
     head), a prefill and DIST_TP_REC_STEPS decode steps with the cache
     held as blocks; on rank 0 each against one process on the same
     weights.  Per rank the walls, staged bytes, the step's peak and the
-    flash launches of each part."""
+    flash launches of each part, and the blocked step's global norm's
+    peak bytes beside the largest period of a stacked gradient leaf; with
+    ``plant_cut`` the intra-chunk q.k on the mesh against the whole
+    einsum."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4398,7 +4412,7 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
                                            tree_shardings, use_mesh)
     from repro_torch.models import build_model, module
     from repro_torch.models import transformer, xlstm
-    from repro_torch.optim import AdamW
+    from repro_torch.optim import AdamW, adamw
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
     from repro_torch.train.step import TrainStepConfig, make_train_step
 
@@ -4409,11 +4423,12 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
     model = build_model(cfg)
     link = mesh.transport
     plant = transformer if cfg.family == "hybrid" else xlstm
-    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(1),
                            dtype=torch.int32).to(device)
-    batch = batch_at(DataConfig(cfg.vocab_size, seq, 1), 0, device=device)
-    rec = {"layers": layers, "seq": seq}
+    rec = {"layers": layers, "seq": seq, "batch": batch}
+    batch = batch_at(DataConfig(cfg.vocab_size, seq, batch), 0,
+                     device=device)
 
     def weights(on_mesh, rules=None):
         params = model.init_params(torch.Generator().manual_seed(0),
@@ -4467,13 +4482,34 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
         opt = Capture(learning_rate=1e-4)
         state = opt.init(params)
         fn = make_train_step(model, opt, TrainStepConfig())
+        norm = {}
+
+        def measured(tree, like=None):
+            # the norm's own peak above what the step holds as it begins
+            torch.cuda.synchronize()
+            norm["prior"] = torch.cuda.max_memory_allocated()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = real_norm(tree, like)
+            torch.cuda.synchronize()
+            norm["bytes"] = torch.cuda.max_memory_allocated() - base
+            return out
 
         def run():
             with use_mesh(mesh if on_mesh else None,
                           rules if on_mesh else None):
                 _, _, metrics = fn(params, state, batch)
                 return metrics["loss"].item()
-        loss, info = timed(on_mesh, run)
+        real_norm = adamw.global_norm
+        adamw.global_norm = measured
+        try:
+            loss, info = timed(on_mesh, run)
+        finally:
+            adamw.global_norm = real_norm
+        info["peak_bytes"] = max(info["peak_bytes"], norm["prior"])
+        info["norm_bytes"] = norm["bytes"]
+        if on_mesh:
+            info["norm_period"] = _largest_period(params)
         whole = gather_tree(grads[0]) if on_mesh else grads[0]
         return loss, whole, info
 
@@ -4510,6 +4546,8 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
     prints = collectives.all_ranks(collectives.fingerprint(logits))
     rec["ranks_bit_equal"] = all(p == prints[0] for p in prints)
     bad = None
+    if plant_cut:
+        rec["qk"] = _split_qk(cfg, mesh, batch["tokens"].shape[0], device)
     if plant_cut:
         # the gate's and w_down's rows cut contiguously where the value
         # rows take each head's block of them (a forward's fault)
@@ -4572,6 +4610,51 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
                                    toks, want, logits_at)
     torch.cuda.empty_cache()
     return rec
+
+
+def _largest_period(params) -> dict:
+    """The largest period of a stacked (``scan``) leaf held as a Block:
+    its bytes whole (what the global norm gathers at a time) and this
+    rank's, or {} where no stacked leaf is split."""
+    from repro_torch.dist.sharding import Block
+    from repro_torch.models import module
+
+    best = {}
+    for leaf, by_period in zip(module.leaves(params), module.stacked(params)):
+        if not (by_period and isinstance(leaf, Block)):
+            continue
+        size = leaf.dtype.itemsize
+        whole = math.prod(leaf.whole_shape()[1:]) * size
+        if whole > best.get("whole_bytes", 0):
+            best = {"whole_bytes": whole,
+                    "local_bytes": math.prod(leaf.shape[1:]) * size,
+                    "shape": list(leaf.whole_shape()[1:]),
+                    "periods": leaf.shape[0]}
+    return best
+
+
+def _split_qk(cfg, mesh, batch: int, device) -> dict:
+    """(5g): the mLSTM's intra-chunk q.k [B,L,L,H] over fp32 q and k of
+    one chunk at ``cfg``'s width (seeded), on the mesh (each rank's block
+    of the (batch, head) pairs, gathered) against the whole einsum in
+    this process: the largest difference over the largest magnitude."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import train_rules, use_mesh
+    from repro_torch.models import xlstm
+
+    di = 2 * cfg.d_model
+    dh = di // cfg.n_heads
+    gen = torch.Generator().manual_seed(2)
+    q, k = (torch.randn(batch, 256, cfg.n_heads, dh, generator=gen)
+            .to(device) for _ in range(2))
+    with torch.no_grad(), use_mesh(mesh, train_rules()):
+        axes, heads, rows = xlstm.mlstm_axes(cfg, batch, 256, di)
+        got = xlstm._intra_qk(q, k, rows)
+    want = torch.einsum("blhd,bjhd->bljh", q, k)
+    blocks = collectives.block_index(mesh, rows)[1] if rows else 0
+    return {"rows": list(rows), "pairs": batch * cfg.n_heads,
+            "split": bool(blocks) and batch * cfg.n_heads % blocks == 0,
+            "err": _rel_err(got, want)}
 
 
 def _dist_moe_shared(device) -> dict:
@@ -5005,9 +5088,10 @@ def rows_child(argv) -> int:
         DIST_DEVICE, backend="gloo", init_method=url, rank=rank,
         world_size=world, timeout_s=DIST_GROUP_TIMEOUT_S)
     mesh = compat.make_mesh((world,), ("model",), device=device)
-    arch, layers, seq = DIST_ROWS
+    arch, layers, batch, seq = DIST_ROWS
     rep = {"rank": rank, "rows": _dist_tp_recurrent(
-        arch, mesh, K, rank, device, layers, seq, plant_cut=True)}
+        arch, mesh, K, rank, device, layers, seq, plant_cut=True,
+        batch=batch)}
     rep["launches"] = launch_counts(K)
     Path(f"{out}.{rank}.json").write_text(json.dumps(rep))
     torch.distributed.destroy_process_group()
@@ -5142,15 +5226,27 @@ def _dist_rows_report(counts, card) -> dict:
     """(5g) in DIST_ROWS_RANKS children: the prints and gates, and C held
     as each rank's block of its value rows."""
     reps, wall = _group("rows", DIST_ROWS_RANKS, "value rows", counts)
-    arch, layers, seq = DIST_ROWS
+    arch, layers, batch, seq = DIST_ROWS
     cfg = _arch(arch)
     dh = 2 * cfg.d_model // cfg.n_heads
     rows = dh // DIST_ROWS_RANKS
     print(f"dist: {arch}'s first layer (an mLSTM, {cfg.n_heads} heads of "
           f"{dh}, which do not divide {DIST_ROWS_RANKS}) at full width, "
-          f"fp32, B=1 S={seq}, on a ('model',) mesh of {DIST_ROWS_RANKS} "
-          f"ranks on {DIST_DEVICE}: {wall:.1f} s; {card}")
+          f"fp32, B={batch} S={seq}, on a ('model',) mesh of "
+          f"{DIST_ROWS_RANKS} ranks on {DIST_DEVICE}: {wall:.1f} s; {card}")
     out = _tp_recurrent_case(reps, "rows", arch, card)
+    qk = [rep["rows"]["qk"] for rep in reps]
+    worst = max(q["err"] for q in qk)
+    mine = qk[0]["pairs"] // DIST_ROWS_RANKS
+    print(f"dist: {arch}'s intra-chunk q.k [{batch}, 256, 256, "
+          f"{cfg.n_heads}] on each rank's {mine} of the {qk[0]['pairs']} "
+          f"(batch, head) pairs "
+          f"over {qk[0]['rows']}, against the whole einsum: {worst:.3g} of "
+          f"the largest at worst over the ranks (bound {DIST_TP_REC_TOL}); "
+          f"{card}")
+    if not all(q["split"] for q in qk) or not worst <= DIST_TP_REC_TOL:
+        raise RuntimeError(f"dist: {arch}'s split q.k: {qk}")
+    out["rows_qk_err"] = worst
     held = reps[0]["rows"]["held"]
     want = f"{rows}, {dh}) of "
     if not any(want in h and h.endswith(f"{dh}, {dh})") for h in held):
@@ -5563,8 +5659,9 @@ def _tp_recurrent_case(reps, key, arch, card) -> dict:
         flash = {part: {k: v for k, v in rec[part]["flash"].items() if v}
                  for part in ("forward", "step", "decode")}
         print(f"dist: tensor-parallel {arch} rank {rep['rank']}, "
-              f"{rec['layers']} layers at full width, fp32, B=1 "
-              f"S={rec['seq']}, on a ('model',) mesh of {len(reps)} "
+              f"{rec['layers']} layers at full width, fp32, "
+              f"B={rec['batch']} S={rec['seq']}, on a ('model',) mesh of "
+              f"{len(reps)} "
               f"with the params held as blocks: forward "
               f"{rec['forward']['wall_s']:.2f} s, "
               f"{rec['forward']['host_bytes']} bytes staged; train step "
@@ -5582,6 +5679,16 @@ def _tp_recurrent_case(reps, key, arch, card) -> dict:
                                f"process {one}")
         if _arch(arch).family == "ssm" and any(flash.values()):
             raise RuntimeError(f"dist: {arch} launched {flash}")
+        period = rec["step"]["norm_period"]
+        if period:
+            print(f"dist: tensor-parallel {arch} rank {rep['rank']}: the "
+                  f"clipped blocked AdamW step's global norm peaked "
+                  f"{rec['step']['norm_bytes']} bytes above what was "
+                  f"allocated when it began, beside one period of its "
+                  f"largest stacked gradient leaf ({period['shape']} of "
+                  f"{period['periods']}) {period['whole_bytes']} bytes "
+                  f"gathered whole "
+                  f"({period['local_bytes']} a rank); {card}")
     tol = DIST_TP_REC_TOL
     print(f"dist: tensor-parallel {arch} against one process: logits "
           f"over {r0['axes'] or 'the whole vocabulary'} "
@@ -5634,7 +5741,8 @@ def _dist_layers() -> int:
 def _dist_dp_nccl(K, device, card, launcher) -> dict:
     """(4a) launch.train --data-parallel in process, a world of one on
     NCCL, phase 9's launcher argv: the losses against that run's, the warm
-    step and tokens/s beside its, the grad all-reduce's time by events."""
+    step and tokens/s beside its, the grad all-reduce's time a step by
+    events (the step's reduce_sum_ calls summed)."""
     from repro_torch.dist import collectives, compat
     from repro_torch.launch import train as launch
 
@@ -5662,7 +5770,14 @@ def _dist_dp_nccl(K, device, card, launcher) -> dict:
     finally:
         collectives.reduce_sum_, compat.make_mesh = reduce, make
     torch.cuda.synchronize()
-    reduce_ms = [s.elapsed_time(e) for s, e in spans]
+    # every step makes the same reduce_sum_ calls: a step's all-reduce time
+    # is the sum of its calls' spans
+    calls = len(spans) // len(log)
+    if not calls or calls * len(log) != len(spans):
+        raise RuntimeError(f"dist: {len(spans)} reduce_sum_ calls over "
+                           f"{len(log)} --data-parallel steps")
+    reduce_ms = [sum(s.elapsed_time(e) for s, e in spans[i:i + calls])
+                 for i in range(0, len(spans), calls)]
     losses = [m["loss"] for m in log]
     want = launcher["losses"]
     rel = max(abs(x - y) / abs(y) for x, y in zip(losses, want))
@@ -5676,7 +5791,7 @@ def _dist_dp_nccl(K, device, card, launcher) -> dict:
           f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s against "
           f"{launcher['step_ms']:.1f} ms = {launcher['tokens_s']:.0f}; the "
           f"grad all-reduce {np.median(reduce_ms):.3f} ms a step by events "
-          f"({len(reduce_ms)} calls); {card}")
+          f"(the median step's {calls} calls summed); {card}")
     if len(losses) != len(want) or not rel <= DP_TOL["nccl"]:
         raise RuntimeError(f"dist: --data-parallel losses {losses}, the "
                            f"plain launcher's {want}")
@@ -5789,7 +5904,7 @@ REFERENCE_TRAIN = (1.874e14, 25.77)
 # counts them on a CPU (tests/dryrun_depth.py), and its experts a rank
 MOE_LAUNCH_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAUNCH_LAYERS = 2
-MOE_LAUNCH_CPU = (245897615114240, 55983956421)
+MOE_LAUNCH_CPU = (245897615114240, 55725324741)
 MOE_LAUNCH_EXPERTS = (8, 128)
 
 
@@ -5802,6 +5917,7 @@ def launch_child(argv) -> int:
     import dataclasses
 
     from repro_torch.launch import dryrun, profile
+    from repro_torch.models.moe import capacity
 
     torch.set_num_threads(1)
     K = _kernels()
@@ -5830,9 +5946,19 @@ def launch_child(argv) -> int:
     moe["experts"] = {shape: v for (op, shape), v in counters[0].flops.items()
                       if op == "aten.bmm"
                       and shape.startswith(f"bf16[{rank},")}
-    moe["experts_whole"] = sorted({
-        shape for _, shape in counters[0].traffic
-        if shape.startswith(f"bf16[{whole},")})
+    # the experts' products and dispatched tokens over all experts; AdamW's
+    # global norm gathers one period of each expert gradient whole by
+    # design (a [whole, ...] tensor the products never see)
+    shape = dryrun.get_shape("train_4k")
+    cap = capacity(full(MOE_LAUNCH_ARCH), shape.global_batch * shape.seq_len)
+    moe["experts_whole"] = sorted(
+        {shp for (op, shp) in counters[0].flops
+         if op == "aten.bmm" and shp.startswith(f"bf16[{whole},")}
+        | {shp for _, shp in counters[0].traffic
+           if shp.startswith(f"bf16[{whole},{cap},")})
+    moe["norm_whole"] = sorted({
+        shp for _, shp in counters[0].traffic
+        if shp.startswith(f"bf16[{whole},")} - set(moe["experts_whole"]))
     Path(f"{out}.child.json").write_text(json.dumps({
         "moe": moe,
         "top": {"traffic": traffic[:PROFILE_TOP],
@@ -6068,8 +6194,9 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
           f"{json.dumps(moe['collective_breakdown'])} bytes; the experts' "
           f"products " + "; ".join(f"{shp} {v:.6e} FLOPs" for shp, v in
                                     sorted(moe["experts"].items()))
-          + f"; tensors over all {whole} experts: "
-          f"{moe['experts_whole'] or 'none'}; fake trace "
+          + f"; products or dispatched tokens over all {whole} experts: "
+          f"{moe['experts_whole'] or 'none'} (the global norm's period "
+          f"gathers {moe['norm_whole']}); fake trace "
           f"{moe['lower_s']:.1f} s; {card}")
     if (moe["per_device_flops"], mem) != MOE_LAUNCH_CPU \
             or len(moe["experts"]) != 4 or moe["experts_whole"]:
@@ -6083,26 +6210,49 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
     return {"cells": out, "child_s": child["wall_s"]}
 
 
-def phase_launch(K, device, card: str) -> tuple:
-    """The launch slice on the card (module docstring, phase 11).  Returns
-    (path label -> launch counts of the path's run, the numbers)."""
+def launch_child_start() -> tuple:
+    """Start phase 11's dry-run child (``--launch-child``) now, beside
+    whatever runs next: it only traces on the host, launches nothing and
+    never initialises CUDA.  Returns (its temporary directory, the
+    process, its start) for :func:`phase_launch`, or for
+    :func:`launch_child_stop` where the phases between fail."""
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name)
+    with open(path / "child.out", "w") as so, \
+            open(path / "child.err", "w") as se:
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--launch-child", str(path / "dryrun.json")],
+            stdout=so, stderr=se)
+    return tmp, child, time.perf_counter()
+
+
+def launch_child_stop(started) -> None:
+    tmp, child, _ = started
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+    tmp.cleanup()
+
+
+def phase_launch(K, device, card: str, started) -> tuple:
+    """The launch slice on the card (module docstring, phase 11), its
+    dry-run child ``started`` earlier by :func:`launch_child_start`.
+    Returns (path label -> launch counts of the path's run, the
+    numbers)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     zero_counts(K)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        out = tmp / "dryrun.json"
-        with open(tmp / "child.out", "w") as so, \
-                open(tmp / "child.err", "w") as se:
-            child = subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--launch-child", str(out)], stdout=so, stderr=se)
+    tmp_dir, child, t_child = started
+    tmp = Path(tmp_dir.name)
+    out = tmp / "dryrun.json"
+    try:
         try:
             timing = {"tuner": _launch_tuner(device, card)}
             torch.cuda.empty_cache()
             timing["estimator"] = _launch_estimator(device, card)
             rc = child.wait(timeout=max(
-                1.0, LAUNCH_DEADLINE_S - (time.perf_counter() - t_phase)))
+                1.0, LAUNCH_DEADLINE_S - (time.perf_counter() - t_child)))
         finally:
             if child.poll() is None:
                 child.kill()
@@ -6116,6 +6266,8 @@ def phase_launch(K, device, card: str) -> tuple:
         timing["dryrun"] = _launch_cells(
             doc, json.loads(Path(f"{out}.child.json").read_text()), text,
             card)
+    finally:
+        tmp_dir.cleanup()
     counts = launch_counts(K)
     print(f"launch: launches of the launch path {json.dumps(counts)}")
     if any(counts.values()):
@@ -6720,10 +6872,18 @@ def main() -> int:
     by_path.update(counts)
     counts, train_timing = phase_train(K, device, line)
     by_path.update(counts)
-    counts, dist_timing = phase_dist(K, device, line,
-                                     train_timing["launcher"])
+    # the launch phase's dry-run child traces on the host beside the dist
+    # phase (about 100-150 s of it), so that the script keeps its margin
+    started = launch_child_start()
+    try:
+        counts, dist_timing = phase_dist(K, device, line,
+                                         train_timing["launcher"])
+    except BaseException:
+        launch_child_stop(started)
+        raise
     by_path.update(counts)
-    counts, launch_timing, dryrun_doc = phase_launch(K, device, line)
+    counts, launch_timing, dryrun_doc = phase_launch(K, device, line,
+                                                     started)
     by_path.update(counts)
     counts, examples_timing = phase_examples(K, device, line, dryrun_doc)
     by_path.update(counts)

@@ -26,7 +26,12 @@ rank's gradient the whole, true one:
     over the whole mesh — the contributions of every rank, each once;
   * ``gather`` (a held block made whole where it is used,
     ``dist.sharding``'s blocked layout): this rank's block of the
-    cotangent.
+    cotangent;
+  * ``gather_summed`` (a param held split over a data-parallel region's
+    batch axes, made whole where the region uses it): the cotangent
+    times the region's weight, summed over the region's batch axes, then
+    this rank's block of it — the region's gradient reduction of that
+    leaf, made where it is used (a stacked leaf one period at a time).
 
 The tensor-parallel layers (``models``: heads, MLP and vocabulary blocks
 over ``model``, Megatron's layout) keep the same convention, that every
@@ -441,6 +446,31 @@ def gather(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     summed over ranks: every rank computes the whole gradient of what it
     computed, and a data-parallel region sums the ranks' shares itself."""
     return _Gather.apply(mesh, tuple(spec), t)
+
+
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, names, weight, t):
+        ctx.mesh, ctx.spec, ctx.names, ctx.weight = mesh, spec, names, weight
+        out = _gather_whole(t, mesh, spec)
+        return t.view_as(t) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = (g * ctx.weight.to(g.dtype)).contiguous()
+        reduce_sum_([g], ctx.mesh, ctx.names)
+        g = block(g, ctx.mesh, ctx.spec).clone(
+            memory_format=torch.contiguous_format)
+        return None, None, None, None, g
+
+
+def gather_summed(t: torch.Tensor, mesh, spec, names, weight: torch.Tensor
+                  ) -> torch.Tensor:
+    """``t`` made whole along ``spec``, whose backward multiplies the cotangent by ``weight``, sums it
+    over the mesh axes ``names`` (``reduce_sum_``, in their order) and
+    takes this rank's block of it under ``spec``: a data-parallel
+    region's reduction of one leaf's gradient, where the leaf is used."""
+    return _GatherSummed.apply(mesh, tuple(spec), tuple(names), weight, t)
 
 
 # --------------------------------------------------------------------------

@@ -271,6 +271,53 @@ def active_region() -> Optional[Region]:
     return regions[-1] if regions else None
 
 
+def region_period(tree: Any) -> Any:
+    """Params as a data-parallel region that takes gradients uses them:
+    each Block held split over the region's batch axes (fsdp) gathered
+    whole over them (a Block of the rest of its spec, or a tensor), its
+    gradient multiplied by the region's weight, summed over the batch
+    axes and cut to this rank's block in the backward
+    (``collectives.gather_summed``); every other leaf as it is, its
+    gradient summed after the region (``train.step``).  A stacked layer
+    period's leaves (``models.transformer``) are so gathered and reduced
+    one period at a time, inside the period's checkpoint: no stacked
+    leaf or its gradient is ever whole over the batch axes.  ``tree`` as
+    it is outside such a region."""
+    region = active_region()
+    if region is None or region.weight is None:
+        return tree
+
+    def one(leaf):
+        if not split_over(leaf, region.axes):
+            return leaf
+        axes = set(region.axes)
+        over = tuple(e if set(names_of(e)) & axes else None
+                     for e in leaf.spec)
+        rest = tuple(None if o else e for e, o in zip(leaf.spec, over))
+        whole = collectives.gather_summed(leaf.local, leaf.mesh, over,
+                                          region.axes, region.weight)
+        return Block(whole, rest, leaf.mesh) if any(rest) else whole
+
+    return _map(one, tree)
+
+
+def region_params(params: Any) -> Any:
+    """:func:`region_period` of every leaf of a model's params but the
+    stacked layer periods' (under a ``scan`` key), which the layer stack
+    takes one period at a time."""
+    if isinstance(params, dict):
+        return {k: v if k == "scan" else region_params(v)
+                for k, v in params.items()}
+    return region_period(params)
+
+
+def split_over(leaf, axes) -> bool:
+    """Whether ``leaf`` is a Block whose spec names one of the mesh axes
+    ``axes``."""
+    return isinstance(leaf, Block) and any(
+        set(names_of(e)) & set(axes) for e in leaf.spec)
+
+
 def bind_frame(fn):
     """``fn`` run under the mesh frame and data-parallel region active
     now, wherever it is called: a checkpoint's recompute runs on

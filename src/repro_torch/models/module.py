@@ -93,6 +93,16 @@ def leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def stacked(tree: PyTree, under: bool = False) -> list:
+    """Per leaf of ``tree`` (:func:`leaves`' order): whether it lies under
+    a ``scan`` key, where the layer periods are stacked on axis 0
+    (:func:`stack`)."""
+    if isinstance(tree, dict):
+        return [flag for k in sorted(tree)
+                for flag in stacked(tree[k], under or k == "scan")]
+    return [under]
+
+
 def _fold_in(seed: int, index: int) -> int:
     """A 63-bit seed for leaf ``index`` of a tree drawn from ``seed``
     (splitmix64 of the pair, so neighbouring leaves get unrelated

@@ -40,7 +40,7 @@ from torch.utils import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (active_mesh, bind_frame, gather_tree,
-                                       split_axes, take)
+                                       region_period, split_axes, take)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -417,6 +417,7 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
 
     def period_body(x, period_params):
         aux_p = _zero(x)
+        period_params = region_period(period_params)
         for i, kind in enumerate(cfg.layer_pattern):
             if f"p{i}" not in period_params:
                 continue

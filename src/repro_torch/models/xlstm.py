@@ -19,9 +19,11 @@ heads, and ``w_down`` is row-parallel.  Where the heads do not divide the
 axes the core runs on this rank's block of C's value rows (the ``d`` of
 ``C[h, d, e]``, v's head dim) instead: v is cut to those rows after its
 sum, ``num``, ``C_new``, the intra-chunk product with v and ``h_tilde``
-are computed per value row, and q, k, the gates, ``den``, ``n`` and ``m``
-stay whole on every rank; the gate and ``w_down``'s rows are then cut in
-``h_tilde``'s per-head layout (``take_parts`` with H parts).  The
+are computed per value row, the intra-chunk ``q.k`` on this rank's block
+of the (batch, head) pairs, gathered whole (:func:`_intra_qk`), and q,
+k, the gates, ``den``, ``n`` and ``m`` stay whole on every rank; the
+gate and ``w_down``'s rows are then cut in ``h_tilde``'s per-head layout
+(``take_parts`` with H parts).  The
 sLSTM's gate product is column-parallel on this rank's block of each of
 z, i, f and o, gathered whole for the recurrence (:func:`_slstm_gates`).
 """
@@ -167,6 +169,32 @@ def _per_rows(rows):
     return lambda t: collectives.copy_to(t, mesh, rows)
 
 
+def _intra_qk(q, k, rows):
+    """The intra-chunk product q.k [B,L,L,H] over the whole key dim.  With
+    ``rows``, where they divide the B*H (batch, head) pairs, each rank
+    computes its block of the pairs (q and k cut by ``collectives.split``,
+    whose backward gathers their gradients whole, as q and k are on every
+    rank) and the blocks are gathered whole (``collectives.gather``, whose
+    backward takes this rank's pairs of a cotangent that is whole and the
+    same on every rank).  Each pair's product contracts dh as the whole
+    einsum does, so no sum changes its order."""
+    b, L, h, dh = q.shape
+    if rows:
+        mesh = active_mesh()
+        _, blocks = collectives.block_index(mesh, rows)
+    if not rows or (b * h) % blocks:
+        return torch.einsum("blhd,bjhd->bljh", q, k)
+    spec = (tuple(rows), None, None)
+
+    def pairs(t):
+        return collectives.split(t.transpose(1, 2).reshape(b * h, L, dh),
+                                 mesh, spec)
+
+    part = torch.bmm(pairs(q), pairs(k).transpose(1, 2))   # [P/r,L,L]
+    qk = collectives.gather(part, mesh, spec)              # [B*H,L,L]
+    return qk.reshape(b, h, L, L).permute(0, 2, 3, 1)
+
+
 def _mlstm_chunk(scale, carry, chunk, rows=()):
     """Chunkwise mLSTM step.  carry: (C [B,H,dv,dh], n [B,H,dh], m [B,H]);
     v and C hold dv value rows (dh, or this rank's block of them over
@@ -186,7 +214,7 @@ def _mlstm_chunk(scale, carry, chunk, rows=()):
     m_new_q = torch.maximum(m_inter, logD.amax(dim=2))     # [B,L,H]
     g = torch.exp(m_inter - m_new_q)                       # carried-state factor
     D = torch.exp(logD - m_new_q[:, :, None, :])           # [B,L,L,H]
-    qk = torch.einsum("blhd,bjhd->bljh", q, k) * scale     # [B,L,L,H]
+    qk = _intra_qk(q, k, rows) * scale                     # [B,L,L,H]
     w_intra = D * qk
     num = (torch.einsum("blh,bhde,blhe->blhd", shared(g), C,
                         shared(q) * scale)

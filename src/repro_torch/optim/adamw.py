@@ -13,12 +13,24 @@ state to the jitted step, ``update`` writes the new params and moments
 into the tensors it is given (under ``torch.no_grad``) and returns them,
 with a new step counter; the gradients it is given are left as they were.
 
+The global norm takes each leaf in one canonical order, on whole leaves
+and on blocks alike: a stacked leaf (one under a ``scan`` key, whose axis
+0 is the layer periods', ``models.module.stack``) one period at a time,
+i = 0, 1, ...; each period, and each other leaf, in chunks along its axis
+0 of at most NORM_CHUNK elements, each chunk's fp32 2-norm in one
+reduction (``torch.linalg.vector_norm``, which casts as it reads); the
+norm is then the 2-norm of those chunk norms, in tree order.  A leaf
+whose periods fit in a chunk so costs one reduction a period, and the
+fp32 transient is at most one chunk's.
+
 Params held as blocks (``dist.sharding.Block``) get moments held as
 blocks of the same spec, and their gradients are this rank's blocks
 (plain tensors).  The update then runs on the blocks, elementwise in the
-order above, so it is exact; the global norm gathers each split gradient
-leaf whole in turn and sums its squares as over a whole leaf, so it is
-the global view's to the bit.
+order above, so it is exact.  The norm gathers a split gradient whole
+one period at a time (a leaf that is not stacked whole at once), takes
+its chunks' norms in the order above and frees it before the next: no
+stacked gradient is ever whole on a rank, and the norm is the global
+view's to the bit.
 """
 from __future__ import annotations
 
@@ -28,8 +40,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.dist import collectives
+from repro_torch.dist.collectives import names_of
 from repro_torch.dist.sharding import Block, local
-from repro_torch.models.module import leaves, tree_map
+from repro_torch.models.module import leaves, stacked, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -90,15 +103,42 @@ class AdamW:
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm
 
 
+# elements of a gradient the norm reduces at a time (a cast chunk's fp32
+# copy is the norm's transient where the reduction makes one)
+NORM_CHUNK = 1 << 24
+
+
 def global_norm(tree, like=None) -> torch.Tensor:
-    """The 2-norm over every leaf of ``tree``.  Where the matching leaf of
-    ``like`` (the params) is a Block, the leaf is this rank's block and is
-    gathered whole first (module docstring)."""
+    """The 2-norm over every leaf of ``tree``, in the module docstring's
+    order.  Where the matching leaf of ``like`` (the params) is a Block,
+    the leaf is this rank's block, gathered whole a period at a time."""
     blocks = leaves(like) if like is not None else [None] * len(
         leaves(tree))
-    total = 0
-    for leaf, held in zip(leaves(tree), blocks):
-        if isinstance(held, Block):
-            leaf = collectives._gather_whole(leaf, held.mesh, held.spec)
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
-    return torch.sqrt(total)
+    norms = []
+    for leaf, held, by_period in zip(leaves(tree), blocks, stacked(tree)):
+        spec = held.spec if isinstance(held, Block) else ()
+        if not by_period:
+            norms += _chunk_norms(_whole(leaf, held, spec))
+            continue
+        if spec and names_of(spec[0]):
+            raise ValueError(f"global_norm: a stacked leaf split on its "
+                             f"periods' axis ({spec})")
+        for period in leaf:
+            norms += _chunk_norms(_whole(period, held, spec[1:]))
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _whole(t: torch.Tensor, held, spec) -> torch.Tensor:
+    if isinstance(held, Block):
+        return collectives._gather_whole(t, held.mesh, spec)
+    return t
+
+
+def _chunk_norms(x: torch.Tensor) -> list:
+    """The fp32 2-norms of ``x``'s chunks along its axis 0 (a row at
+    least, NORM_CHUNK elements at most where the rows allow), in order."""
+    x = x.reshape(1) if x.ndim == 0 else x
+    rows = max(1, NORM_CHUNK // max(1, x.numel() // max(1, len(x))))
+    return [torch.linalg.vector_norm(
+        part.float() if part.dtype.itemsize > 4 else part, dtype=torch.float32)
+        for part in x.split(rows)]

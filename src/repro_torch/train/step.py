@@ -57,11 +57,16 @@ uses them (``models``), so a rank's gradients are the blocks of the whole
 gradients it computed, and the step returns the blocked tree it was
 given.  A blocked batch is the rank's block already; the global batch's
 token count is then the sum of the ranks' counts.  A leaf whose spec
-splits it over a batch axis (``train_rules(fsdp=True)``) is gathered over
-that axis before the region and its gradient blocked again after the
-sum, so each rank sums whole gradients over the batch axes, as the global
-view does.  Microbatching gathers a blocked batch whole first: its
-microbatches are the global batch's.
+splits it over a batch axis (``train_rules(fsdp=True)``) is gathered
+over that axis where the loss uses it, and its gradient weighted, summed
+over the batch axes and blocked again in the backward
+(``dist.sharding.region_period``): a stacked layer period's leaves one
+period at a time inside the period's checkpoint, the others as the loss
+begins.  Every other leaf's gradient is weighted and summed after the
+region.  Either way each rank sums whole gradients over the batch axes,
+as the global view does.  Microbatching
+gathers a blocked batch whole first: its microbatches are the global
+batch's.
 """
 from __future__ import annotations
 
@@ -74,7 +79,8 @@ from torch.utils import checkpoint
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
                                        bind_frame, data_region, gather_tree,
-                                       local, local_batch, use_mesh)
+                                       local, local_batch, region_params,
+                                       split_over, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -200,6 +206,7 @@ def _pad_vision_labels(model: Model, batch: dict) -> torch.Tensor:
 def make_loss_fn(model: Model, cfg: TrainStepConfig, *,
                  use_kernel: bool = True):
     def loss_fn(params, batch):
+        params = region_params(params)
         labels = _pad_vision_labels(model, batch)
         if cfg.ce_seq_chunk:
             hidden, aux = model.forward(params, batch, remat=cfg.remat,
@@ -247,27 +254,6 @@ def _value_and_grad(loss_fn):
     return grad_fn
 
 
-def _over(spec: tuple, axes: tuple) -> tuple:
-    """The entries of ``spec`` that name one of ``axes``, whole (the
-    others None)."""
-    return tuple(e if set(collectives.names_of(e)) & set(axes) else None
-                 for e in spec)
-
-
-def _gather_over(p, axes: tuple):
-    """A Block split over a batch axis, gathered whole along the
-    dimensions that axis splits: a Block of the rest of its spec, or a
-    tensor."""
-    if not isinstance(p, Block):
-        return p
-    over = _over(p.spec, axes)
-    if not any(over):
-        return p
-    whole = collectives._gather_whole(p.local, p.mesh, over)
-    rest = tuple(None if o else e for e, o in zip(p.spec, over))
-    return Block(whole, rest, p.mesh) if any(rest) else whole
-
-
 def _data_parallel(grad_fn, model: Model):
     """``grad_fn`` as the data-parallel region under an active mesh that
     shards the batch (module docstring); ``grad_fn`` itself otherwise."""
@@ -278,7 +264,6 @@ def _data_parallel(grad_fn, model: Model):
         part, axes = local_batch(batch, mesh, rules)
         if not axes:
             return grad_fn(params, batch)
-        held = tree_map(lambda p: _gather_over(p, axes), params)
         rest = compat.submesh(mesh, [n for n in mesh.mesh_dim_names
                                      if n not in axes])
         count = (_pad_vision_labels(model, part) != IGNORE_LABEL).sum()
@@ -291,16 +276,15 @@ def _data_parallel(grad_fn, model: Model):
         weight = torch.where(share > 0, share, torch.ones_like(share))
         with data_region(mesh, axes, weight), \
                 use_mesh(rest, rules if rest is not None else None):
-            (loss, metrics), grads = grad_fn(held, part)
+            (loss, metrics), grads = grad_fn(params, part)
         out = [loss * share] + [v * share for v in metrics.values()]
-        grad_leaves = leaves(grads)
+        # a leaf held split over a batch axis had its gradient summed where
+        # it was used (dist.sharding.region_period)
+        grad_leaves = [g for g, p in zip(leaves(grads), leaves(params))
+                       if not split_over(p, axes)]
         for g in grad_leaves:
             g.mul_(weight.to(g.dtype))
         collectives.reduce_sum_(out + grad_leaves, mesh, axes)
-        grads = tree_map(
-            lambda g, p: collectives.block(g, mesh, _over(p.spec, axes)).clone()
-            if isinstance(p, Block) and any(_over(p.spec, axes)) else g,
-            grads, params)
         return (out[0], dict(zip(metrics, out[1:]))), grads
     return run
 

@@ -99,6 +99,27 @@ def test_a_world_of_one_is_the_plain_run(tmp_path, capsys):
     assert not dist.is_initialized()
 
 
+def test_a_world_of_one_sums_once_a_step(monkeypatch):
+    """Where no leaf is split over the batch axes (plain --data-parallel),
+    a step makes two all-reduce calls: the token count, then the loss,
+    the metrics and every gradient leaf in one call after the region —
+    none a leaf or a period at a time."""
+    from repro_torch.dist import collectives
+
+    calls = []
+    reduce = collectives.reduce_sum_
+
+    def counted(tensors, mesh, names):
+        calls.append(len(tensors))
+        reduce(tensors, mesh, names)
+
+    monkeypatch.setattr(collectives, "reduce_sum_", counted)
+    launch.main(COMMON + ["--steps", "2", "--device", "cpu",
+                          "--data-parallel"])
+    assert len(calls) == 4 and calls[0] == calls[2] == 1, calls
+    assert calls[1] == calls[3] > 10, calls
+
+
 @pytest.mark.slow
 def test_resumes_the_jax_data_parallel_run(tmp_path):
     """The JAX launcher trains 8 steps with --data-parallel on its one CPU

@@ -13,8 +13,10 @@ the gradients of ``make_train_step``'s loss, one AdamW step,
 ``make_prefill_step`` and three ``make_serve_step``s, each on whole leaves
 and on blocks, and the backward after the mesh frame has closed.
 Beside them, the gate and ``w_down``'s rows cut contiguously (``take``
-where ``take_parts`` with H parts cuts each head's value rows) are
-planted, each on its own: both must leave the logits above the bound.
+where ``take_parts`` with H parts cuts each head's value rows) and the
+intra-chunk ``q.k`` left as each rank's block of the (batch, head)
+pairs, the others' at zero (its gather dropped), are planted, each on
+its own: each must leave the logits above the bound.
 
 Bounds: logits within 1e-4 of the JAX package's largest logit; the loss
 within 1e-5 of the no-mesh step's and every gradient leaf within 2e-5 of
@@ -69,6 +71,31 @@ for what, cut_dim in (("gate", 1), ("w_down", 0)):
     got = collectives._gather_whole(got, mesh, (None, None, axes)).numpy()
     report["planted"][what] = float(np.max(np.abs(got - want))
                                     / np.max(np.abs(want)))
+real_qk = xl._intra_qk
+
+
+def partial_qk(q, k, rows):
+    # the intra-chunk q.k of this rank's (batch, head) pairs only, the
+    # other ranks' pairs left at zero: its gather dropped
+    qk = real_qk(q, k, rows)
+    if not rows:
+        return qk
+    index, blocks = collectives.block_index(mesh, rows)
+    b, _, h, _ = q.shape
+    per = b * h // blocks
+    mine = torch.zeros(b * h, dtype=qk.dtype)
+    mine[index * per:(index + 1) * per] = 1
+    return qk * mine.reshape(b, 1, 1, h)
+
+
+xl._intra_qk = partial_qk
+try:
+    got, axes = forward(model, weights(name), mesh, rules)
+finally:
+    xl._intra_qk = real_qk
+got = collectives._gather_whole(got, mesh, (None, None, axes)).numpy()
+report["planted"]["qk"] = float(np.max(np.abs(got - want))
+                                / np.max(np.abs(want)))
 """
 
 
@@ -153,3 +180,9 @@ def test_value_rows_contiguous_cut_fails(runs, what):
     """The gate's or ``w_down``'s rows cut contiguously, not per head,
     leave the logits above the bound."""
     assert runs[1]["planted"][what] > REL, runs[1]["planted"]
+
+
+def test_value_rows_partial_qk_fails(runs):
+    """The intra-chunk q.k of each rank's (batch, head) pairs alone, not
+    gathered whole, leaves the logits above the bound."""
+    assert runs[1]["planted"]["qk"] > REL, runs[1]["planted"]

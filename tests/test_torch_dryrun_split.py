@@ -13,8 +13,12 @@ ranks).
 * xlstm-1.3b cut to its first layer (an mLSTM: 4 heads of 1024, which do
   not divide 16), against the same cell with the core's value rows whole
   (``xlstm.mlstm_axes`` without them): C's carry is [16, 4, 64, 1024],
-  no [16, 4, 1024, 1024] tensor appears, and the total FLOPs fall by
-  exactly 15/16 of the value-row products, worked out from their shapes.
+  no [16, 4, 1024, 1024] tensor appears, the intra-chunk ``q.k`` is
+  computed on a rank's 4 of the 64 (batch, head) pairs, the [., L, L]
+  products (``q.k`` and the gradient of the weights times v on the value
+  rows) come to exactly 1/16 of the whole cell's, and the total FLOPs
+  fall by exactly 15/16 of the value-row and ``q.k`` products, worked out
+  from their shapes.
 """
 import dataclasses
 
@@ -114,21 +118,41 @@ def test_dryrun_mlstm_carry_by_value_rows(value_rows):
     assert f"f32[{B_RANK},{H},{DH},{DH}]" in _shapes(whole)
 
 
+def test_dryrun_mlstm_intra_chunk_products_a_sixteenth(value_rows):
+    """q.k (the chunk step and its recompute) on a rank's B*H/16 pairs,
+    and the gradient of the intra-chunk weights (contracting a rank's
+    value rows): their [., L, L] products come to 1/16 of the whole
+    cell's, where q.k takes all B*H pairs."""
+    (_, split), (_, whole) = value_rows
+    pairs, mine = B_RANK * H, B_RANK * H // RANKS
+
+    def products(counter, p):
+        return counter.flops[("aten.bmm", f"f32[{p},{CHUNK},{CHUNK}]")]
+
+    got = products(split, mine) + products(split, pairs)
+    want = products(whole, pairs)
+    assert products(split, mine) > 0 and got * RANKS == want, (got, want)
+
+
 def test_dryrun_mlstm_flops_fall_by_the_value_rows(value_rows):
     """The value-row products, per chunk of 256 (16 a layer) at dv = dh
     in the whole cell: C.q and C's update (2*B*H*L*dh*dv each) and the
     intra-chunk weights times v (2*B*H*L*L*dv), each twice in the forward
     (the chunk step and its recompute in the backward); the backward's
     two operand gradients of each once, but C's of the first chunk (its
-    zero carry takes none).  The split cell computes 1/16 of each, so the
-    total falls by the other 15/16."""
+    zero carry takes none).  Beside them the intra-chunk q.k over the
+    key dim (2*B*H*L*L*dh, on a sixteenth of the pairs), twice in the
+    forward and its two operand gradients once.  The split cell computes 1/16 of each, so the total
+    falls by the other 15/16."""
     (split, _), (whole, _) = value_rows
     n = SEQ // CHUNK
     x = 2 * B_RANK * H * CHUNK * DH * DH
     y = 2 * B_RANK * H * CHUNK * CHUNK * DH
+    z = 2 * B_RANK * H * CHUNK * CHUNK * DH     # q.k, dh contracted
     forward = 2 * n * (x + y + x)
     backward = n * (2 * x + 2 * y + 2 * x) - x
-    want = (forward + backward) * (RANKS - 1) // RANKS
+    qk = 2 * n * z + n * 2 * z
+    want = (forward + backward + qk) * (RANKS - 1) // RANKS
     got = whole["per_device_flops"] - split["per_device_flops"]
     assert got == want, (got, want)
     assert split["memory_per_device_bytes"]["total_bytes"] \
