@@ -283,7 +283,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    The global MoE dispatch in DIST_RANKS children of its own
    (``--moe-child``): qwen3-moe-235b-a22b at full width (d_model 4096,
    64/4 heads of 128, 128 experts of 1536, top-8, vocabulary 151936) cut
-   to 1 of 94 layers, fp32, S = 2048, on a ``("model",)`` mesh of 4 (B =
+   to 1 of 94 layers, fp32, S = 1024, on a ``("model",)`` mesh of 4 (B =
    1, 32 experts a rank) and on (2, 2) ``("data", "model")`` (B = 2, the
    second row one token repeated so that its data shard overflows its
    experts; 64 experts a rank, the train, prefill and decode steps
@@ -298,7 +298,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    above the bound; the (token,
    slot)s dropped routing the whole batch (as one process) and per shard
    (which must differ), the expert bytes held a rank, each rank's step
-   peak beside one process's and flash launches equal to its.  (5g)
+   peak beside one process's and flash launches equal to its; on (2, 2)
+   one more step under ``train_rules(fsdp=True)``, each rank's experts a
+   Block over ("model", "data") that the global dispatch computes on its
+   blocks of d: its loss and every gradient leaf against one process's
+   within DIST_TP_REC_TOL, and the same step with the cotangents entering
+   the experts' all-gather unweighted (planted) above it.  (5g)
    xlstm-1.3b's first layer (an mLSTM) at full width, B = 2, S = 512, in
    DIST_ROWS_RANKS children (``--rows-child``) on a ``("model",)`` mesh of
    8, which its 4 heads do not divide: (5e)'s checks, with C held as each
@@ -328,13 +333,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    are printed, with FLOPs and collective bytes a rank; the attention
    heads, MLP and vocabulary computed on each rank's block where the rules
    split them: ``decode_32k`` at most 8.45 GiB a rank at pod16x16 and 5.19
-   GiB (and lower) at pod2x16x16, ``train_4k`` at most 97 GiB and 2.0e14
-   FLOPs a rank, printed beside the JAX package's dry-run figures; and
-   llama4-maverick ``train_4k`` cut to 2 of 48 layers, whose FLOPs and
-   bytes a rank must equal the CPU's (MOE_LAUNCH_CPU), its experts'
-   products on 8 of 128 experts a rank, no product or dispatched tokens
-   over all 128 (AdamW's global norm gathers one period of each expert
-   gradient whole, printed beside).  (a) The tuner
+   GiB (and lower) at pod2x16x16, ``train_4k`` at most TRAIN_BOUND_GIB
+   and TRAIN_FLOPS_BOUND FLOPs a rank, printed beside the JAX package's
+   dry-run figures; and llama4-maverick ``train_4k`` cut to 2 of 48
+   layers, whose FLOPs and bytes a rank must equal the CPU's
+   (MOE_LAUNCH_CPU), its experts' products on 8 of 128 experts a rank and
+   on its 320 of d = 5120 (exactly the shapes of
+   ``_moe_launch_products``), no product or dispatched tokens over all
+   128 and no expert weight of a rank gathered over "data" (AdamW's
+   global norm gathers one period of each expert gradient whole, printed
+   beside).  (a) The tuner
    on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
@@ -3814,7 +3822,8 @@ DIST_MOE_SHARED = "llama4-maverick-400b-a17b"   # its shared expert, reduced()
 # a layer in bf16), fp32, S = DIST_MOE_GLOBAL_SEQ, on DIST_RANKS ranks:
 # (label, mesh shape, axis names, B)
 DIST_MOE_GLOBAL = "qwen3-moe-235b-a22b"
-DIST_MOE_GLOBAL_SEQ = 2048
+# 1024: with the fsdp step at 2048 the script took past 1100 s
+DIST_MOE_GLOBAL_SEQ = 1024
 DIST_MOE_GLOBAL_MESHES = (("model4", (4,), ("model",), 1),
                           ("2x2", (2, 2), ("data", "model"), 2))
 DIST_MOE_GLOBAL_STEPS = 4      # decode tokens after the prefill
@@ -4894,14 +4903,14 @@ def _dist_moe_global(mesh, rows: int, K, rank: int, world: int,
             axes = model.vocab_axes(rows, seq) if on_mesh else ()
         return logits, axes
 
-    def step(params, on_mesh):
+    def step(params, on_mesh, r=rules):
         captured = []
         opt = _grads_only(captured)
         state = opt.init(params)
         fn = make_train_step(model, opt, TrainStepConfig())
 
         def run():
-            with frame(on_mesh, rules):
+            with frame(on_mesh, r):
                 _, _, metrics = fn(params, state, batch)
                 return metrics["loss"].item()
         loss, info = timed(on_mesh, run)
@@ -4991,7 +5000,8 @@ def _dist_moe_global(mesh, rows: int, K, rank: int, world: int,
         rec["prints"] = prints
         if rank == 0:
             rec["loss_err"] = abs(loss - want["loss"]) / abs(want["loss"])
-            del want["grads"]
+            if not data:
+                del want["grads"]
         good = [(p, local(g).cpu()) for p, g in _moe_leaves(grads)] \
             if not data else None
         del grads
@@ -5035,6 +5045,9 @@ def _dist_moe_global(mesh, rows: int, K, rank: int, world: int,
         _same_on_ranks("the global MoE decode's tokens", toks)
         del params
         torch.cuda.empty_cache()
+        if data:
+            rec["fsdp"] = _moe_fsdp_step(step, mesh, rank, world, device,
+                                         model, want)
         if rank == 0:
             rec["note"] = _hold_tokens(
                 f"dist global MoE decode on {tuple(mesh.shape)}", toks,
@@ -5045,6 +5058,86 @@ def _dist_moe_global(mesh, rows: int, K, rank: int, world: int,
         moe._global_routing = real_routing
     rec["max_rss_bytes"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss * 1024
+    return rec
+
+
+class _Unweighted:
+    """A stand-in for ``dist.collectives`` in ``models.moe`` whose
+    ``gather_weighted`` leaves the cotangents unweighted (the planted
+    fault of (5f)'s fsdp step): each rank's tokens enter the experts'
+    shared products at weight 1."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def gather_weighted(self, t, mesh, names, dim, weight):
+        return self._real.gather_weighted(t, mesh, names, dim,
+                                          torch.ones_like(weight))
+
+
+def _moe_fsdp_step(step, mesh, rank: int, world: int, device, model,
+                   want) -> dict:
+    """(5f)'s step on the (2, 2) mesh under ``train_rules(fsdp=True)``: the
+    params held as blocks, each rank's experts a Block over ("model",
+    "data"), so the global dispatch computes them on its blocks of d
+    (``models.moe``); the loss and every gradient leaf against rank 0's
+    one-process run (``want``, whose gradients it then frees), each rank
+    its own blocks; and the same step with the cotangents entering the
+    experts' all-gather unweighted (planted), its MoE gradients against
+    the step's."""
+    from repro_torch.dist.sharding import Block, local, train_rules
+    from repro_torch.models import moe
+
+    rules = train_rules(fsdp=True)
+    t0 = time.perf_counter()
+    params = _blocked_init(model, mesh, rules, device)
+    rec = {"init_s": time.perf_counter() - t0, "expert": [
+        [list(local(x).shape), list(map(str, x.spec))]
+        for p, x in _moe_leaves(params) if not p.endswith("router")]}
+    ways = []
+    real_blocks = moe._experts_on_embed_blocks
+
+    def on_blocks(*args):
+        ways.append(args[3])
+        return real_blocks(*args)
+
+    moe._experts_on_embed_blocks = on_blocks
+    try:
+        loss, grads, rec["step"] = step(params, True, rules)
+    finally:
+        moe._experts_on_embed_blocks = real_blocks
+    rec["ways"] = sorted(set(ways))
+    _same_on_ranks("the fsdp MoE step's loss", loss)
+    t0 = time.perf_counter()
+    errs = {}
+    for i, (path, g) in enumerate(_paths(grads)):
+        spec = g.spec if isinstance(g, Block) else (None,) * g.ndim
+        errs[path] = _against_host(local(g), spec, mesh, rank,
+                                   want["grads"][i] if rank == 0 else None,
+                                   range(world))
+    rec["compare_s"] = time.perf_counter() - t0
+    worst = max(errs, key=errs.get)
+    rec["grad_err"], rec["grad_worst"] = errs[worst], worst
+    if rank == 0:
+        rec["loss_err"] = abs(loss - want["loss"]) / abs(want["loss"])
+        del want["grads"]
+    good = [local(g).clone() for _, g in _moe_leaves(grads)]
+    del grads
+    torch.cuda.empty_cache()
+    real = moe.collectives
+    moe.collectives = _Unweighted(real)
+    try:
+        _, bad, rec["fault_step"] = step(params, True, rules)
+    finally:
+        moe.collectives = real
+    rec["fault_err"] = max(
+        _max_diff(local(g), w) / max(w.abs().max().item(), 1e-30)
+        for (_, g), w in zip(_moe_leaves(bad), good))
+    del bad, good, params
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -5219,7 +5312,43 @@ def _dist_moe_global_report(counts, card) -> dict:
             "step_peak_bytes": [rep[label]["step"]["peak_bytes"]
                                 for rep in reps],
             "one_step_peak_bytes": r0["one_step"]["peak_bytes"]}
+        if len(names) > 1:
+            out[f"moe_global_{label}_fsdp"] = _moe_fsdp_report(
+                reps, label, shape, tol, card)
     return out
+
+
+def _moe_fsdp_report(reps, label, shape, tol, card) -> dict:
+    """(5f)'s fsdp step: the prints and gates."""
+    fs = [rep[label]["fsdp"] for rep in reps]
+    worst = max((f["grad_err"], f["grad_worst"]) for f in fs)
+    fault = max(f["fault_err"] for f in fs)
+    loss = fs[0]["loss_err"]
+    specs = {json.dumps(e) for f in fs for e in f["expert"]}
+    for rep, f in zip(reps, fs):
+        print(f"dist: global MoE on {shape} under train_rules(fsdp=True) "
+              f"rank {rep['rank']}: experts held {f['expert']}, computed "
+              f"{f['ways']} on blocks of d; blocked init "
+              f"{f['init_s']:.1f} s, train step "
+              f"{f['step']['wall_s']:.2f} s, "
+              f"{f['step']['host_bytes']} bytes staged in "
+              f"{f['step']['host_s']:.3f} s, peak "
+              f"{f['step']['peak_bytes'] / 2**30:.2f} GiB; gradients sent "
+              f"and compared {f['compare_s']:.1f} s; {card}")
+    print(f"dist: global MoE on {shape} under fsdp against one process: "
+          f"the step's loss {loss:.3g} relative, gradients {worst[0]:.3g} "
+          f"of their leaf's largest at worst ({worst[1]}) (bound {tol}); "
+          f"the planted unweighted cotangents of the experts' all-gather "
+          f"land at {fault:.3g} on the MoE gradients; {card}")
+    held = all(f["ways"] == ["held"] for f in fs) and all(
+        {"model", "data"} <= set(json.loads(e)[1]) for e in specs)
+    if not (held and loss <= tol and worst[0] <= tol and fault > tol):
+        raise RuntimeError(f"dist: the global MoE under fsdp on {shape}: "
+                           f"experts {sorted(specs)} computed "
+                           f"{[f['ways'] for f in fs]}, loss {loss}, "
+                           f"gradients {worst}, planted {fault}")
+    return {"grads": worst[0], "loss": loss, "fault": fault,
+            "step_peak_bytes": [f["step"]["peak_bytes"] for f in fs]}
 
 
 def _dist_rows_report(counts, card) -> dict:
@@ -5891,21 +6020,48 @@ DECODE_BOUND_GIB = {"pod16x16": 8.45, "pod2x16x16": 5.19}
 # 95.59 before the scan steps' remat)
 TRAIN_BOUND_GIB = 25.77
 # train_4k a rank (6.251e14 whole): 1.812e14 before the remat, plus the
-# recompute the reference's jax.checkpoint also pays, one more forward of
-# the chunked attention's two products a tile: 26 layers x 32 tiles x 2 x
-# 2*16*4*512*1024*256 = 2.859e13
-TRAIN_FLOPS_BOUND = 2.1e14
+# recompute of the chunked attention's q.k a tile, which the reference's
+# jax.checkpoint also pays (its p.v there is dead code, which XLA drops
+# and the port's recompute skips): 26 layers x 32 tiles x
+# 2*16*4*512*1024*256 = 1.429e13; with the whole attention's weight
+# gradients on a rank's block of d, 1.860e14 on the CPU (JAX package
+# 1.874e14)
+TRAIN_FLOPS_BOUND = 1.90e14
 # the JAX package's dry-run of train_4k at pod16x16 on the CPU
 # (``python -m repro.launch.dryrun``): FLOPs and GiB a rank, printed beside
 REFERENCE_TRAIN = (1.874e14, 25.77)
 # the global MoE dispatch on each rank's experts in the dry-run:
 # llama4-maverick train_4k at pod16x16 cut to 2 of its 48 layers (one
 # attention, one MoE layer), its per-rank FLOPs and bytes as the dry-run
-# counts them on a CPU (tests/dryrun_depth.py), and its experts a rank
+# counts them on a CPU (tests/dryrun_depth.py), and its experts a rank;
+# under fsdp each rank's experts compute on its block of d over the 16
+# data ranks
 MOE_LAUNCH_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAUNCH_LAYERS = 2
-MOE_LAUNCH_CPU = (245897615114240, 55725324741)
+MOE_LAUNCH_CPU = (147628763381760, 53848373701)
 MOE_LAUNCH_EXPERTS = (8, 128)
+MOE_LAUNCH_DATA = 16
+
+
+def _moe_launch_products() -> set:
+    """The shapes of MOE_LAUNCH_ARCH's expert products a rank in the
+    dry-run: its 8 experts at the whole batch's capacity on its block of
+    d: the gate and up products in one [cap, 2f] and the down product's
+    [cap, f] input gradient, the down product and the input's gradient
+    [cap, d/D], the weights' gradients [d/D, 2f] and [f, d/D]; none on the
+    whole d."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import get_shape
+    from repro_torch.models.moe import capacity
+
+    cfg = get_arch(MOE_LAUNCH_ARCH)
+    shape = get_shape("train_4k")
+    cap = capacity(cfg, shape.global_batch * shape.seq_len)
+    r, f = MOE_LAUNCH_EXPERTS[0], cfg.expert_d_ff
+    dr = cfg.d_model // MOE_LAUNCH_DATA
+    return {f"bf16[{r},{cap},{2 * f}]", f"bf16[{r},{cap},{f}]",
+            f"bf16[{r},{cap},{dr}]", f"bf16[{r},{dr},{2 * f}]",
+            f"bf16[{r},{f},{dr}]"}
 
 
 def launch_child(argv) -> int:
@@ -5959,6 +6115,14 @@ def launch_child(argv) -> int:
     moe["norm_whole"] = sorted({
         shp for _, shp in counters[0].traffic
         if shp.startswith(f"bf16[{whole},")} - set(moe["experts_whole"]))
+    # a rank's expert weights gathered over "data" (whole d), in the
+    # params' type
+    cfg = full(MOE_LAUNCH_ARCH)
+    d, f = cfg.d_model, cfg.expert_d_ff
+    dt = {"bfloat16": "bf16", "float32": "f32"}[cfg.param_dtype]
+    moe["gathered_over_data"] = sorted(
+        {f"{dt}[{rank},{d},{f}]", f"{dt}[{rank},{f},{d}]"}
+        & {shp for _, shp in counters[0].traffic})
     Path(f"{out}.child.json").write_text(json.dumps({
         "moe": moe,
         "top": {"traffic": traffic[:PROFILE_TOP],
@@ -6186,6 +6350,7 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
     moe = child["moe"]
     mem = moe["memory_per_device_bytes"]["total_bytes"]
     rank, whole = MOE_LAUNCH_EXPERTS
+    want = _moe_launch_products()
     print(f"launch: dry-run {MOE_LAUNCH_ARCH}|train_4k|pod16x16 cut to "
           f"{MOE_LAUNCH_LAYERS} layers, the global MoE dispatch on {rank} of "
           f"{whole} experts a rank: {moe['per_device_flops']:.6e} FLOPs and "
@@ -6194,16 +6359,21 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
           f"{json.dumps(moe['collective_breakdown'])} bytes; the experts' "
           f"products " + "; ".join(f"{shp} {v:.6e} FLOPs" for shp, v in
                                     sorted(moe["experts"].items()))
-          + f"; products or dispatched tokens over all {whole} experts: "
-          f"{moe['experts_whole'] or 'none'} (the global norm's period "
-          f"gathers {moe['norm_whole']}); fake trace "
+          + f" (on blocks of d over {MOE_LAUNCH_DATA} data ranks, want "
+          f"{sorted(want)}); products or dispatched tokens over all "
+          f"{whole} experts: {moe['experts_whole'] or 'none'} (the global "
+          f"norm's period gathers {moe['norm_whole']}); a rank's expert "
+          f"weights gathered over data: "
+          f"{moe['gathered_over_data'] or 'none'}; fake trace "
           f"{moe['lower_s']:.1f} s; {card}")
     if (moe["per_device_flops"], mem) != MOE_LAUNCH_CPU \
-            or len(moe["experts"]) != 4 or moe["experts_whole"]:
+            or set(moe["experts"]) != want or moe["experts_whole"] \
+            or moe["gathered_over_data"]:
         raise RuntimeError(f"launch: the dry-run of {MOE_LAUNCH_ARCH}: "
                            f"{moe['per_device_flops']}, {mem} bytes, "
                            f"experts {moe['experts']}, whole "
-                           f"{moe['experts_whole']}")
+                           f"{moe['experts_whole']}, gathered over data "
+                           f"{moe['gathered_over_data']}")
     print(f"launch: the dry-run child {child['wall_s']:.1f} s, "
           f"{len(skips)} skip records, no kernel launched, CUDA never "
           f"initialised in it")

@@ -31,7 +31,19 @@ rank's gradient the whole, true one:
     batch axes, made whole where the region uses it): the cotangent
     times the region's weight, summed over the region's batch axes, then
     this rank's block of it — the region's gradient reduction of that
-    leaf, made where it is used (a stacked leaf one period at a time).
+    leaf, made where it is used (a stacked leaf one period at a time);
+  * ``scatter_sum`` (each rank's partial tensor summed over a
+    data-parallel region's batch axes, this rank's block of one dimension
+    kept: the MoE's dispatched tokens on a block of d under fsdp): the
+    all-gather of the cotangent, divided by the region's weight;
+  * ``gather_weighted`` (its transpose: the experts' outputs made whole
+    along d): the cotangent times the region's weight, reduce-scattered.
+
+A product that stays whole on every rank of some mesh axes (attention
+heads or a vocabulary that do not divide them) computes its weight's
+gradient on this rank's block of one dimension over those axes and
+all-gathers it (``whole_product``): the forward and the input's gradient
+as ``torch.matmul``'s.
 
 The tensor-parallel layers (``models``: heads, MLP and vocabulary blocks
 over ``model``, Megatron's layout) keep the same convention, that every
@@ -145,6 +157,29 @@ def _all_gather(t: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(parts, w, group=mesh.get_group(name))
     return _from_wire(torch.cat(parts, dim=dim), t, mesh)
+
+
+# torch 2.13 renames reduce_scatter_tensor (deprecated there)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+def _reduce_scatter(t: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over the mesh axes ``names``, this rank's block of
+    dimension ``dim`` of it (the first name outermost): a
+    reduce-scatter per axis of more than one rank."""
+    dim %= t.ndim
+    for name in names_of(names):
+        n = axis_size(mesh, name)
+        if n == 1:
+            continue
+        parts = t.unflatten(dim, (n, t.shape[dim] // n)).movedim(dim, 0)
+        w = _to_wire(parts, mesh)
+        out = torch.empty(w[0].numel(), dtype=w.dtype, device=w.device)
+        # flat: gloo checks the first dimension, n times the output's
+        _REDUCE_SCATTER(out, w.reshape(-1), group=mesh.get_group(name))
+        t = _from_wire(out.view(w.shape[1:]), t, mesh)
+    return t
 
 
 def _pack(tensors: list) -> torch.Tensor:
@@ -471,6 +506,127 @@ def gather_summed(t: torch.Tensor, mesh, spec, names, weight: torch.Tensor
     takes this rank's block of it under ``spec``: a data-parallel
     region's reduction of one leaf's gradient, where the leaf is used."""
     return _GatherSummed.apply(mesh, tuple(spec), tuple(names), weight, t)
+
+
+def _along(dim: int, names: tuple, ndim: int) -> tuple:
+    """The spec naming ``names`` on dimension ``dim`` only."""
+    return tuple(names if i == dim % ndim else None for i in range(ndim))
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, names, dim, weight, t):
+        ctx.mesh, ctx.names, ctx.dim, ctx.weight = mesh, names, dim, weight
+        out = _reduce_scatter(t, mesh, names, dim)
+        return t.clone() if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _gather_whole(g.contiguous(), ctx.mesh,
+                              _along(ctx.dim, ctx.names, g.ndim))
+        return None, None, None, None, (whole.float()
+                                        / ctx.weight).to(g.dtype)
+
+
+def scatter_sum(t: torch.Tensor, mesh, names, dim: int,
+                weight: torch.Tensor) -> torch.Tensor:
+    """The sum over the data-parallel region's batch axes ``names`` of
+    each rank's partial ``t``, this rank's block of dimension ``dim`` of
+    it; in the backward the cotangent (every rank's block of the whole
+    batch's gradient) all-gathered and divided by ``weight``, the factor
+    the region multiplies this rank's upstream gradients by."""
+    return _ScatterSum.apply(mesh, names_of(names), dim, weight, t)
+
+
+class _GatherWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, names, dim, weight, t):
+        ctx.mesh, ctx.names, ctx.dim, ctx.weight = mesh, names, dim, weight
+        out = _gather_whole(t, mesh, _along(dim, names, t.ndim))
+        return t.clone() if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = (g.float() * ctx.weight).to(g.dtype)
+        return None, None, None, None, _reduce_scatter(g, ctx.mesh,
+                                                       ctx.names, ctx.dim)
+
+
+def gather_weighted(t: torch.Tensor, mesh, names, dim: int,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """Every rank's block of ``t`` along dimension ``dim`` over the
+    region's batch axes ``names``, made whole; in the backward each rank's
+    cotangent (its own tokens' share) times ``weight``, summed over the
+    axes and cut to this rank's block: the transpose of
+    :func:`scatter_sum`, so that what lies between the two computes the
+    whole batch's gradient."""
+    return _GatherWeighted.apply(mesh, names_of(names), dim, weight, t)
+
+
+class _CutWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, spec, weight, t):
+        ctx.mesh, ctx.spec, ctx.weight = mesh, spec, weight
+        ctx.like = (t.shape, t.dtype, t.device)
+        return block(t, mesh, spec).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        full = torch.zeros(shape, dtype=dtype, device=device)
+        block(full, ctx.mesh, ctx.spec).copy_(g.float() / ctx.weight)
+        return None, None, None, full
+
+
+def cut_weighted(t: torch.Tensor, mesh, spec, weight: torch.Tensor
+                 ) -> torch.Tensor:
+    """This rank's block of a whole ``t`` under ``spec`` (over a
+    data-parallel region's batch axes), whose cotangent already holds the
+    whole batch's gradient of the block: in the backward it is divided by
+    ``weight`` and placed in zeros of the whole shape, so that the
+    region's weighted sum of the ranks' gradients assembles the whole
+    leaf's from every rank's block (the global view of a leaf used as
+    :func:`scatter_sum`'s layout holds it)."""
+    return _CutWeighted.apply(mesh, tuple(spec), weight, t)
+
+
+class _WholeProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, names, dim, x, w):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[3]:
+            dx = torch.matmul(g, w.t())
+        if ctx.needs_input_grad[4]:
+            index, blocks = block_index(ctx.mesh, ctx.names)
+            n = w.shape[ctx.dim] // blocks
+            rows = slice(index * n, (index + 1) * n)
+            x2, g2 = x.flatten(0, -2), g.flatten(0, -2)
+            if ctx.dim == 0:
+                dw = torch.matmul(x2[:, rows].t(), g2)
+            else:
+                dw = torch.matmul(x2.t(), g2[:, rows])
+            dw = _gather_whole(dw, ctx.mesh,
+                               _along(ctx.dim, ctx.names, 2))
+        return None, None, None, dx, dw
+
+
+def whole_product(x: torch.Tensor, w: torch.Tensor, mesh, names,
+                  dim: int) -> torch.Tensor:
+    """``torch.matmul(x, w)`` (``w`` 2-D) of a layer that every rank of the
+    mesh axes ``names`` computes whole, on the same ``x`` and with the
+    same cotangent: the forward and x's gradient as torch's, w's gradient
+    computed on this rank's block of its dimension ``dim`` over ``names``
+    and all-gathered, so every rank holds the whole gradient of a
+    sixteenth of the work on a mesh axis of 16."""
+    return _WholeProduct.apply(mesh, names_of(names), dim, x, w)
 
 
 # --------------------------------------------------------------------------

@@ -281,8 +281,9 @@ def region_period(tree: Any) -> Any:
     gradient summed after the region (``train.step``).  A stacked layer
     period's leaves (``models.transformer``) are so gathered and reduced
     one period at a time, inside the period's checkpoint: no stacked
-    leaf or its gradient is ever whole over the batch axes.  ``tree`` as
-    it is outside such a region."""
+    leaf or its gradient is ever whole over the batch axes (the MoE's
+    global dispatch takes its experts' blocks as they are held instead,
+    ``models.moe``).  ``tree`` as it is outside such a region."""
     region = active_region()
     if region is None or region.weight is None:
         return tree

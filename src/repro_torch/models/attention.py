@@ -38,7 +38,13 @@ on k and v then sums the ranks' shares of their gradient.  The ring
 (``ring=True`` where it splits the sequence) and the decode ring
 (``stream_kv``) compute every head on every rank, as before.  The decode
 step attends on the local heads where the reference gathers q whole
-(``heads_act``): the same values, other collectives.
+(``heads_act``): the same values, other collectives.  Where the heads
+stay whole on every rank, the projections' weight gradients are computed
+on this rank's block of d and all-gathered (``layers.whole_matmul``).
+
+``attend_chunked``'s p·v is an autograd op (:class:`_ProbsV`) whose
+backward reads p, v and the cotangent only, so the KV chunk step's
+recompute in the backward skips it.
 
 The torch paths keep the JAX order of work: scores in q's type, then fp32;
 the probabilities cast back to q's type before the product with v.
@@ -61,7 +67,8 @@ from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
                                        split_axes, take)
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import rope, scan_step
+from repro_torch.models.layers import (recomputing, rope, scan_step,
+                                      whole_matmul)
 from repro_torch.models.module import ParamSpec
 
 
@@ -76,11 +83,15 @@ def attention_spec(cfg: ArchConfig, cross: bool = False) -> dict:
     }
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one product in x's type."""
+def _project(x: torch.Tensor, w: torch.Tensor,
+             whole: bool = False) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one product in x's type; ``whole``: of
+    heads every rank computes, w's gradient on a block of d
+    (``layers.whole_matmul``)."""
     d, h, k = w.shape
-    return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(
-        -1, (h, k))
+    w = w.to(x.dtype).reshape(d, h * k)
+    y = whole_matmul(x, w, 0) if whole else torch.matmul(x, w)
+    return y.unflatten(-1, (h, k))
 
 
 def head_axes(cfg: ArchConfig, b: int, s: int) -> tuple:
@@ -132,9 +143,9 @@ def _project_qkv(cfg, params, x, kv_src=None, axes=((), ())):
             v = collectives.copy_to(_project(kv_src, take(params["wv"])),
                                     mesh, heads)
     else:
-        q = _project(x, take(params["wq"]))
-        k = _project(kv_src, take(params["wk"]))
-        v = _project(kv_src, take(params["wv"]))
+        q = _project(x, take(params["wq"]), whole=True)
+        k = _project(kv_src, take(params["wk"]), whole=True)
+        v = _project(kv_src, take(params["wv"]), whole=True)
     q = constrain(q, "batch", "seq", "heads", "head_dim")
     k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
     v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
@@ -143,11 +154,15 @@ def _project_qkv(cfg, params, x, kv_src=None, axes=((), ())):
 
 def _out_proj(out: torch.Tensor, wo, dtype, heads: tuple = ()) -> torch.Tensor:
     """einsum("bshd,hdk->bsk") as one product in ``dtype``; with ``heads``
-    the row-parallel product of this rank's heads, summed over them."""
+    the row-parallel product of this rank's heads, summed over them,
+    without, every head's, wo's gradient on a block of d
+    (``layers.whole_matmul``)."""
     wo = take(wo, 0, heads)
     h, hd, d = wo.shape
-    y = torch.matmul(out.to(dtype).flatten(-2), wo.to(dtype).reshape(h * hd, d))
-    return collectives.reduce_from(y, active_mesh(), heads) if heads else y
+    x, w = out.to(dtype).flatten(-2), wo.to(dtype).reshape(h * hd, d)
+    if not heads:
+        return whole_matmul(x, w, 1)
+    return collectives.reduce_from(torch.matmul(x, w), active_mesh(), heads)
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -174,6 +189,32 @@ def attend_full(q, k, v, *, causal: bool, window: int = 0,
     return torch.einsum("bhst,bthd->bshd", probs.to(q.dtype), v)
 
 
+class _ProbsV(torch.autograd.Function):
+    """einsum("bhst,bthd->bhsd", p, v), whose backward reads p, v and the
+    cotangent only: in a step's recompute (``layers.recomputing``), where
+    no gradient reads the product, its forward returns zeros of its shape
+    and computes nothing, as XLA drops it from the reference's
+    ``jax.checkpoint`` as dead code."""
+
+    @staticmethod
+    def forward(ctx, p, v):
+        ctx.save_for_backward(p, v)
+        if recomputing():
+            b, h, s, _ = p.shape
+            return p.new_zeros((b, h, s, v.shape[-1]))
+        return torch.einsum("bhst,bthd->bhsd", p, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            dp = torch.einsum("bhsd,bthd->bhst", g, v)
+        if ctx.needs_input_grad[1]:
+            dv = torch.einsum("bhst,bhsd->bthd", p, g)
+        return dp, dv
+
+
 def _chunk_body(scale, causal, window, q, q_pos, carry, kv_chunk):
     """Online-softmax update for one KV chunk (remat'ed in the loop)."""
     acc, m, l = carry
@@ -184,8 +225,7 @@ def _chunk_body(scale, causal, window, q, q_pos, carry, kv_chunk):
     alpha = torch.exp(m - m_new)
     p = torch.exp(s - m_new[..., None])
     l = l * alpha + p.sum(dim=-1)
-    acc = acc * alpha[..., None] + torch.einsum(
-        "bhst,bthd->bhsd", p.to(q.dtype), v_c).float()
+    acc = acc * alpha[..., None] + _ProbsV.apply(p.to(q.dtype), v_c).float()
     return acc, m_new, l
 
 

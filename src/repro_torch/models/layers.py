@@ -18,9 +18,19 @@ be blocks (``dist.sharding.Block``); ``take`` gives the block a layer uses.
 :func:`scan_step` is the counterpart of the reference's ``jax.checkpoint``
 on a ``lax.scan`` body: the layers' sequential loops (attention's KV
 chunks, the SSM's and the mLSTM's chunks, the sLSTM's steps) run each step
-through it.
+through it.  Its recompute in the backward is marked (:func:`recomputing`):
+a product there whose value no gradient reads (attention's p·v) is not
+computed, as XLA drops it from the reference's recompute as dead code.
+
+Where a layer stays whole on every rank of the active mesh (attention
+heads or a vocabulary that do not divide its axes), its weights'
+gradients are computed on this rank's block of d over those idle axes
+and all-gathered (:func:`whole_matmul`), as the reference's partitioner
+spends the idle axes on them.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -28,8 +38,9 @@ import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import (active_mesh, bind_frame, constrain,
-                                       split_axes, take, whole_shape)
+from repro_torch.dist.sharding import (_axis_sizes, active_mesh, bind_frame,
+                                       constrain, split_axes, take,
+                                       whole_shape)
 from repro_torch.models.module import ParamSpec
 
 
@@ -38,11 +49,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+_STATE = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread runs a step's recompute in :class:`_Remat`'s
+    backward, where only the gradients of the step's outputs are read,
+    never their values."""
+    return getattr(_STATE, "recompute", False)
+
+
 class _Remat(torch.autograd.Function):
     """One remat'ed step (:func:`scan_step`): the forward runs the step
     without recording and saves its tensor arguments with
     ``save_for_backward``; the backward runs the step again with a
-    gradient and differentiates it.  Saved through the saved-tensor
+    gradient, marked as a recompute (:func:`recomputing`), and
+    differentiates it.  Saved through the saved-tensor
     hooks, the arguments are discarded by an enclosing checkpoint's
     forward (the transformer's period) and made again by its recompute,
     where ``torch.utils.checkpoint``'s non-reentrant form would hold a
@@ -67,9 +89,14 @@ class _Remat(torch.autograd.Function):
         saved = iter(ctx.saved_tensors)
         flat = [next(saved).detach().requires_grad_(need) if slot else a
                 for a, slot, need in zip(ctx.flat, ctx.slots, ctx.needs)]
-        with torch.enable_grad():
-            out = pytree.tree_leaves(ctx.fn(*pytree.tree_unflatten(
-                flat, ctx.spec)))
+        was = recomputing()
+        _STATE.recompute = True
+        try:
+            with torch.enable_grad():
+                out = pytree.tree_leaves(ctx.fn(*pytree.tree_unflatten(
+                    flat, ctx.spec)))
+        finally:
+            _STATE.recompute = was
         pairs = [(o, g) for o, g in zip(out, grads)
                  if g is not None and o.requires_grad]
         wanted = [a for a, need in zip(flat, ctx.needs) if need]
@@ -99,6 +126,28 @@ def scan_step(fn):
         out = _Remat.apply(bound, spec, out_spec, *flat)
         return pytree.tree_unflatten(list(out), out_spec[0])
     return run
+
+
+def idle_axes() -> tuple:
+    """The active mesh's axes of more than one rank: those that a layer
+    computed whole on every rank leaves idle; () with no mesh."""
+    mesh = active_mesh()
+    if mesh is None:
+        return ()
+    return tuple(n for n, size in _axis_sizes(mesh).items() if size > 1)
+
+
+def whole_matmul(x: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.matmul(x, w)`` (``w`` 2-D, dimension ``dim`` of it d) of a
+    layer that every rank computes whole: under autograd on a mesh whose
+    idle axes divide d, w's gradient on this rank's block of d over them,
+    all-gathered (``collectives.whole_product``)."""
+    axes = idle_axes()
+    if axes and torch.is_grad_enabled():
+        _, blocks = collectives.block_index(active_mesh(), axes)
+        if w.shape[dim] % blocks == 0:
+            return collectives.whole_product(x, w, active_mesh(), axes, dim)
+    return torch.matmul(x, w)
 
 
 # --------------------------------------------------------------------------
@@ -203,8 +252,10 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     table = params["table"]
     axes = vocab_axes(*x.shape[:-1], whole_shape(table)[0])
     x32 = x.float()
-    if axes:
-        x32 = collectives.copy_to(x32, active_mesh(), axes)
+    if not axes:
+        logits = whole_matmul(x32, take(table).float().t(), 0)
+        return constrain(logits, "batch", "seq", "vocab")
+    x32 = collectives.copy_to(x32, active_mesh(), axes)
     logits = torch.matmul(x32, take(table, 0, axes).float().t())
     return constrain(logits, "batch", "seq", "vocab")
 

@@ -41,6 +41,22 @@ per-slot, per-expert counts all-gathered), and the aux loss sums the
 densities and the mean probabilities over the batch axes before their
 product.  The local dispatch routes each shard as in the reference, whose
 aux loss is the whole batch's too.
+
+**The experts on blocks of d under fsdp.**  Where the region takes
+gradients and holds the experts' weights split over its batch axes on
+their ``embed`` dimension (``train_rules(fsdp=True)``), the global
+dispatch computes as the reference's layout does: there the dispatched
+tokens are constrained ``("expert", None, "embed")`` and, having no batch
+axis to give ``data``, lie on d's blocks, and each rank uses the weights'
+blocks as it holds them.  The weights are never gathered over the batch
+axes (``transformer``'s period leaves them to the dispatch,
+:func:`region_held`): the whole batch's dispatched tokens are
+reduce-scattered onto this rank's block of d, the gate and up products
+run on the held blocks with their partial sums psum'd over the batch
+axes, and the down product's block of d is all-gathered before the
+combine (:func:`_experts_on_embed_blocks`).  Each expert product is
+1/D of the whole-d one on D data ranks.  Elsewhere (no fsdp, serving,
+the local and shard_map dispatches) d stays whole, as in the reference.
 """
 from __future__ import annotations
 
@@ -49,8 +65,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import (_axis_sizes, active_mesh,
-                                       active_region, constrain, gather_tree,
+from repro_torch.dist.collectives import names_of
+from repro_torch.dist.sharding import (Block, _axis_sizes, active_mesh,
+                                       active_region, active_rules,
+                                       constrain, gather_tree, region_period,
                                        split_axes, take)
 from repro_torch.models.layers import gelu, mlp, mlp_spec
 from repro_torch.models.module import ParamSpec
@@ -421,12 +439,18 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     xe = constrain(xe, "expert", None, "embed")
 
     dtype = x.dtype
-    w_gate, w_up, w_down = _expert_weights(params, axes, dtype)
-    g = torch.einsum("ecd,edf->ecf", xe, w_gate)
-    u = torch.einsum("ecd,edf->ecf", xe, w_up)
-    h = _act(cfg, g) * u
-    h = constrain(h, "expert", None, "expert_mlp")
-    ye = torch.einsum("ecf,efd->ecd", h, w_down)  # [E_loc,cap,d]
+    region = active_region()
+    how = _embed_specs(cfg, params, axes, region)
+    if how:
+        ye = _experts_on_embed_blocks(cfg, params, axes, how, xe, region)
+    else:
+        experts = {k: region_period(params[k]) for k in EXPERTS}
+        w_gate, w_up, w_down = _expert_weights(experts, axes, dtype)
+        g = torch.einsum("ecd,edf->ecf", xe, w_gate)
+        u = torch.einsum("ecd,edf->ecf", xe, w_up)
+        h = _act(cfg, g) * u
+        h = constrain(h, "expert", None, "expert_mlp")
+        ye = torch.einsum("ecf,efd->ecd", h, w_down)  # [E_loc,cap,d]
 
     # combine: scatter-add this rank's experts' outputs back to tokens,
     # weighted; the other slots add zeros
@@ -447,6 +471,89 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     aux = _aux(expert_idx, probs, e, active_region())
     y = y.reshape(b, s, d).to(x.dtype)
     return constrain(y, "batch", "seq", "embed"), aux
+
+
+# the experts' weights, and the dimension of each that holds d
+EXPERTS = ("w_gate", "w_up", "w_down")
+_EMBED_DIM = {"w_gate": 1, "w_up": 1, "w_down": 2}
+
+
+def region_held(cfg: ArchConfig, path: tuple) -> bool:
+    """Whether a data-parallel region leaves the param at key ``path`` to
+    the layer (``transformer``'s period passes it by
+    ``dist.sharding.region_period`` as it is held): the global dispatch's
+    experts, which :func:`moe_apply` takes on their embed blocks or passes
+    by ``region_period`` itself."""
+    return (cfg.moe_dispatch not in ("local", "shardmap")
+            and path[-2:-1] == ("moe",) and path[-1] in EXPERTS)
+
+
+def _embed_specs(cfg: ArchConfig, params: dict, axes: tuple, region):
+    """Whether, and how, the global dispatch computes on the experts'
+    blocks of d (module docstring): in a data-parallel region that takes
+    gradients, where each expert weight is held, or the active rules
+    would hold it, over ``axes`` (this rank's experts) on its expert
+    dimension, over exactly the region's batch axes on its embed
+    dimension, and whole along the rest: "held" for Blocks so held,
+    "whole" for whole leaves (the global view), else None."""
+    if region is None or region.weight is None:
+        return None
+    blocks = {isinstance(params[k], Block) for k in EXPERTS}
+    if len(blocks) != 1:
+        return None
+    held = blocks.pop()
+    rules, specs = active_rules(), moe_spec(cfg)
+    for k in EXPERTS:
+        leaf = params[k]
+        if held:
+            got = leaf.spec
+        else:
+            got = rules.spec(specs[k].logical_axes, shape=leaf.shape,
+                             mesh=region.mesh)
+        want = [()] * len(got)
+        want[0], want[_EMBED_DIM[k]] = tuple(axes), tuple(region.axes)
+        if [tuple(names_of(e)) for e in got] != want:
+            return None
+    return "held" if held else "whole"
+
+
+def _experts_on_embed_blocks(cfg: ArchConfig, params: dict, axes: tuple,
+                             how: str, xe: torch.Tensor, region
+                             ) -> torch.Tensor:
+    """This rank's experts' outputs [E_loc, cap, d] for its dispatched
+    tokens ``xe`` [E_loc, cap, d] (its tokens at their whole-batch slots,
+    zeros elsewhere), computed as the reference's fsdp layout does, on the
+    blocks of d over the region's batch axes (module docstring): the
+    whole batch's tokens on this rank's block of d (a reduce-scatter), the
+    gate and up products on the [E_loc, d/D, f] blocks in one product and
+    their partial sums psum'd, the activation whole, the down product on
+    the [E_loc, f, d/D] block, all-gathered along d.  The cotangent
+    entering the all-gather is weighted by the region's weight and the
+    one leaving the reduce-scatter divided by it, so the weights' blocks
+    get the whole batch's gradient and x the rank's own share.  ``how``:
+    "held", the blocks as the Blocks hold them (the region sums their
+    gradients no more); "whole", cut from whole leaves
+    (``collectives.cut_weighted``)."""
+    mesh, names, weight = region.mesh, region.axes, region.weight
+    dtype = xe.dtype
+
+    def block(k):
+        if how == "held":
+            return params[k].local.to(dtype)
+        spec = [None] * params[k].ndim
+        spec[_EMBED_DIM[k]] = names
+        return collectives.cut_weighted(take(params[k], 0, axes), mesh,
+                                        spec, weight).to(dtype)
+
+    w_gate, w_up, w_down = (block(k) for k in EXPERTS)
+    f = w_gate.shape[-1]
+    xs = collectives.scatter_sum(xe, mesh, names, -1, weight)  # [E,cap,d/D]
+    gu = torch.einsum("ecd,edf->ecf", xs, torch.cat([w_gate, w_up], -1))
+    g, u = collectives.psum(gu, mesh, names).split(f, dim=-1)
+    h = _act(cfg, g) * u
+    h = constrain(h, "expert", None, "expert_mlp")
+    ye = torch.einsum("ecf,efd->ecd", h, w_down)                # [E,cap,d/D]
+    return collectives.gather_weighted(ye, mesh, names, -1, weight)
 
 
 def _global_routing(cfg: ArchConfig, router_w, x_flat) -> tuple:

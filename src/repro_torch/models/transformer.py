@@ -21,7 +21,10 @@ the layer does not compute on: under a mesh that splits their heads,
 ``mlp`` or ``expert`` dimension they compute on this rank's block
 (``models.attention``, ``models.layers``, ``models.ssm`` through
 :func:`_fuse_ssm`, ``models.xlstm``, ``models.moe``; :func:`_held`).
-Inside a layer the sequential loops remat each step
+In a data-parallel region that takes gradients, the period's fsdp
+leaves pass ``region_period`` (:func:`_in_region`), but the global MoE
+dispatch's expert weights, which it computes on as they are held
+(``moe.region_held``).  Inside a layer the sequential loops remat each step
 (``layers.scan_step``): the period's recompute keeps one step's
 intermediates at a time.  ``stack_decode`` updates the cache it is given
 in place and returns it: each layer writes one token slice of its KV
@@ -193,6 +196,20 @@ def _held(params: dict) -> dict:
         elif k not in _TAKEN:
             v = gather_tree(v)
         out[k] = v
+    return out
+
+
+def _in_region(cfg: ArchConfig, tree: dict, path: tuple = ()) -> dict:
+    """One period's params as a data-parallel region uses them
+    (``region_period``), but the leaves the MoE's global dispatch takes as
+    they are held (``moe.region_held``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _in_region(cfg, v, path + (k,))
+        else:
+            out[k] = (v if moe_mod.region_held(cfg, path + (k,))
+                      else region_period(v))
     return out
 
 
@@ -417,7 +434,7 @@ def stack_forward(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
 
     def period_body(x, period_params):
         aux_p = _zero(x)
-        period_params = region_period(period_params)
+        period_params = _in_region(cfg, period_params)
         for i, kind in enumerate(cfg.layer_pattern):
             if f"p{i}" not in period_params:
                 continue

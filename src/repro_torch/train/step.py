@@ -49,6 +49,9 @@ cross-entropy reads this rank's vocabulary block of the logits: a max
 all-reduced outside autograd, the sums of exponentials and the gold logit
 psum'd, so the loss is the same on every rank, and the z-loss is taken
 from the whole logsumexp.  The fp32 logits stay, as in the reference.
+Where the vocabulary stays whole on every rank, the table's gradient is
+computed on this rank's block of d and all-gathered
+(``models.layers.whole_matmul``).
 
 **Blocked state.**  Params and AdamW's moments may be held as blocks
 (``dist.sharding.Block``), and the batch too (the launcher under
@@ -81,6 +84,7 @@ from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
                                        bind_frame, data_region, gather_tree,
                                        local, local_batch, region_params,
                                        split_over, use_mesh)
+from repro_torch.models.layers import whole_matmul
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
 from repro_torch.optim import compression as comp_mod
@@ -147,7 +151,9 @@ def _ce_segment(h, lab, t32, axes=()):
     h32 = h.to(torch.float32)
     if axes:
         h32 = collectives.copy_to(h32, active_mesh(), axes)
-    logits = torch.einsum("bsd,vd->bsv", h32, t32)
+        logits = torch.einsum("bsd,vd->bsv", h32, t32)
+    else:
+        logits = whole_matmul(h32, t32.t(), 0)
     mask = lab != IGNORE_LABEL
     safe = torch.where(mask, lab, 0).long()
     lse, gold = _lse_gold(logits, safe, axes)

@@ -30,7 +30,10 @@ Beside them:
     (2, 2) mesh, with an expert overflowing) against the no-mesh global
     dispatch, the per-shard routing planted above the bound;
   * a train step on the (2, 2) mesh whose data shards count unequal
-    tokens: the router's gradient through the whole batch's aux loss.
+    tokens: the router's gradient through the whole batch's aux loss;
+    the same under fsdp on blocks, where the experts run on their blocks
+    of d, with the cotangents entering their all-gather left unweighted
+    planted above the bound.
 
 Bounds: logits within 1e-4 of the JAX package's largest logit; the loss
 within 1e-5 of the no-mesh step's, and every gradient leaf within 1e-5
@@ -265,6 +268,47 @@ for mname, (shape, names) in MESHES[world].items():
             "loss": rel(l1, l0), "aux": rel(m1["aux"], m0["aux"]),
             "router": rel(r1, r0), "grads": rel(g1, g0), "routers": len(r0)}
         on_ranks("unequal", [l1, g1])
+
+        # the same step under fsdp on blocks: the experts' products on
+        # their blocks of d, their gradients the whole batch's; and with
+        # the cotangents entering the experts' all-gather unweighted
+        frules = shd.train_rules(fsdp=True)
+
+        def fsdp_grads():
+            held = shd.shard_tree(weights(name), shd.tree_shardings(
+                model.param_specs(), mesh, frules), mesh)
+            with shd.use_mesh(mesh, frules):
+                (l, _), g = fn(held, batch)
+            g = module.tree_map(lambda x, p: p.with_local(x)
+                                if isinstance(p, shd.Block) else x, g, held)
+            return l, shd.gather_tree(g)
+
+        class Unweighted:
+            def __init__(self, real):
+                self.real = real
+
+            def __getattr__(self, key):
+                return getattr(self.real, key)
+
+            def gather_weighted(self, t, m, names, dim, weight):
+                return self.real.gather_weighted(t, m, names, dim,
+                                                 torch.ones_like(weight))
+
+        ways = []
+        real_blocks = moe_mod._experts_on_embed_blocks
+
+        def on_blocks(*args):
+            ways.append(args[3])
+            return real_blocks(*args)
+
+        with patched(moe_mod, "_experts_on_embed_blocks", on_blocks):
+            l2, g2 = fsdp_grads()
+        with patched(moe_mod, "collectives", Unweighted(collectives)):
+            _, g3 = fsdp_grads()
+        report["unequal_fsdp"] = {
+            "loss": rel(l2, l0), "grads": rel(g2, g0),
+            "ways": sorted(set(ways)), "planted": rel(g3, g0)}
+        on_ranks("unequal_fsdp", [l2, g2])
 """
 
 
@@ -430,6 +474,20 @@ def test_moe_aux_gradient_with_unequal_shards(runs):
     assert _report(runs, 4)["ranks"]["unequal"]
 
 
+def test_moe_experts_on_embed_blocks_with_unequal_shards(runs):
+    """The same step under ``train_rules(fsdp=True)`` on blocks: the
+    experts run on their blocks of d (held over "model" and "data"), and
+    the loss and every gradient leaf match the no-mesh step's; with the
+    cotangents entering the experts' all-gather unweighted (planted) the
+    gradients land above the bound."""
+    got = _report(runs, 4)["unequal_fsdp"]
+    assert got["ways"] == ["held"], got
+    assert got["loss"] <= GRAD_REL, got
+    assert got["grads"] <= GRAD_BOUND["llama4-maverick-400b-a17b"], got
+    assert got["planted"] > MOE_TOL, got
+    assert _report(runs, 4)["ranks"]["unequal_fsdp"]
+
+
 # --------------------------------------------------------------------------
 # the dry-run: hymba-1.5b train_4k at pod16x16, cut to 2 layers
 # --------------------------------------------------------------------------
@@ -473,11 +531,14 @@ def test_dryrun_ssm_scan_on_blocks(runs):
 # the SSM products' passes whose output has a rank's 100 channels, with
 # their calls a layer: ssm_in's forward (and the period's recompute) and
 # its weight gradient, w_dt_proj's the same in fp32, ssm_out's input and
-# weight gradients
+# weight gradients; beside ssm_in's and ssm_out's weight gradients, the
+# attention's wo and wq gradients on a rank's 100 of d (its 25 heads of
+# 64 stay whole: collectives.whole_product), the same [1600, 100] and
+# [100, 1600] products
 SSM_KEYS = {("aten.mm", f"bf16[{B_RANK * SEQ},{D // RANKS}]"): 3,
             ("aten.mm", f"f32[{B_RANK * SEQ},{D // RANKS}]"): 2,
-            ("aten.mm", f"bf16[{D},{D // RANKS}]"): 1,
-            ("aten.mm", f"bf16[{D // RANKS},{D}]"): 1,
+            ("aten.mm", f"bf16[{D},{D // RANKS}]"): 2,
+            ("aten.mm", f"bf16[{D // RANKS},{D}]"): 2,
             ("aten.mm", f"f32[{D},{D // RANKS}]"): 1}
 
 

@@ -7,13 +7,15 @@ ever whole on a rank.
   whole-leaf gather it replaced: the peak a rank is lower, no tensor of
   the whole stacked expert ``w_down`` shape [2, 128, 8192, 5120] appears
   (in the old cell its gather and fp32 copy do), and the FLOPs are equal.
-* The same cell against one whose data-parallel region gathers the fsdp
-  leaves whole over "data" before the layer stack (``region_period``
-  the identity in it, ``region_params`` taking the stacked leaves too):
-  the peak a rank is lower, and no stacked expert leaf of a rank's 8
+* The same cell with the experts gathered over "data" in each period
+  (``region_period``; their blocks of d undone, ``moe._embed_specs``
+  None) against one whose data-parallel region gathers the fsdp leaves
+  whole over "data" before the layer stack (``region_period`` the
+  identity in it, ``region_params`` taking the stacked leaves too): the
+  peak a rank is lower, and no stacked expert leaf of a rank's 8
   experts, or its gradient, appears whole over "data" ([2, 8, 8192,
-  5120] and [2, 8, 5120, 8192]; the old cell makes both), at equal
-  FLOPs.
+  5120] and [2, 8, 5120, 8192]; the old cell makes both, the cell with
+  the experts on their blocks of d neither), at equal FLOPs.
 * On a gloo world of 2: ``global_norm`` over blocks (a stacked leaf split
   on dim 1, an unstacked leaf split on dim 0, an unsplit stacked leaf)
   equals the norm over the whole leaves bit for bit, with chunks of a few
@@ -54,17 +56,18 @@ def _whole_leaf_norm(tree, like=None):
 @pytest.fixture(scope="module")
 def cells():
     """(cell, op counter) with the norm by periods, the same with the
-    whole-leaf norm, and the same with the fsdp leaves gathered whole
-    over "data" as the step begins."""
+    whole-leaf norm, the same with the fsdp leaves gathered whole over
+    "data" as the step begins, and the same with the experts gathered
+    over "data" one period at a time (their blocks of d undone)."""
     from repro_torch.dist import sharding
     from repro_torch.launch import dryrun
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
     from repro_torch.optim import adamw
     from repro_torch.train import step
 
     full = dryrun.get_arch
     out = []
-    for old in ("", "norm", "gather"):
+    for old in ("", "norm", "gather", "period"):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(dryrun, "get_arch", lambda name: dataclasses.replace(
                 full(name), n_layers=LAYERS))
@@ -73,6 +76,11 @@ def cells():
             if old == "gather":
                 mp.setattr(transformer, "region_period", lambda tree: tree)
                 mp.setattr(step, "region_params", sharding.region_period)
+            if old == "period":
+                # the experts gathered over "data" in the period
+                # (region_period) and run on the whole d, as the gather
+                # cell runs them
+                mp.setattr(moe, "_embed_specs", lambda *a: None)
             counters = []
             cell = dryrun.run_cell("llama4-maverick-400b-a17b", "train_4k",
                                    verbose=False, counter_out=counters)
@@ -85,7 +93,7 @@ def _shapes(counter) -> set:
 
 
 def test_norm_peak_lower(cells):
-    (new, _), (old, _), _ = cells
+    (new, _), (old, _), _, _ = cells
     got = new["memory_per_device_bytes"]["total_bytes"]
     was = old["memory_per_device_bytes"]["total_bytes"]
     assert got < was, (got, was)
@@ -95,19 +103,19 @@ def test_norm_peak_lower(cells):
 def test_norm_no_whole_stacked_expert_gradient(cells, dtype):
     """Neither the gathered stacked ``w_down`` gradient nor its fp32 copy
     is ever made; the whole-leaf norm makes both."""
-    (_, new), (_, old), _ = cells
+    (_, new), (_, old), _, _ = cells
     shape = f"{dtype}[{W_DOWN}]"
     assert shape not in _shapes(new)
     assert shape in _shapes(old)
 
 
 def test_norm_flops_equal(cells):
-    (new, _), (old, _), _ = cells
+    (new, _), (old, _), _, _ = cells
     assert new["per_device_flops"] == old["per_device_flops"]
 
 
 def test_region_period_peak_lower(cells):
-    (new, _), _, (old, _) = cells
+    _, _, (old, _), (new, _) = cells
     got = new["memory_per_device_bytes"]["total_bytes"]
     was = old["memory_per_device_bytes"]["total_bytes"]
     assert got < was, (got, was)
@@ -120,13 +128,13 @@ def test_region_period_no_stacked_expert_whole_over_data(cells, shape):
     at the whole d = 5120: the region gathers them, and sums their
     gradients, one period at a time; gathered before the stack, both the
     leaf and its gradient are made whole."""
-    (_, new), _, (_, old) = cells
-    assert shape not in _shapes(new)
+    (_, cell), _, (_, old), (_, new) = cells
+    assert shape not in _shapes(new) | _shapes(cell)
     assert shape in _shapes(old)
 
 
 def test_region_period_flops_equal(cells):
-    (new, _), _, (old, _) = cells
+    _, _, (old, _), (new, _) = cells
     assert new["per_device_flops"] == old["per_device_flops"]
 
 

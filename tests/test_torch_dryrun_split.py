@@ -5,11 +5,14 @@ ranks).
 
 * llama4-maverick-400b-a17b cut to 2 of 48 layers (one attention layer,
   one MoE layer: 128 experts of 8192, top-1), against the same cell with
-  the experts computed whole on every rank (``moe.split_axes`` made ()):
-  the dispatched tokens ``xe`` are [8, cap, d] a rank with ``cap`` the
-  whole batch's capacity, no [128, cap, .] tensor appears, the experts'
-  products count exactly 1/16 of the whole cell's FLOPs, and memory is
-  lower.
+  the experts on d's blocks undone (``moe._embed_specs`` made None: each
+  rank's 8 experts on the whole d = 5120) and against the cell with the
+  experts computed whole on every rank (``moe.split_axes`` made (): all
+  128 experts on the whole d): the dispatched tokens ``xe`` are [8, cap,
+  d] a rank with ``cap`` the whole batch's capacity, no [128, cap, .]
+  tensor appears, no expert product runs on the whole d, each family of
+  the experts' products counts exactly 1/16 of the FLOPs with d whole and
+  1/256 of the whole cell's, and memory is lower.
 * xlstm-1.3b cut to its first layer (an mLSTM: 4 heads of 1024, which do
   not divide 16), against the same cell with the core's value rows whole
   (``xlstm.mlstm_axes`` without them): C's carry is [16, 4, 64, 1024],
@@ -29,17 +32,17 @@ E, E_RANK, D, F = 128, 8, 5120, 8192         # llama4: experts, d, expert_d_ff
 H, DH, CHUNK = 4, 1024, 256                  # xlstm: heads, head dim, chunk
 
 
-def _cells(arch: str, layers: int, whole_patch) -> tuple:
-    """(the cell, its op counter) and the same with ``whole_patch(mp)``
-    applied."""
+def _cells(arch: str, layers: int, *patches) -> tuple:
+    """(the cell, its op counter), and the same with each of ``patches``
+    (``patch(mp)``) applied on its own."""
     from repro_torch.launch import dryrun
 
     full = dryrun.get_arch
     out = []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(dryrun, "get_arch", lambda name: dataclasses.replace(
-            full(name), n_layers=layers))
-        for patch in (None, whole_patch):
+    for patch in (None,) + patches:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dryrun, "get_arch", lambda name: dataclasses.replace(
+                full(name), n_layers=layers))
             if patch is not None:
                 patch(mp)
             counters = []
@@ -51,10 +54,14 @@ def _cells(arch: str, layers: int, whole_patch) -> tuple:
 
 @pytest.fixture(scope="module")
 def experts():
+    """(the cell, its counter), the same with d whole, and with every
+    expert whole on every rank."""
     from repro_torch.models import moe
 
-    return _cells("llama4-maverick-400b-a17b", 2,
-                  lambda mp: mp.setattr(moe, "split_axes", lambda *a: ()))
+    return _cells(
+        "llama4-maverick-400b-a17b", 2,
+        lambda mp: mp.setattr(moe, "_embed_specs", lambda *a: None),
+        lambda mp: mp.setattr(moe, "split_axes", lambda *a: ()))
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +87,7 @@ def _cap() -> int:
 def test_dryrun_experts_dispatched_on_blocks(experts):
     """``xe`` is this rank's 8 experts' rows at the whole batch's capacity
     (10240), never all 128 experts'; whole in the other cell."""
-    (_, split), (_, whole) = experts
+    (_, split), _, (_, whole) = experts
     cap = _cap()
     assert cap == 10240
     assert f"bf16[{E_RANK},{cap},{D}]" in _shapes(split)
@@ -88,22 +95,70 @@ def test_dryrun_experts_dispatched_on_blocks(experts):
     assert f"bf16[{E},{cap},{D}]" in _shapes(whole)
 
 
-# the experts' products by their output's trailing dimensions: the gate and
-# up products (and the backward's [cap, f] gradients), the down product
-# and the input's gradient, the three weights' gradients
-EXPERT_PRODUCTS = (f"{10240},{F}", f"{10240},{D}", f"{D},{F}", f"{F},{D}")
+# the experts' products by their output's trailing dimensions with d
+# whole: the gate and up products (and the backward's [cap, f] gradient),
+# the down product and the input's gradient, the three weights' gradients;
+# and the same families on d's blocks (the gate and up products in one,
+# [cap, 2f]; the up product's and the gate's weight gradients in one)
+CAP, D_RANK = 10240, D // RANKS
+EXPERT_PRODUCTS = (f"{CAP},{F}", f"{CAP},{D}", f"{D},{F}", f"{F},{D}")
+ON_BLOCKS = {f"{CAP},{F}": (f"{CAP},{2 * F}", f"{CAP},{F}"),
+             f"{CAP},{D}": (f"{CAP},{D_RANK}",),
+             f"{D},{F}": (f"{D_RANK},{2 * F}",),
+             f"{F},{D}": (f"{F},{D_RANK}",)}
+
+
+def _family(counter, experts, tails) -> int:
+    return sum(counter.flops.get(("aten.bmm", f"bf16[{experts},{t}]"), 0)
+               for t in tails)
 
 
 @pytest.mark.parametrize("tail", EXPERT_PRODUCTS)
 def test_dryrun_expert_flops_a_sixteenth(experts, tail):
-    (_, split), (_, whole) = experts
+    """Each rank's 8 experts with d whole: 1/16 of all 128 experts'."""
+    _, (_, split), (_, whole) = experts
     got = split.flops[("aten.bmm", f"bf16[{E_RANK},{tail}]")]
     want = whole.flops[("aten.bmm", f"bf16[{E},{tail}]")]
     assert got > 0 and got * RANKS == want, (got, want)
 
 
+@pytest.mark.parametrize("tail", EXPERT_PRODUCTS)
+def test_dryrun_expert_flops_a_256th(experts, tail):
+    """Each rank's 8 experts on its block of d: 1/256 of all 128 experts'
+    on the whole d."""
+    (_, split), _, (_, whole) = experts
+    got = _family(split, E_RANK, ON_BLOCKS[tail])
+    want = whole.flops[("aten.bmm", f"bf16[{E},{tail}]")]
+    assert got > 0 and got * RANKS * RANKS == want, (got, want)
+
+
+def test_dryrun_no_expert_product_on_whole_d(experts):
+    """No expert product takes or gives the whole d = 5120 (its
+    [8, ., 5120] or [8, 5120, .] outputs); the cell with d whole runs
+    them."""
+    (_, split), (_, whole_d), _ = experts
+
+    def on_whole_d(counter):
+        return {shape for op, shape in counter.flops if op == "aten.bmm"
+                and shape.startswith(f"bf16[{E_RANK},")
+                and (shape.endswith(f",{D}]")
+                     or shape.startswith(f"bf16[{E_RANK},{D},"))}
+    assert not on_whole_d(split), on_whole_d(split)
+    assert on_whole_d(whole_d)
+
+
+def test_dryrun_experts_never_gathered_over_data(experts):
+    """A rank's 8 experts' weights (bf16 params) never appear on the
+    whole d (their gather over "data"); the cell with d whole gathers
+    them."""
+    (_, split), (_, whole_d), _ = experts
+    gathered = {f"bf16[{E_RANK},{D},{F}]", f"bf16[{E_RANK},{F},{D}]"}
+    assert not gathered & _shapes(split)
+    assert gathered <= _shapes(whole_d)
+
+
 def test_dryrun_experts_memory_lower(experts):
-    (split, _), (whole, _) = experts
+    (split, _), _, (whole, _) = experts
     assert split["memory_per_device_bytes"]["total_bytes"] \
         < whole["memory_per_device_bytes"]["total_bytes"]
     assert split["per_device_flops"] < whole["per_device_flops"]
