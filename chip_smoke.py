@@ -225,7 +225,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    uninterrupted run and beside it one that crashes at step 5 (exit 42,
    after the step-4 checkpoint), then one that resumes from it; the
    resumed steps' losses equal the uninterrupted run's bit for bit, or within 1e-6
-   relative (which held is printed).
+   relative (which held is printed); (f) the chunked CE's autograd
+   Function (``train.step._CESegment``) at whisper-medium's vocabulary of
+   51865, fp32: its loss and gradients within CE_TOL of the checkpointed
+   autograd segment it replaced, each backward's peak and time printed.
 10. dist   — the dist slice (``repro_torch.dist``, the shard_map MoE,
    ``launch.train --data-parallel``) on ``torch.distributed``.  (1)-(3)
    run in DIST_RANKS child processes (``--dist-child``) that share
@@ -245,10 +248,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    rank and within MODEL_TOL of the flash forward, per rank the wall, the
    bytes staged (the gathers' beside (1)'s), the peak and the bytes held;
    (2)
-   prefill 2048 tokens and 8 decode steps with ``stream_kv`` under
-   ``serve_rules(long_context=True)`` (the cache's sequence over the 4
-   ranks): the fp32 tokens equal the one-process run's (or a top-2
-   margin within 1e-3); (2b) a blocked decode: gemma3-1b cut to 2 of 26
+   prefill 2048 tokens under ``serve_rules(long_context=True)``, the
+   cache cut into each rank's block of its sequence (``cache_seq`` over
+   the 4 ranks, a quarter of its bytes a rank, printed) and 4 decode
+   steps on the blocks with ``stream_kv`` and with the plain
+   ``make_serve_step``: each run's fp32 tokens equal the one-process
+   run's (or a top-2 margin within 1e-3); (2b) a blocked decode: gemma3-1b cut to 2 of 26
    layers, fp32, four prompts of 2048 tokens and 32 steps through
    ``make_prefill_step``/``make_serve_step`` on a 4-rank ``("data",)``
    mesh under ``serve_rules()``, the tokens and the bf16 cache held as
@@ -283,7 +288,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    The global MoE dispatch in DIST_RANKS children of its own
    (``--moe-child``): qwen3-moe-235b-a22b at full width (d_model 4096,
    64/4 heads of 128, 128 experts of 1536, top-8, vocabulary 151936) cut
-   to 1 of 94 layers, fp32, S = 1024, on a ``("model",)`` mesh of 4 (B =
+   to 1 of 94 layers, fp32, S = 512, on a ``("model",)`` mesh of 4 (B =
    1, 32 experts a rank) and on (2, 2) ``("data", "model")`` (B = 2, the
    second row one token repeated so that its data shard overflows its
    experts; 64 experts a rank, the train, prefill and decode steps
@@ -342,7 +347,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``_moe_launch_products``), no product or dispatched tokens over all
    128 and no expert weight of a rank gathered over "data" (AdamW's
    global norm gathers one period of each expert gradient whole, printed
-   beside).  (a) The tuner
+   beside); and gemma3-1b and hymba-1.5b ``long_500k`` uncut, the KV cache
+   held as each rank's block of its sequence: FLOPs and peak a rank equal
+   to the CPU's (LONG_LAUNCH_CPU), printed beside the JAX package's, and
+   the cache's bytes a rank 1/16 of the whole cache's.  (a) The tuner
    on the card at gemma3-1b's attention width (h
    = 4, d = 256, fp32): ``collect`` over S = 2048 and 4096 x the 16 grid
    schedules (every ``attend_chunked`` call on cuda:0), ``fit``, and
@@ -3552,6 +3560,84 @@ def _train_launcher(fa, device, card) -> dict:
     return rec
 
 
+# the chunked CE's autograd Function against the autograd segment it
+# replaced (train.step._CESegment), at whisper-medium's vocabulary and
+# width: B = 2, two segments of 512 tokens, fp32
+CE_CHECK = (2, 1024, 1024, 51865, 512)     # B, S, d, V, chunk
+CE_TOL = 1e-5
+
+
+def _ce_autograd_segment(h, lab, t32, axes=()):
+    """The chunked CE's segment before its autograd Function: the logits,
+    ``_lse_gold`` and the sums under autograd, recomputed in the backward
+    by ``torch.utils.checkpoint``."""
+    from torch.utils import checkpoint
+
+    from repro_torch.train import step
+
+    def segment(h, lab, t32):
+        logits = torch.matmul(h.to(torch.float32), t32.t())
+        mask = lab != step.IGNORE_LABEL
+        safe = torch.where(mask, lab, 0).long()
+        lse, gold = step._lse_gold(logits, safe)
+        return (((lse - gold) * mask).sum(),
+                (torch.square(lse) * mask).sum(), mask.sum())
+    return checkpoint.checkpoint(segment, h, lab, t32, use_reentrant=False)
+
+
+def _train_ce_check(device, card) -> dict:
+    """The CE Function's loss and gradients (hidden states and table) on
+    the card against the autograd segment's, with ignored labels and the
+    z-loss, within CE_TOL of each one's largest magnitude; each one's
+    backward peak above what it was given, and its time."""
+    from repro_torch.train import step
+
+    b, s, d, v, chunk = CE_CHECK
+    gen = torch.Generator().manual_seed(5)
+    h0 = torch.randn(b, s, d, generator=gen).to(device)
+    tab = (torch.randn(v, d, generator=gen) * d ** -0.5).to(device)
+    labels = torch.randint(0, v, (b, s), generator=gen).to(device)
+    labels[0, :100] = step.IGNORE_LABEL
+    real, out = step._ce_segment, {}
+    try:
+        for name, seg in (("function", real),
+                          ("autograd", _ce_autograd_segment)):
+            step._ce_segment = seg
+            h = h0.clone().requires_grad_()
+            table = tab.clone().requires_grad_()
+            loss, _ = step.chunked_cross_entropy(h, table, labels,
+                                                 chunk=chunk, z_loss=1e-2)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(loss, (h, table))
+            torch.cuda.synchronize()
+            out[name] = {"ms": (time.perf_counter() - t1) * 1e3,
+                         "peak": torch.cuda.max_memory_allocated() - base,
+                         "values": (loss.detach(),) + grads}
+            del h, table, loss, grads
+    finally:
+        step._ce_segment = real
+    errs = [_rel_err(g, w) for g, w in zip(out["function"]["values"],
+                                           out["autograd"]["values"])]
+    f, a = out["function"], out["autograd"]
+    buf = b * chunk * v * 4
+    print(f"train: chunked CE autograd Function at whisper-medium's V = {v}, "
+          f"d = {d}, B = {b}, S = {s} in segments of {chunk}, fp32: loss, "
+          f"dh, dtable against the checkpointed autograd segment "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (bound {CE_TOL}); the "
+          f"backward's peak over its inputs {f['peak'] / 2**30:.3f} GiB "
+          f"against {a['peak'] / 2**30:.3f} GiB ({f['peak'] / buf:.2f} and "
+          f"{a['peak'] / buf:.2f} [B, chunk, V] fp32 buffers), "
+          f"{f['ms']:.1f} ms against {a['ms']:.1f} ms; {card}")
+    if not max(errs) <= CE_TOL:
+        raise RuntimeError(f"train: the CE Function differs from the "
+                           f"autograd segment: {errs}")
+    return {"errs": errs, "peak": f["peak"], "autograd_peak": a["peak"],
+            "ms": f["ms"], "autograd_ms": a["ms"]}
+
+
 def _pct(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -3765,6 +3851,8 @@ def phase_train(K, device, card: str) -> tuple:
     timing = {"gate": _train_gate(models, params, batch, fa, card)}
     del params
     torch.cuda.empty_cache()
+    timing["ce"] = _train_ce_check(device, card)
+    torch.cuda.empty_cache()
     zero_counts(K)
     _train_step_counted(models[cfg.compute_dtype], device, fa, card)
     torch.cuda.empty_cache()
@@ -3822,8 +3910,9 @@ DIST_MOE_SHARED = "llama4-maverick-400b-a17b"   # its shared expert, reduced()
 # a layer in bf16), fp32, S = DIST_MOE_GLOBAL_SEQ, on DIST_RANKS ranks:
 # (label, mesh shape, axis names, B)
 DIST_MOE_GLOBAL = "qwen3-moe-235b-a22b"
-# 1024: with the fsdp step at 2048 the script took past 1100 s
-DIST_MOE_GLOBAL_SEQ = 1024
+# 512: with the fsdp step at 2048 the script took past 1100 s, and at
+# 1024 too once the long-context decode ran twice (1117 s on a slow host)
+DIST_MOE_GLOBAL_SEQ = 512
 DIST_MOE_GLOBAL_MESHES = (("model4", (4,), ("model",), 1),
                           ("2x2", (2, 2), ("data", "model"), 2))
 DIST_MOE_GLOBAL_STEPS = 4      # decode tokens after the prefill
@@ -3971,44 +4060,87 @@ def _last_row(model, logits) -> torch.Tensor:
 
 
 def _dist_decode(model, params, prompt, mesh, K, rank) -> dict:
-    """(2) prefill DIST_PROMPT tokens and DIST_RING_STEPS decode steps with
-    stream_kv under serve_rules(long_context=True) (the cache's sequence
-    over the 4 ranks); on rank 0 the same in one process, and the tokens
+    """(2) prefill DIST_PROMPT tokens under serve_rules(long_context=True),
+    the cache then cut into each rank's block of its sequence
+    (``shard_tree`` with ``cache_shardings``: cache_seq over the 4 ranks)
+    and the whole cache freed, and DIST_RING_STEPS decode steps on the
+    blocks twice: with stream_kv (the decode ring) and with the plain step
+    (``make_serve_step``: the softmax stats merged by a max all-reduce and
+    one psum); on rank 0 the same in one process, and each run's tokens
     held to it."""
-    from repro_torch.dist.sharding import serve_rules, use_mesh
+    from repro_torch.dist.sharding import (Block, cache_shardings,
+                                           serve_rules, shard_tree,
+                                           use_mesh)
+    from repro_torch.models import module
+    from repro_torch.serve.decode import make_serve_step
 
-    def generate():
+    rules = serve_rules(long_context=True)
+    max_seq = DIST_PROMPT + DIST_RING_STEPS
+
+    def prefill():
         logits, cache = model.prefill(params, {"tokens": prompt},
-                                      max_seq=DIST_PROMPT + DIST_RING_STEPS,
+                                      max_seq=max_seq,
                                       cache_dtype=torch.float32)
-        rows = [_last_row(model, logits)]
-        del logits
-        toks = [rows[0].argmax(-1, keepdim=True).to(torch.int32)]
+        row = _last_row(model, logits)
+        return row, row.argmax(-1, keepdim=True).to(torch.int32), cache
+
+    def decode(cache, first, stream: bool):
+        toks, rows = [first], []
+        serve = make_serve_step(model)
         for i in range(DIST_RING_STEPS):
-            lg, cache = model.decode_step(params, cache, toks[-1],
-                                          DIST_PROMPT + i, stream_kv=True)
-            rows.append(_last_row(model, lg))
-            toks.append(rows[-1].argmax(-1, keepdim=True).to(torch.int32))
+            if stream:
+                lg, cache = model.decode_step(params, cache, toks[-1],
+                                              DIST_PROMPT + i, stream_kv=True)
+                rows.append(_last_row(model, lg))
+                toks.append(rows[-1].argmax(-1, keepdim=True).to(torch.int32))
+            else:
+                tok, lg, cache = serve(params, cache, toks[-1],
+                                       DIST_PROMPT + i)
+                rows.append(lg[:, -1].float())
+                toks.append(tok)
         return torch.cat(toks, dim=1), rows
 
     link = mesh.transport
     host0, before = (link.host_bytes, link.host_s), launch_counts(K)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad(), use_mesh(mesh, serve_rules(long_context=True)):
-        toks, _ = generate()
+    rec = {}
+    with torch.no_grad(), use_mesh(mesh, rules):
+        row, first, cache = prefill()
+        held = shard_tree(cache, cache_shardings(model.cache_specs(
+            prompt.shape[0], max_seq, torch.float32), mesh, rules), mesh)
+        del cache
+        torch.cuda.empty_cache()
+        kv = [c for c in module.leaves(held) if isinstance(c, Block)]
+        rec["cache_bytes"] = sum(c.local.numel() * c.local.element_size()
+                                 for c in kv)
+        rec["cache_whole_bytes"] = sum(
+            math.prod(c.whole_shape()) * c.local.element_size() for c in kv)
+        copy = module.tree_map(lambda c: c.with_local(c.local.clone())
+                               if isinstance(c, Block) else c.clone(), held)
+        t1 = time.perf_counter()
+        stream, _ = decode(held, first, True)
+        t2 = time.perf_counter()
+        plain, _ = decode(copy, first, False)
     torch.cuda.synchronize()
-    rec = {"wall_s": time.perf_counter() - t0,
-           "host_bytes": link.host_bytes - host0[0],
-           "host_s": link.host_s - host0[1], "flash": _delta(K, before),
-           "tokens": toks.tolist()}
+    rec.update({"wall_s": time.perf_counter() - t0, "stream_s": t2 - t1,
+                "plain_s": time.perf_counter() - t2,
+                "host_bytes": link.host_bytes - host0[0],
+                "host_s": link.host_s - host0[1], "flash": _delta(K, before),
+                "tokens": stream.tolist(), "plain_tokens": plain.tolist()})
     _same_on_ranks("the decode ring's tokens", rec["tokens"])
+    _same_on_ranks("the plain step's tokens", rec["plain_tokens"])
     if rank == 0:
         with torch.no_grad():
-            want, rows = generate()
+            row, first, cache = prefill()
+            want, rows = decode(cache, first, True)
+        rows = [row] + rows
         rec["want"] = want.tolist()
         rec["note"] = _hold_tokens("dist decode ring", rec["tokens"],
                                    rec["want"], lambda b, j: rows[j][b])
+        rec["plain_note"] = _hold_tokens(
+            "dist decode, plain step", rec["plain_tokens"], rec["want"],
+            lambda b, j: rows[j][b])
     return rec
 
 
@@ -5607,12 +5739,22 @@ def _dist_ranks(counts, card) -> dict:
         raise RuntimeError(f"dist: the bound misses the planted rotation "
                            f"fault ({ring['fault_err']:.3g})")
     dec = r0["decode"]
-    print(f"dist: decode ring, prefill {DIST_PROMPT} + {DIST_RING_STEPS} steps "
-          f"with stream_kv, cache_seq over {DIST_RANKS} ranks: rank 0 wall "
-          f"{dec['wall_s']:.2f} s, {dec['host_bytes']} bytes staged in "
-          f"{dec['host_s']:.3f} s, flash launches "
+    print(f"dist: long-context decode, prefill {DIST_PROMPT} + "
+          f"{DIST_RING_STEPS} steps on the cache held as each rank's block "
+          f"of its sequence (cache_seq over {DIST_RANKS} ranks): the fp32 "
+          f"cache {dec['cache_bytes'] / 2**20:.2f} MiB a rank of "
+          f"{dec['cache_whole_bytes'] / 2**20:.2f} MiB whole; rank 0 wall "
+          f"{dec['wall_s']:.2f} s (stream_kv steps {dec['stream_s']:.2f} s, "
+          f"plain steps {dec['plain_s']:.2f} s), {dec['host_bytes']} bytes "
+          f"staged in {dec['host_s']:.3f} s, flash launches "
           f"{json.dumps(dec['flash'])}; fp32 tokens against one process: "
-          f"{dec['note']}; {card}")
+          f"stream_kv {dec['note']}, plain step {dec['plain_note']}; {card}")
+    for rep in reps:
+        d = rep["decode"]
+        if d["cache_bytes"] * DIST_RANKS != d["cache_whole_bytes"]:
+            raise RuntimeError(f"dist: rank {rep['rank']} holds "
+                               f"{d['cache_bytes']} bytes of the cache, not "
+                               f"1/{DIST_RANKS} of {d['cache_whole_bytes']}")
     blk = r0["decode_blocked"]
     print(f"dist: blocked decode, {DIST_ARCH} at {DIST_DECODE_LAYERS} of 26 "
           f"layers, fp32, {DIST_DECODE_BATCH} prompts of {DIST_PROMPT} + "
@@ -6041,6 +6183,45 @@ MOE_LAUNCH_LAYERS = 2
 MOE_LAUNCH_CPU = (147628763381760, 53848373701)
 MOE_LAUNCH_EXPERTS = (8, 128)
 MOE_LAUNCH_DATA = 16
+# the long-context decode (long_500k: 524288 cached positions, the cache
+# held as each rank's block of its sequence) at full depth: per rank
+# FLOPs and peak bytes as the dry-run counts them on a CPU
+# (tests/dryrun_depth.py), and the JAX package's from ``tests/
+# dryrun_depth.py --package repro`` on the same CPU, printed beside (its
+# HLO also counts elementwise FLOPs the port's product count leaves out)
+LONG_LAUNCH_CPU = {"gemma3-1b": (3758399488, 1216848132),
+                   "hymba-1.5b": (7346281600, 2338478088)}
+LONG_LAUNCH_JAX = {"gemma3-1b": (4656048679, 2038788268),
+                   "hymba-1.5b": (8861547499, 4620656232)}
+LONG_LAUNCH_RANKS = 16     # the model axis the cache's sequence splits over
+
+
+def _long_cells() -> dict:
+    """The long_500k cells of LONG_LAUNCH_CPU's archs, uncut, on the fake
+    group of pod16x16: per arch the FLOPs and peak a rank, and the bytes
+    of the KV cache's blocks a rank against the whole cache's."""
+    from repro_torch.dist.sharding import Block
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.module import leaves
+
+    out = {}
+    for arch in LONG_LAUNCH_CPU:
+        cell = dryrun.run_cell(arch, "long_500k", verbose=False)
+        with dryrun.fake_group(LONG_LAUNCH_RANKS * LONG_LAUNCH_RANKS):
+            _, args, *_ = dryrun.build_cell(arch, "long_500k",
+                                            make_production_mesh())
+        kv = [c for c in leaves(args[1])
+              if isinstance(c, Block) and c.local.ndim >= 4]
+        out[arch] = {
+            "flops": int(cell["per_device_flops"]),
+            "peak": cell["memory_per_device_bytes"]["total_bytes"],
+            "cache": sum(c.local.numel() * c.local.element_size()
+                         for c in kv),
+            "cache_whole": sum(math.prod(c.whole_shape())
+                               * c.local.element_size() for c in kv),
+            "lower_s": cell["lower_s"]}
+    return out
 
 
 def _moe_launch_products() -> set:
@@ -6123,8 +6304,9 @@ def launch_child(argv) -> int:
     moe["gathered_over_data"] = sorted(
         {f"{dt}[{rank},{d},{f}]", f"{dt}[{rank},{f},{d}]"}
         & {shp for _, shp in counters[0].traffic})
+    long = _long_cells()
     Path(f"{out}.child.json").write_text(json.dumps({
-        "moe": moe,
+        "moe": moe, "long": long,
         "top": {"traffic": traffic[:PROFILE_TOP],
                 "flops": flops[:PROFILE_TOP], "colls": colls[:PROFILE_TOP]},
         "launches": launch_counts(K),
@@ -6374,6 +6556,21 @@ def _launch_cells(doc: dict, child: dict, text: str, card) -> dict:
                            f"experts {moe['experts']}, whole "
                            f"{moe['experts_whole']}, gathered over data "
                            f"{moe['gathered_over_data']}")
+    for arch, got in child["long"].items():
+        cpu, jax = LONG_LAUNCH_CPU[arch], LONG_LAUNCH_JAX[arch]
+        print(f"launch: dry-run {arch}|long_500k|pod16x16 uncut, the KV "
+              f"cache held as each rank's block of its sequence: "
+              f"{got['flops']} FLOPs and {got['peak']} bytes = "
+              f"{got['peak'] / 2**30:.2f} GiB a rank (the CPU's {cpu[0]} and "
+              f"{cpu[1]}; the JAX package's {jax[0]:.4g} FLOPs, "
+              f"{got['flops'] / jax[0]:.3f}x, and {jax[1] / 1e9:.2f} GB, "
+              f"{got['peak'] / jax[1]:.3f}x), cache {got['cache']} bytes a "
+              f"rank of {got['cache_whole']} whole; fake trace "
+              f"{got['lower_s']:.1f} s; {card}")
+        if (got["flops"], got["peak"]) != cpu \
+                or got["cache"] * LONG_LAUNCH_RANKS != got["cache_whole"]:
+            raise RuntimeError(f"launch: the dry-run of {arch} long_500k: "
+                               f"{got}, the CPU's {cpu}")
     print(f"launch: the dry-run child {child['wall_s']:.1f} s, "
           f"{len(skips)} skip records, no kernel launched, CUDA never "
           f"initialised in it")

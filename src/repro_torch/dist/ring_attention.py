@@ -27,7 +27,10 @@ rotation also runs on every rank.
 Global view (``dist.collectives``): the functions take the whole q, k, v
 on every rank and return the whole output on every rank; the per-hop fold
 is plain torch products, as the reference's ring is einsums, not a Pallas
-kernel.
+kernel.  The decode side also takes a cache held as each rank's block of
+its sequence (``dist.sharding.Block``s, :func:`decode_block`): the stats
+of the local block are merged over the axis, around the ring or by a max
+all-reduce and one psum, and nothing else travels.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives
+from repro_torch.dist.collectives import names_of
 from repro_torch.dist.masking import NEG_INF, PAD_SENTINEL, mask_bias
-from repro_torch.dist.sharding import _axis_sizes, active_mesh
+from repro_torch.dist.sharding import Block, _axis_sizes, active_mesh
 
 
 def _causal_skip_possible(step: int, n: int, s_loc: int,
@@ -67,69 +71,128 @@ def _merge(a: tuple, b: tuple) -> tuple:
             l1 * a1 + l2 * a2)
 
 
-def ring_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, cache_index, *, mesh=None,
-                axis_name: str = "model", window: int = 0,
+def _decode_stats(q: torch.Tensor, k_loc: torch.Tensor, v_loc: torch.Tensor,
+                  pos: torch.Tensor, index: int, *, window: int,
+                  start) -> tuple:
+    """Grouped online-softmax stats (acc [B,KV,G,D], m and l [B,KV,G], fp32)
+    of q [B,1,H,D] over one block of a cache [B,T,KV,D] whose positions
+    are ``pos`` [T] (global: the window, ``start`` and the unwritten slots
+    read them).  A block whose keys are all masked for some row yields m
+    = NEG_INF (finite, so no NaN); the merge annihilates its (acc, l) by
+    alpha = 0, and the block holding ``index`` is always visible."""
+    b, _, h, d = q.shape
+    kv = k_loc.shape[2]
+    visible = (pos <= index)[None, :]
+    if start is not None:
+        visible = visible & (pos[None, :] >= start[:, None])
+    if window > 0:
+        visible = visible & (pos > index - window)[None, :]
+    q0 = q[:, 0].reshape(b, kv, h // kv, d)
+    sc = torch.einsum("bkgd,btkd->bkgt", q0, k_loc).float() * d ** -0.5
+    sc = torch.where(visible[:, None, None, :], sc, NEG_INF)
+    m = sc.amax(dim=-1)                                   # [B,KV,G]
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgt,btkd->bkgd", p, v_loc.float())
+    return acc, m, l
+
+
+def _merge_ring(stats: tuple, mesh, axis_name: str, idx: int,
+                n: int) -> tuple:
+    """Every rank's stats rotated around the ring and merged in
+    coordinate order, so the ranks' results are bit-equal."""
+    seen = {idx: stats}
+    for hop in range(1, n):
+        stats = collectives.ppermute(stats, mesh, axis_name, _ring(n))
+        seen[(idx - hop) % n] = stats
+    run = seen[0]
+    for src in range(1, n):
+        run = _merge(run, seen[src])
+    return run
+
+
+def _merge_psum(stats: tuple, mesh, names: tuple) -> tuple:
+    """The stats merged over ``names`` as a distributed softmax: m by a
+    max all-reduce, then l and acc, each rescaled to the global max, by
+    one psum (the all-reduce leaves the same bits on every rank)."""
+    acc, m, l = stats
+    top = collectives.pmax(m, mesh, names)
+    alpha = torch.exp(m - top)
+    sums = collectives.psum(torch.cat([(l * alpha)[..., None],
+                                       acc * alpha[..., None]], dim=-1),
+                            mesh, names)
+    return sums[..., 1:], top, sums[..., 0]
+
+
+def decode_block(q: torch.Tensor, k_block, v_block, cache_index, *,
+                 window: int = 0, start=None,
+                 ring: bool = False) -> torch.Tensor:
+    """One decode position q [B,1,H,D] against this rank's block of a
+    cache's sequence: ``k_block``/``v_block`` are ``dist.sharding.Block``s
+    whose spec splits dimension 1 (``cache_shardings`` under
+    ``serve_rules(long_context=True)``), [B,Smax/n,KV,D] a rank.  The rank
+    computes the stats of its positions (global ones: ``rank * Smax/n``
+    onwards) for every head, and only the [B,KV,G] stats travel: around
+    the ring in coordinate order with ``ring`` (the decode ring), else by
+    a max all-reduce and one psum.  Returns the whole output on every
+    rank, bit-equal across the ranks."""
+    mesh = k_block.mesh
+    names = names_of(k_block.spec[1])
+    k_loc, v_loc = k_block.local.to(q.dtype), v_block.local.to(q.dtype)
+    idx, n = collectives.block_index(mesh, names)
+    s_loc = k_loc.shape[1]
+    pos = idx * s_loc + torch.arange(s_loc, device=q.device)
+    stats = _decode_stats(q, k_loc, v_loc, pos, int(cache_index),
+                          window=window, start=start)
+    if ring and len(names) == 1:
+        acc, _, l = _merge_ring(stats, mesh, names[0], idx, n)
+    else:
+        acc, _, l = _merge_psum(stats, mesh, names)
+    b, _, h, d = q.shape
+    out = acc / torch.clamp(l, min=1e-30)[..., None]      # [B,KV,G,D]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def ring_decode(q: torch.Tensor, k_cache, v_cache, cache_index, *,
+                mesh=None, axis_name: str = "model", window: int = 0,
                 start=None) -> torch.Tensor:
     """Decode-time ring attention over a sequence-sharded KV cache.
 
     q: [B,1,H,D]; caches: [B,Smax,KV,D] with ``cache_seq`` sharded over
     ``axis_name`` (``serve_rules(long_context=True)``).  The KV shards never
     move: each rank computes grouped online-softmax *stats* (acc, m, l) over
-    its resident shard and only the [B,KV,G]-shaped stats rotate around the
-    ring.  A shard whose keys are all masked for some row yields m =
-    NEG_INF (finite, so no NaN); its (acc, l) are annihilated by alpha = 0
-    when a visible shard folds in, and the shard holding ``cache_index`` is
-    always visible.
+    its resident shard (:func:`_decode_stats`) and only the [B,KV,G]-shaped
+    stats rotate around the ring.  Given this rank's block of the sequence
+    (``dist.sharding.Block``s, :func:`decode_block`) it computes on that
+    block; given the whole cache (the global view) it cuts its shard.
 
     The reference merges the stats in ring order from each rank, so its
     ranks differ in the last bits; here every rank merges the n shards'
     stats in coordinate order, so the ranks' outputs are bit-equal.
-    Degenerates to ``attend_decode`` with no mesh, a 1-rank ring, or a
-    cache length the ring cannot split evenly.
+    Degenerates to ``attend_decode`` for a whole cache with no mesh, a
+    1-rank ring, or a cache length the ring cannot split evenly.
     """
+    if isinstance(k_cache, Block):
+        return decode_block(q, k_cache, v_cache, cache_index, window=window,
+                            start=start, ring=True)
     if mesh is None:
         mesh = active_mesh()
     b, one, h, d = q.shape
-    smax, kv = k_cache.shape[1], k_cache.shape[2]
+    smax = k_cache.shape[1]
     n = _axis_sizes(mesh).get(axis_name, 1) if mesh is not None else 1
     if mesh is None or n <= 1 or smax % n != 0:
         from repro_torch.models.attention import attend_decode
         return attend_decode(q, k_cache, v_cache, cache_index,
                              window=window, start=start)
-    g = h // kv
     s_loc = smax // n
-    scale = d ** -0.5
-    index = int(cache_index)
-    dev = q.device
-    if start is None:
-        start = torch.zeros((b,), dtype=torch.int32, device=dev)
-
     kv_spec = (None, axis_name, None, None)
     q, k_loc, v_loc = collectives.shard((q, k_cache, v_cache), mesh,
                                         ((None,) * 4, kv_spec, kv_spec))
     idx = collectives.axis_index(mesh, axis_name)
-    pos = idx * s_loc + torch.arange(s_loc, device=dev)
-    visible = (pos <= index)[None, :] & (pos[None, :] >= start[:, None])
-    if window > 0:
-        visible = visible & (pos > index - window)[None, :]
-    q0 = q[:, 0].reshape(b, kv, g, d)
-    sc = torch.einsum("bkgd,btkd->bkgt", q0, k_loc).float() * scale
-    sc = torch.where(visible[:, None, None, :], sc, NEG_INF)
-    m = sc.amax(dim=-1)                                   # [B,KV,G]
-    p = torch.exp(sc - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bkgt,btkd->bkgd", p, v_loc.float())
-
-    stats = {idx: (acc, m, l)}
-    vis = (acc, m, l)
-    for hop in range(1, n):
-        vis = collectives.ppermute(vis, mesh, axis_name, _ring(n))
-        stats[(idx - hop) % n] = vis
-    run = stats[0]
-    for src in range(1, n):
-        run = _merge(run, stats[src])
-    acc, m, l = run
+    pos = idx * s_loc + torch.arange(s_loc, device=q.device)
+    stats = _decode_stats(q, k_loc, v_loc, pos, int(cache_index),
+                          window=window, start=start)
+    acc, _, l = _merge_ring(stats, mesh, axis_name, idx, n)
     out = acc / torch.clamp(l, min=1e-30)[..., None]      # [B,KV,G,D]
     out = out.reshape(b, 1, h, d).to(q.dtype)
     return collectives.unshard(out, mesh, (None,) * 4)

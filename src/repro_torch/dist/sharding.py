@@ -62,8 +62,11 @@ block of them (the global and local dispatches; the shard_map dispatch is
 a region of its own).  A cache is blocked over its batch axis and, where
 the rules split them, its KV heads, SSM channels and mLSTM heads or C's
 value rows (:func:`cache_shardings`): the layers write this rank's block
-of each.  A data-parallel region (:func:`data_region`) makes its batch
-axes known to the layers it runs.
+of each; under ``serve_rules(long_context=True)`` the KV leaves are
+blocked over their sequence instead, and the decode step attends on this
+rank's positions (``models.attention.attention_decode_step``).  A
+data-parallel region (:func:`data_region`) makes its batch axes known to
+the layers it runs.
 ``tree_shardings``/``batch_shardings`` give per leaf the resolved spec and
 its DTensor placements.
 """
@@ -409,10 +412,12 @@ def tree_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     return tree_map(one, tree)
 
 
-# the cache dimensions the blocked layout splits: the rows, and the state
-# the layers compute on blocks of (the KV heads, hymba's SSM channels, the
-# mLSTM's heads or its C's value rows)
-_CACHE_AXES = ("batch", "kv_heads", "mlp", "heads", "value_rows")
+# the cache dimensions the blocked layout splits: the rows, the sequence
+# (``serve_rules(long_context=True)``: the decode step attends on this
+# rank's positions), and the state the layers compute on blocks of (the KV
+# heads, hymba's SSM channels, the mLSTM's heads or its C's value rows)
+_CACHE_AXES = ("batch", "cache_seq", "kv_heads", "mlp", "heads",
+               "value_rows")
 
 # an mLSTM C's trailing logical axes: [heads, value rows, key columns]
 _MLSTM_C = ("heads", "head_dim", "head_dim")
@@ -431,10 +436,12 @@ def cache_logical(logical_axes: Sequence[Optional[str]]) -> tuple:
 
 def cache_shardings(tree: Any, mesh, rules: ShardingRules) -> Any:
     """A :class:`Sharding` per leaf of a cache's ParamSpec tree in the
-    blocked layout: the entries of its "batch", "kv_heads", "mlp" and
-    "heads" dimensions, and of an mLSTM C's value rows
-    (:func:`cache_logical`), only (module docstring); the sequence, and
-    the sLSTM's state, stay whole."""
+    blocked layout: the entries of its "batch", "cache_seq", "kv_heads",
+    "mlp" and "heads" dimensions, and of an mLSTM C's value rows
+    (:func:`cache_logical`), only (module docstring).  Under
+    ``serve_rules(long_context=True)`` the sequence takes ``model`` (the
+    KV heads then stay whole: dedup), so each rank holds ``Smax / n``
+    positions of every KV leaf; the sLSTM's state stays whole."""
     from repro_torch.models.module import tree_map
 
     rules = ShardingRules({**rules.rules, "value_rows": rules.rules.get(

@@ -32,15 +32,21 @@ a column-parallel product on this rank's block of the weights, the
 attention runs on the local heads (the flash kernel included), and ``wo``
 is a row-parallel product whose partial output is summed over the axes
 (``collectives.reduce_from``).  Where the KV heads stay whole (fewer KV
-heads than ranks), every rank projects them whole and its q heads read
-their group's one KV head (:func:`_kv_for_heads`); ``collectives.copy_to``
-on k and v then sums the ranks' shares of their gradient.  The ring
-(``ring=True`` where it splits the sequence) and the decode ring
-(``stream_kv``) compute every head on every rank, as before.  The decode
-step attends on the local heads where the reference gathers q whole
-(``heads_act``): the same values, other collectives.  Where the heads
-stay whole on every rank, the projections' weight gradients are computed
-on this rank's block of d and all-gathered (``layers.whole_matmul``).
+heads than ranks), this rank's q heads read their group's one KV head:
+in training and the forward the rank projects only that head, from a
+``copy_to`` of the whole wk and wv that sums the ranks' gradients
+(:func:`_kv_one_head`; below the reference, whose partitioner projects
+part of k and v on every rank); prefill and decode, whose cache holds
+every KV head, project them all and read it (:func:`_kv_for_heads`).
+The ring (``ring=True`` where it splits the sequence) and the decode
+ring (``stream_kv``) compute every head on every rank, as before.  The
+decode step attends on the local heads where the reference gathers q
+whole (``heads_act``): the same values, other collectives.  A cache held
+as each rank's block of its sequence (``serve_rules(long_context=True)``)
+is decoded on that block for every head, the softmax stats merged over
+the axis (:func:`_decode_on_seq_block`).  Where the heads stay whole on
+every rank, the projections' weight gradients are computed on this
+rank's block of d and all-gathered (``layers.whole_matmul``).
 
 ``attend_chunked``'s p·v is an autograd op (:class:`_ProbsV`) whose
 backward reads p, v and the cotangent only, so the KV chunk step's
@@ -61,10 +67,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
+from repro_torch.dist.collectives import names_of
 from repro_torch.dist.masking import NEG_INF, PAD_SENTINEL, mask_bias
-from repro_torch.dist.ring_attention import ring_attention, ring_decode
-from repro_torch.dist.sharding import (_axis_sizes, active_mesh, constrain,
-                                       split_axes, take)
+from repro_torch.dist.ring_attention import (decode_block, ring_attention,
+                                             ring_decode)
+from repro_torch.dist.sharding import (Block, _axis_sizes, active_mesh,
+                                       constrain, local, split_axes, take)
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import (recomputing, rope, scan_step,
@@ -109,40 +117,66 @@ def head_axes(cfg: ArchConfig, b: int, s: int) -> tuple:
     return heads, (kv if kv == heads else ())
 
 
-def _kv_for_heads(k: torch.Tensor, n_heads: int, axes: tuple) -> torch.Tensor:
-    """The one KV head of whole k [B,T,KV,D] that this rank's q heads (its
-    block over ``axes`` of ``n_heads``) read, as [B,T,1,D]: where the KV
-    heads stay whole (KV not divisible by the ranks) and the heads split,
-    each rank's heads lie in one group."""
+def _kv_group(n_heads: int, n_kv: int, axes: tuple) -> int:
+    """The one KV head that this rank's q heads (its block over ``axes`` of
+    ``n_heads``) read: where the KV heads stay whole (KV not divisible by
+    the ranks) and the heads split, each rank's heads lie in one group."""
     index, blocks = collectives.block_index(active_mesh(), axes)
     local = n_heads // blocks
-    group = n_heads // k.shape[2]
+    group = n_heads // n_kv
     if group % local:
         raise ValueError(f"attention: {local} heads a rank span KV groups of "
                          f"{group}")
-    first = index * local // group
+    return index * local // group
+
+
+def _kv_for_heads(k: torch.Tensor, n_heads: int, axes: tuple) -> torch.Tensor:
+    """The KV head of whole k [B,T,KV,D] that this rank's q heads read
+    (:func:`_kv_group`), as [B,T,1,D]."""
+    first = _kv_group(n_heads, k.shape[2], axes)
     return k[:, :, first:first + 1]
 
 
-def _project_qkv(cfg, params, x, kv_src=None, axes=((), ())):
+def _kv_one_head(cfg, params, src, heads: tuple) -> tuple:
+    """k and v [B,T,1,D] of the one KV head this rank's q heads read
+    (:func:`_kv_group`), projected from ``src`` (a ``copy_to`` over
+    ``heads``) with that head of wk and wv.  The head is taken from a
+    ``copy_to`` of the whole leaf, so each rank's gradient of it (zero
+    outside its head) is summed over ``heads`` into the whole leaf's."""
+    mesh = active_mesh()
+    first = _kv_group(cfg.n_heads, cfg.n_kv_heads, heads)
+    return tuple(_project(src, collectives.copy_to(take(params[w]), mesh,
+                                                   heads)[:, first:first + 1])
+                 for w in ("wk", "wv"))
+
+
+def _project_qkv(cfg, params, x, kv_src=None, axes=((), ()),
+                 one_kv: bool = False):
     """q, k, v; with ``axes`` (:func:`head_axes`) q on this rank's heads,
-    k and v on its KV heads where those are split, else whole."""
-    kv_src = x if kv_src is None else kv_src
+    k and v on its KV heads where those are split, else, with ``one_kv``,
+    the one KV head its q heads read (:func:`_kv_one_head`, [B,T,1,D]),
+    else every KV head."""
     heads, kv_axes = axes
     if heads:
         mesh = active_mesh()
-        q = _project(collectives.copy_to(x, mesh, heads),
-                     take(params["wq"], 1, heads))
+        src = collectives.copy_to(x, mesh, heads)
+        q = _project(src, take(params["wq"], 1, heads))
+        kv_src = x if kv_src is None else kv_src
         if kv_axes:
             src = collectives.copy_to(kv_src, mesh, heads)
             k = _project(src, take(params["wk"], 1, kv_axes))
             v = _project(src, take(params["wv"], 1, kv_axes))
+        elif one_kv:
+            if kv_src is not x:
+                src = collectives.copy_to(kv_src, mesh, heads)
+            k, v = _kv_one_head(cfg, params, src, heads)
         else:
             k = collectives.copy_to(_project(kv_src, take(params["wk"])),
                                     mesh, heads)
             v = collectives.copy_to(_project(kv_src, take(params["wv"])),
                                     mesh, heads)
     else:
+        kv_src = x if kv_src is None else kv_src
         q = _project(x, take(params["wq"]), whole=True)
         k = _project(kv_src, take(params["wk"]), whole=True)
         v = _project(kv_src, take(params["wv"]), whole=True)
@@ -383,7 +417,8 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     b, s, _ = x.shape
     ring_mesh = _ring_mesh(s) if ring and kv_src is None else None
     axes = ((), ()) if ring_mesh is not None else head_axes(cfg, b, s)
-    q, k, v = _project_qkv(cfg, params, x, kv_src, axes)
+    q, k, v = _project_qkv(cfg, params, x, kv_src, axes,
+                           one_kv=not return_kv)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if use_rope:
@@ -393,7 +428,7 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
         k = rope(k, kv_pos, cfg.rope_theta)
     kv = (k, v)
     heads, kv_axes = axes
-    if heads and not kv_axes:
+    if heads and not kv_axes and return_kv:
         k, v = (_kv_for_heads(t, cfg.n_heads, heads) for t in (k, v))
     h = q.shape[2]
     if local_block and window > 0 and causal and s > window:
@@ -418,6 +453,49 @@ def attention(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     return y
 
 
+def _seq_block(cache_leaf) -> bool:
+    """Whether a KV cache leaf is this rank's block of the sequence: a
+    ``dist.sharding.Block`` whose spec splits dimension 1 (``cache_seq``
+    under ``serve_rules(long_context=True)``, ``cache_shardings``)."""
+    return isinstance(cache_leaf, Block) and bool(names_of(
+        cache_leaf.spec[1]))
+
+
+def _write_token(cache: Block, new: torch.Tensor, index: int) -> None:
+    """The token at global position ``index`` written into a sequence
+    block, in place, on the rank whose block holds it (at ``index - rank *
+    Smax/n``); the other ranks write nothing."""
+    rank, _ = collectives.block_index(cache.mesh, cache.spec[1])
+    s_loc = cache.local.shape[1]
+    at = index - rank * s_loc
+    if 0 <= at < s_loc:
+        cache.local[:, at:at + 1] = new.to(cache.dtype)
+
+
+def _decode_on_seq_block(cfg, params, x, cache, index, *, window, use_rope,
+                         update_cache, start, stream_kv) -> tuple:
+    """:func:`attention_decode_step` on a cache held as this rank's block
+    of its sequence: q, k and v for every head (the reference's
+    ``heads_act``), the new token written on the rank that holds its
+    position, and the attention over the local positions merged over the
+    sequence's axes (``dist.ring_attention.decode_block``: the decode ring
+    with ``stream_kv``, else a max all-reduce and one psum)."""
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
+                     device=x.device)
+    if start is not None:
+        pos = pos - start[:, None]
+    if use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
+    if update_cache:
+        _write_token(cache["k"], k_new, index)
+        _write_token(cache["v"], v_new, index)
+    out = decode_block(q, cache["k"], cache["v"], index, window=window,
+                       start=start, ring=stream_kv)
+    return _out_proj(out, params["wo"], x.dtype), cache
+
+
 def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
                           cache: dict, cache_index, *,
                           window: int = 0, use_rope: bool = True,
@@ -431,12 +509,19 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
     ring (``dist.ring_attention.ring_decode``): with ``serve_rules(
     long_context=True)`` each rank reads its ``cache_seq`` shard and only
     softmax stats travel; with no mesh active it is the dense
-    ``attend_decode``, as in the reference.  Where the rules split the
-    heads (module docstring) the cache holds either every KV head or this
+    ``attend_decode``, as in the reference.  A cache held as this rank's
+    block of its sequence (``dist.sharding.Block``s over ``cache_seq``,
+    ``cache_shardings`` under those rules) is decoded on that block
+    (:func:`_decode_on_seq_block`).  Where the rules split the heads
+    (module docstring) the cache holds either every KV head or this
     rank's block of them (``dist.sharding.cache_shardings``), told apart
-    by its shape."""
-    dtype = x.dtype
+    by its shape; a Block held so is read as its tensor."""
     index = int(cache_index)
+    if _seq_block(cache["k"]):
+        return _decode_on_seq_block(
+            cfg, params, x, cache, index, window=window, use_rope=use_rope,
+            update_cache=update_cache, start=start, stream_kv=stream_kv)
+    dtype = x.dtype
     axes = ((), ()) if stream_kv else head_axes(cfg, x.shape[0], 1)
     heads, kv_axes = axes
     q, k_new, v_new = _project_qkv(cfg, params, x, axes=axes)
@@ -450,7 +535,7 @@ def attention_decode_step(cfg: ArchConfig, params: dict, x: torch.Tensor,
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache, v_cache = local(cache["k"]), local(cache["v"])
     # a cache of every KV head where this rank projects only its own: the
     # whole token is written and this rank's block read
     whole = bool(kv_axes) and k_cache.shape[2] != k_new.shape[2]

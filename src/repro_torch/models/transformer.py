@@ -43,7 +43,8 @@ from torch.utils import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (active_mesh, bind_frame, gather_tree,
-                                       region_period, split_axes, take)
+                                       local, region_period, split_axes,
+                                       take)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -299,8 +300,12 @@ def block_decode(cfg: ArchConfig, kind: str, params: dict, x: torch.Tensor,
                  stream_kv: bool = False) -> tuple:
     """One token through one block: (x_out, the block's new cache).  The
     KV tensors of ``cache`` are written in place and come back as they
-    are; recurrent state comes back as new tensors."""
+    are; recurrent state comes back as new tensors.  Leaves may be held
+    as ``dist.sharding.Block``s: the KV leaves go to the attention as they
+    are (a block of the sequence is decoded there), the others are read
+    as this rank's tensors."""
     use_rope = cfg.positional == "rope"
+    cache = {k: v if k in ("k", "v") else local(v) for k, v in cache.items()}
     if kind == "mlstm":
         st = (cache["C"], cache["n"], cache["m"])
         y, (C, n, m) = xlstm_mod.mlstm_decode_step(cfg, params, x, st)
@@ -496,8 +501,9 @@ def _write_back(layer_cache: dict, new: dict) -> None:
     place; leaves that are those tensors already (the KV caches, written by
     ``attention_decode_step``) are skipped."""
     for name, value in new.items():
-        if value is not layer_cache[name]:
-            layer_cache[name].copy_(value)
+        held = layer_cache[name]
+        if value is not held and value is not local(held):
+            local(held).copy_(value)
 
 
 def stack_decode(cfg: ArchConfig, params: dict, x: torch.Tensor, cache: dict,

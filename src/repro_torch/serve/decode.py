@@ -18,7 +18,14 @@ A blocked cache (``dist.sharding.Block``s, ``cache_shardings``) is written
 in place and stays blocked, and a prefill of blocked tokens returns a
 blocked cache; with whole tokens the prefill returns the whole cache, and
 a decode step writes every rank's rows into a whole cache (the global
-view: its rows are all-gathered each step).
+view: its rows are all-gathered each step).  The model's decode step
+takes the blocks as they are held: under ``serve_rules(long_context=
+True)`` the KV leaves are each rank's block of the sequence, decoded
+there (``models.attention.attention_decode_step``).  The prefill stays
+whole along the sequence, as the reference's ``prefill_32k`` (no long
+context) is: a prefill of blocked tokens under those rules cuts its cache
+into sequence blocks once, and a caller that holds a whole cache moves
+into the layout with ``shard_tree`` and ``cache_shardings``.
 
 Where the active rules split the vocabulary, the heads or the recurrent
 channels (``dist.sharding`` module docstring), the model returns this
@@ -45,7 +52,7 @@ import torch
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
                                        batch_shardings, cache_logical,
-                                       cache_shardings, data_region, local,
+                                       cache_shardings, data_region,
                                        local_batch, use_mesh)
 from repro_torch.models.module import leaves, tree_map
 from repro_torch.models.registry import Model
@@ -149,8 +156,7 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
     def serve_step(params, cache, tokens, cache_index):
         region = _region(tokens)
         if region is None:
-            logits, _ = model.decode_step(params, tree_map(local, cache),
-                                          tokens, cache_index)
+            logits, _ = model.decode_step(params, cache, tokens, cache_index)
             logits = _whole_vocab(model, logits, 1)
             next_tokens = sample(logits, None, cfg.temperature)
             return next_tokens, logits, cache
@@ -160,7 +166,7 @@ def make_serve_step(model: Model, cfg: ServeConfig = ServeConfig()):
                 else collectives.block(tokens, mesh, rows))
         specs = _cache_specs(model, tree_map(
             lambda c: c.local if isinstance(c, Block) else c, cache), entry)
-        views = tree_map(lambda c, spec: c.local if isinstance(c, Block)
+        views = tree_map(lambda c, spec: c if isinstance(c, Block)
                          else collectives.block(c, mesh, spec), cache, specs)
         rest = _rest(mesh, entry)
         with data_region(mesh, collectives.names_of(entry)), \

@@ -8,10 +8,12 @@ z-loss regulariser on the logits.  The reference's JAX constructs map so:
 - ``jax.value_and_grad`` — autograd over leaf tensors that share the
   params' storage (``torch.autograd.grad``);
 - ``lax.scan`` over microbatches — a loop summing fp32 grads;
-- ``jax.checkpoint`` of each chunked-CE segment —
-  ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so only
-  one segment's [B, chunk, V] fp32 logits live at a time, in the backward
-  as in the forward.
+- ``jax.checkpoint`` of each chunked-CE segment — an autograd Function
+  (``_CESegment``) that saves the segment's inputs and logsumexp and
+  recomputes its logits in the backward into one fp32 buffer, turned in
+  place into their cotangent, so one segment's [B, chunk, V] fp32 buffer
+  lives at a time, in the backward as in the forward (autograd's
+  ``logsumexp`` and ``gather`` backward kept five).
 
 The model's ``remat`` wraps each layer period in ``torch.utils.checkpoint``,
 and on the card every attention layer runs the hand flash-attention
@@ -77,7 +79,6 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint
 
 from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import (Block, active_mesh, active_rules,
@@ -146,19 +147,78 @@ class TrainStepConfig:
     grad_compression: bool = False
 
 
-def _ce_segment(h, lab, t32, axes=()):
-    """One chunked-CE segment's (nll sum, z sum, count)."""
+def _segment_logits(h, t32, axes=()):
+    """One segment's fp32 logits (with ``axes`` this rank's vocabulary
+    block): whole, the table's gradient on a block of d where the
+    vocabulary stays whole (``layers.whole_matmul``); split, the hidden
+    states' cotangent summed over ``axes`` (``copy_to``)."""
     h32 = h.to(torch.float32)
     if axes:
         h32 = collectives.copy_to(h32, active_mesh(), axes)
-        logits = torch.einsum("bsd,vd->bsv", h32, t32)
-    else:
-        logits = whole_matmul(h32, t32.t(), 0)
-    mask = lab != IGNORE_LABEL
-    safe = torch.where(mask, lab, 0).long()
-    lse, gold = _lse_gold(logits, safe, axes)
-    return (((lse - gold) * mask).sum(), (torch.square(lse) * mask).sum(),
-            mask.sum())
+        return torch.einsum("bsd,vd->bsv", h32, t32)
+    return whole_matmul(h32, t32.t(), 0)
+
+
+class _CESegment(torch.autograd.Function):
+    """One chunked-CE segment: (nll sum, z sum, count) of hidden states h
+    [B, chunk, d] against the table t32 [V, d] fp32 (or this rank's
+    vocabulary rows over ``axes``, :func:`_lse_gold` reducing over them),
+    the counterpart of the reference's ``jax.checkpoint`` of the segment.
+
+    The forward keeps no logits: it saves h, the table, the logsumexp,
+    the safe labels and the mask.  The backward recomputes the logits
+    under autograd (:func:`_segment_logits`, in the frame of the forward)
+    into one fp32 buffer and turns it in place into their cotangent,
+    exp(logits - lse) * mask * (g_nll + 2 lse g_z), minus mask * g_nll at
+    the gold column on the rank whose block holds it; the product's
+    backward then gives dh = p·t and dt = pᵀ·h.  The products are those of
+    a checkpointed autograd segment (the forward, one recompute, dh and
+    dt), but one [B, chunk, V] fp32 buffer is live where autograd's
+    ``logsumexp`` and ``gather`` backward kept five."""
+
+    @staticmethod
+    def forward(ctx, h, lab, t32, axes):
+        logits = _segment_logits(h, t32, axes)
+        mask = lab != IGNORE_LABEL
+        safe = torch.where(mask, lab, 0).long()
+        lse, gold = _lse_gold(logits, safe, axes)
+        del logits
+        ctx.save_for_backward(h, t32, lse, safe, mask)
+        ctx.axes, ctx.mesh = axes, active_mesh()
+        ctx.logits = bind_frame(_segment_logits)
+        count = mask.sum()
+        ctx.mark_non_differentiable(count)
+        return ((lse - gold) * mask).sum(), (torch.square(lse) * mask).sum(), \
+            count
+
+    @staticmethod
+    def backward(ctx, g_nll, g_z, _):
+        h, t32, lse, safe, mask = ctx.saved_tensors
+        inputs = [h.detach().requires_grad_(ctx.needs_input_grad[0]),
+                  t32.detach().requires_grad_(ctx.needs_input_grad[2])]
+        with torch.enable_grad():
+            logits = ctx.logits(*inputs, ctx.axes)
+        p = logits.detach()                 # the buffer, made the cotangent
+        p.sub_(lse[..., None]).exp_()
+        p.mul_((mask * (g_nll + 2.0 * lse * g_z))[..., None])
+        col, gold = safe, -(mask * g_nll)
+        if ctx.axes:
+            index, _ = collectives.block_index(ctx.mesh, ctx.axes)
+            v = p.shape[-1]
+            col = safe - index * v
+            mine = (col >= 0) & (col < v)
+            col, gold = torch.where(mine, col, 0), torch.where(mine, gold, 0.0)
+        p.scatter_add_(-1, col[..., None], gold[..., None].to(p.dtype))
+        wanted = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad(logits, wanted, p) if wanted else ())
+        dh, dt = (next(got) if x.requires_grad else None for x in inputs)
+        return dh, None, dt, None
+
+
+def _ce_segment(h, lab, t32, axes=()):
+    """One chunked-CE segment's (nll sum, z sum, count)
+    (:class:`_CESegment`)."""
+    return _CESegment.apply(h, lab, t32, axes)
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
@@ -168,9 +228,10 @@ def chunked_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
     """CE over [B,S,d] hidden states without materialising [B,S,V] logits.
 
     Loops over sequence segments; each computes its logits, LSE and gold
-    logit and is recomputed in the backward pass (a checkpoint per segment
-    under autograd), so peak logits memory is O(B * chunk * V) instead of
-    O(B * S * V).  With ``vocab_axes`` ``table`` is this rank's
+    logit and recomputes its logits in the backward pass
+    (:class:`_CESegment`, one fp32 buffer turned into their cotangent in
+    place), so peak logits memory is one O(B * chunk * V) buffer instead
+    of O(B * S * V).  With ``vocab_axes`` ``table`` is this rank's
     vocabulary rows (``Model.unembed_table``) and each segment's logits
     its block, whose logsumexp and gold logit are reduced over the axes
     (:func:`_lse_gold`)."""
@@ -181,18 +242,13 @@ def chunked_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=IGNORE_LABEL)
     t32 = table.to(torch.float32)
-    grad = torch.is_grad_enabled()
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     zl = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for c in range(n_chunks):
         h = hidden[:, c * chunk:(c + 1) * chunk]
         lab = labels[:, c * chunk:(c + 1) * chunk]
-        if grad:
-            seg = checkpoint.checkpoint(bind_frame(_ce_segment), h, lab, t32,
-                                        vocab_axes, use_reentrant=False)
-        else:
-            seg = _ce_segment(h, lab, t32, vocab_axes)
+        seg = _ce_segment(h, lab, t32, vocab_axes)
         nll, zl, count = nll + seg[0], zl + seg[1], count + seg[2]
     denom = torch.clamp(count, min=1).to(torch.float32)
     return (nll + z_loss * zl) / denom, nll / denom

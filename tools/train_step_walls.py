@@ -11,7 +11,8 @@ ROOT (default: this checkout) holds ``chip_smoke.py`` and
 checkout's flash-attention kernels into its own build directory.  It
 then runs three parts of ``chip_smoke``'s training and dist phases on
 TRAIN_ARCH at TRAIN_BATCH x TRAIN_SEQ: the plain launcher
-(``_train_launcher``: its warm step and tokens/s), the profiled step
+(``_train_launcher``: its warm step, tokens/s and peak device memory),
+the profiled step
 (``_train_profile``: the host's wall, the card's busy share and the
 kernels a step launches) and (4a) (``_dist_dp_nccl``: the same launcher
 under ``--data-parallel`` on a world of one over NCCL).  During (4a)
@@ -83,6 +84,7 @@ def main() -> int:
     print(json.dumps({
         "root": str(root),
         "plain_step_ms": launcher["step_ms"],
+        "plain_peak_bytes": launcher["peak_bytes"],
         "profiled_host_step_ms": step["host_step_ms"],
         "busy_ms": step["busy_ms"], "busy_share": step["busy_share"],
         "kernels_a_step": step["launches"],
