@@ -82,9 +82,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    kernels
    (both tiles, fused and separable) on the plane each workload's blur
    node took, against that node's output, with the counters zeroed just
-   before; the contention probe again in child processes (today's
-   spinning wait and thread count), in turns under the OpenMP runtime's
-   default wait policy and under ``OMP_WAIT_POLICY=PASSIVE``.  Then the
+   before; the contention probe again in two child processes (today's
+   spinning wait and thread count), one under the OpenMP runtime's
+   default wait policy and one under ``OMP_WAIT_POLICY=PASSIVE``.  Then the
    obs path: ``large`` ``image_pipeline`` and ``mixed_dag`` on the warm
    slice-2 dispatcher, compiled with a fresh ``obs.Telemetry``, five
    sequential calls each, printing the dispatch and gate counters, the
@@ -135,7 +135,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    matmul, matvec, conv2d and maxpool variants, library and hand kernels)
    generated at 500 instances each from Table 2's samplers into a
    temporary cache, then NN+C and the four baselines fitted on 250 and
-   scored on the 250 held out (4000 epochs); per combo the five MAEs and
+   scored on the 250 held out (PAPER_EPOCHS); per combo the five MAEs and
    MAPEs, NN+C's weights, the targets' range and the seconds measured
    and fitted, Table 8's ``CARD`` row and NN+C's wins over NN; it fails
    unless every NN+C has at most 75 weights, every MAPE is finite, the
@@ -314,7 +314,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    8, which its 4 heads do not divide: (5e)'s checks, with C held as each
    rank's 128 of its 1024 value rows, and the intra-chunk q.k on each
    rank's one of the 8 (batch, head) pairs against the whole einsum on
-   the same inputs (bound DIST_TP_REC_TOL).  (5d) and (5e) print the
+   the same inputs (bound DIST_TP_REC_TOL); it prints the bytes each
+   part staged through the host and those its all-to-alls received a
+   rank (each rank's blocks of w_up's and w_down's parts, regrouped from
+   the blocks held).  (5d) and (5e) print the
    clipped blocked AdamW step's global norm: its peak bytes above what
    was allocated when it began, beside one period's largest stacked
    gradient leaf gathered whole.  The
@@ -1619,7 +1622,10 @@ def _print_contention(card, host, device) -> None:
               f"{hb:.1f} us ({hb / ha:.2f}x)")
 
 
-OMP_CHILDREN = ("default", "PASSIVE", "PASSIVE", "default")   # in turns
+# one child a policy: four in turns took 65 s of the script's 1200 s, and
+# no policy has moved fault 1 yet; with one sample each, a swing between
+# processes cannot be told from a policy's effect
+OMP_CHILDREN = ("default", "PASSIVE")
 
 
 def _slice4_dispatchers(root) -> dict:
@@ -1660,8 +1666,8 @@ def contention_child(root) -> int:
 
 def _omp_wait_probe(root, card: str) -> None:
     """Fault 1's untried hypothesis, the OpenMP team spinning after a CPU
-    matmul: the contention probe in child processes, in turns with the
-    OpenMP runtime's default wait policy and with
+    matmul: the contention probe in child processes, one with the
+    OpenMP runtime's default wait policy and one with
     ``OMP_WAIT_POLICY=PASSIVE`` (read when the runtime starts, hence a
     process each).  The port's defaults are left as they are."""
     import os
@@ -2362,7 +2368,9 @@ def phase_bench(K, card: str) -> dict:
 
 # the paper's experiments on the card: the 9 card combos through Tables
 # 4-8's protocol, Fig. 4 and the runtime overhead on cuda:0
-PAPER_EPOCHS = 4000    # benchmarks/run.py --quick
+# half of benchmarks/run.py --quick's 4000: the fits took 110 s of the
+# script's 1200 s on a slow host; no gate reads their MAPE but finiteness
+PAPER_EPOCHS = 2000
 PAPER_CHECK = 5        # timed instances a card combo holds against the host
 PAPER_HOST = {"mm": "blas", "mv": "blas", "mc": "window", "mp": "window"}
 # shapes every card variant is held at besides the timed ones: m, n, k at 1
@@ -3638,6 +3646,106 @@ def _train_ce_check(device, card) -> dict:
             "ms": f["ms"], "autograd_ms": a["ms"]}
 
 
+NORM_CHECK = (("rmsnorm", 8192), ("layernorm", 6144))   # kind, d
+NORM_ROWS = (2, 4096)                                    # B, S
+# forward and fp32 gradients; bf16 dx: at most one ulp of its largest
+# magnitude (both sides round fp32 sums, so an element near zero may
+# differ by more of its own ulps)
+NORM_TOL = {"forward": 1e-6, "grads": 1e-5, "bf16_dx": 2.0 ** -7}
+
+
+def _plain_norm(kind, params, x, impl="f32"):
+    """The norms as the port composed them before the autograd Function
+    (``impl`` "f32"): every fp32 [rows, d] intermediate kept by autograd."""
+    dtype = x.dtype
+    x = x.float()
+    if kind == "rmsnorm":
+        var = x.square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(var + 1e-6) * params["scale"]).to(dtype)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + 1e-5)
+    return (x * params["scale"] + params["bias"]).to(dtype)
+
+
+def _norm_run(fn, kind, x0, params0, dy) -> dict:
+    """fn's output and gradients from fresh leaves, and the allocator's
+    peak over its forward and backward above what it was given."""
+    x = x0.clone().requires_grad_()
+    params = {k: v.clone().requires_grad_() for k, v in params0.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    y = fn(kind, params, x)
+    grads = torch.autograd.grad(y, [x] + [params[k] for k in sorted(params)],
+                                dy)
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t1) * 1e3,
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "y": y.detach(), "grads": grads}
+
+
+def _train_norm_check(device, card) -> dict:
+    """The norm Function (``models.layers``, ``impl`` "f32") on the card
+    against the plain composition it replaced: RMSNorm at d = 8192 and
+    LayerNorm at d = 6144 on [2, 4096, d].  In fp32 the forward within
+    1e-6 and every gradient within 1e-5 of the largest magnitude; in bf16
+    the forward the same and the scale's and bias's gradients within
+    1e-5, x's within 2**-7 of its largest magnitude (one bf16 ulp there);
+    the allocator's peak over forward and backward at most the
+    composition's."""
+    from repro_torch.models import layers
+
+    def function(kind, params, x):
+        return layers.apply_norm(kind, params, x)
+
+    out = {}
+    gen = torch.Generator().manual_seed(6)
+    for kind, d in NORM_CHECK:
+        params = {"scale": 1 + 0.1 * torch.randn(d, generator=gen)}
+        if kind == "layernorm":
+            params["bias"] = 0.1 * torch.randn(d, generator=gen)
+        params = {k: v.to(device) for k, v in params.items()}
+        x32 = (torch.randn(*NORM_ROWS, d, generator=gen) * 2 + 0.5).to(device)
+        dy32 = torch.randn(*NORM_ROWS, d, generator=gen).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            got = _norm_run(function, kind, x, params, dy)
+            want = _norm_run(_plain_norm, kind, x, params, dy)
+            fwd = _rel_err(got["y"], want["y"])
+            errs = [_rel_err(g, w) for g, w in zip(got["grads"],
+                                                   want["grads"])]
+            ok = fwd <= NORM_TOL["forward"] and got["peak"] <= want["peak"]
+            dx_tol = (NORM_TOL["grads"] if dtype == torch.float32
+                      else NORM_TOL["bf16_dx"])
+            ok = (ok and errs[0] <= dx_tol
+                  and max(errs[1:]) <= NORM_TOL["grads"])
+            dx = f"dx {errs[0]:.3g} (bound {dx_tol:.3g})"
+            name = f"{kind}/{str(dtype).split('.')[-1]}"
+            print(f"train: norm Function {name} [{NORM_ROWS[0]},"
+                  f"{NORM_ROWS[1]},{d}] against the plain composition: "
+                  f"forward {fwd:.3g} (bit-equal "
+                  f"{bool(torch.equal(got['y'], want['y']))}, bound "
+                  f"{NORM_TOL['forward']}), {dx}, "
+                  f"dscale{'/dbias' if kind == 'layernorm' else ''} "
+                  f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bound "
+                  f"{NORM_TOL['grads']}); peak over "
+                  f"forward+backward {got['peak'] / 2**20:.1f} MiB against "
+                  f"{want['peak'] / 2**20:.1f} MiB; {got['ms']:.2f} ms "
+                  f"against {want['ms']:.2f} ms (first calls); {card}")
+            if not ok:
+                raise RuntimeError(f"train: the norm Function {name} fails "
+                                   f"its gate: forward {fwd}, grads {errs}, "
+                                   f"peak {got['peak']} against "
+                                   f"{want['peak']}")
+            out[name] = {"forward": fwd, "grads": errs, "peak": got["peak"],
+                         "plain_peak": want["peak"], "ms": got["ms"],
+                         "plain_ms": want["ms"]}
+            del got, want, x, dy
+    return out
+
+
 def _pct(share) -> str:
     return "not measured" if share is None else f"{100 * share:.1f}%"
 
@@ -3853,6 +3961,8 @@ def phase_train(K, device, card: str) -> tuple:
     torch.cuda.empty_cache()
     timing["ce"] = _train_ce_check(device, card)
     torch.cuda.empty_cache()
+    timing["norm"] = _train_norm_check(device, card)
+    torch.cuda.empty_cache()
     zero_counts(K)
     _train_step_counted(models[cfg.compute_dtype], device, fa, card)
     torch.cuda.empty_cache()
@@ -3916,6 +4026,10 @@ DIST_MOE_GLOBAL_SEQ = 512
 DIST_MOE_GLOBAL_MESHES = (("model4", (4,), ("model",), 1),
                           ("2x2", (2, 2), ("data", "model"), 2))
 DIST_MOE_GLOBAL_STEPS = 4      # decode tokens after the prefill
+# the 4-rank train step's peak a rank that PERF.md records from before the
+# combine ran over blocks of tokens, at another sequence length, printed
+# beside this run's: (GiB, S)
+DIST_MOE_EARLIER_PEAK = (7.22, 2048)
 DIST_MOE_GLOBAL_TIMEOUT_S = 300.0   # the ranks wait on rank 0's one process
 # (5g) the mLSTM core on value rows: (arch, layers, B, tokens) on a
 # ("model",) mesh of DIST_ROWS_RANKS, whose 4 heads it does not divide;
@@ -4586,12 +4700,23 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
         if on_mesh:
             torch.distributed.barrier()
         host0, before = (link.host_bytes, link.host_s), launch_counts(K)
+        received, real_a2a = [], collectives._all_to_all
+
+        def counted(t, *args):
+            got = real_a2a(t, *args)
+            received.append(got.numel() * got.element_size())
+            return got
+        collectives._all_to_all = counted
         t0 = time.perf_counter()
-        out = fn()
+        try:
+            out = fn()
+        finally:
+            collectives._all_to_all = real_a2a
         torch.cuda.synchronize()
         return out, {"wall_s": time.perf_counter() - t0,
                      "host_bytes": link.host_bytes - host0[0],
                      "host_s": link.host_s - host0[1],
+                     "a2a_bytes": sum(received),
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      "flash": _delta(K, before)}
 
@@ -4698,6 +4823,8 @@ def _dist_tp_recurrent(arch, mesh, K, rank, device, layers=None,
         def contiguous(leaf, dim, axes, parts):
             if parts == cfg.n_heads:
                 return take(leaf, dim, axes)
+            if parts == (1, cfg.n_heads):
+                return real(leaf, dim, axes, 2)  # the gate half's block
             return real(leaf, dim, axes, parts)
         xlstm.take_parts = contiguous
         try:
@@ -5437,6 +5564,14 @@ def _dist_moe_global_report(counts, card) -> dict:
         if len(names) > 1 and shard_drop == whole_drop:
             raise RuntimeError(f"dist: the per-shard routing dropped as "
                                f"many as the whole batch's ({whole_drop})")
+        peaks = [rep[label]["step"]["peak_bytes"] for rep in reps]
+        gib, seq = DIST_MOE_EARLIER_PEAK
+        earlier = (f"; PERF.md records {gib} GiB for 4 ranks at S = {seq} "
+                   f"before it, not comparable" if len(names) == 1 else "")
+        print(f"dist: global MoE on {shape}: the train step's peak "
+              f"{max(peaks) / 2**30:.2f} GiB a rank at most at S = "
+              f"{DIST_MOE_GLOBAL_SEQ} (the combine over blocks of "
+              f"tokens){earlier}; {card}")
         out[f"moe_global_{label}"] = {
             "logits": max(errs), "grads": worst[0],
             "loss": r0["loss_err"], "fault": fault,
@@ -5496,6 +5631,20 @@ def _dist_rows_report(counts, card) -> dict:
           f"fp32, B={batch} S={seq}, on a ('model',) mesh of "
           f"{DIST_ROWS_RANKS} ranks on {DIST_DEVICE}: {wall:.1f} s; {card}")
     out = _tp_recurrent_case(reps, "rows", arch, card)
+    parts = ("forward", "step", "decode")
+    staged = {part: [rep["rows"][part]["host_bytes"] for rep in reps]
+              for part in parts}
+    received = {part: [rep["rows"][part]["a2a_bytes"] for rep in reps]
+                for part in parts}
+    d, di = cfg.d_model, 2 * cfg.d_model
+    leaves = (d * 2 * di + di * d) * 4      # w_up and w_down, fp32
+    print(f"dist: {arch}'s first layer, bytes staged through the host a "
+          f"rank (forward, train step, prefill + decode): "
+          f"{json.dumps(staged)}; bytes the all-to-alls received a rank: "
+          f"{json.dumps(received)}, where its w_up and w_down are {leaves} "
+          f"bytes whole; {card}")
+    out["rows_staged_bytes"] = staged
+    out["rows_a2a_bytes"] = received
     qk = [rep["rows"]["qk"] for rep in reps]
     worst = max(q["err"] for q in qk)
     mine = qk[0]["pairs"] // DIST_ROWS_RANKS
@@ -6180,7 +6329,7 @@ REFERENCE_TRAIN = (1.874e14, 25.77)
 # data ranks
 MOE_LAUNCH_ARCH = "llama4-maverick-400b-a17b"
 MOE_LAUNCH_LAYERS = 2
-MOE_LAUNCH_CPU = (147628763381760, 53848373701)
+MOE_LAUNCH_CPU = (147628763381760, 43110955461)
 MOE_LAUNCH_EXPERTS = (8, 128)
 MOE_LAUNCH_DATA = 16
 # the long-context decode (long_500k: 524288 cached positions, the cache
@@ -6189,8 +6338,8 @@ MOE_LAUNCH_DATA = 16
 # (tests/dryrun_depth.py), and the JAX package's from ``tests/
 # dryrun_depth.py --package repro`` on the same CPU, printed beside (its
 # HLO also counts elementwise FLOPs the port's product count leaves out)
-LONG_LAUNCH_CPU = {"gemma3-1b": (3758399488, 1216848132),
-                   "hymba-1.5b": (7346281600, 2338478088)}
+LONG_LAUNCH_CPU = {"gemma3-1b": (3758399488, 1216845828),
+                   "hymba-1.5b": (7346281600, 2338474888)}
 LONG_LAUNCH_JAX = {"gemma3-1b": (4656048679, 2038788268),
                    "hymba-1.5b": (8861547499, 4620656232)}
 LONG_LAUNCH_RANKS = 16     # the model axis the cache's sequence splits over

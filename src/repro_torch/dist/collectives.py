@@ -149,14 +149,26 @@ def reduce_sum_(tensors: Sequence[torch.Tensor], mesh,
             t.copy_(_from_wire(w, t, mesh))
 
 
+# torch 2.13 renames all_gather_into_tensor (deprecated there)
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+
+
 def _all_gather(t: torch.Tensor, mesh, name: str, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` along ``name``, concatenated on ``dim`` in the
+    ranks' order: received into one [n, *t.shape] buffer
+    (``all_gather_into_tensor``), then its rank dimension merged into
+    ``dim``.  Where ``dim`` is the outermost of more than one element that
+    merge is a view, so the parts land straight in the result; elsewhere
+    it is one copy."""
     n = axis_size(mesh, name)
     if n == 1:
         return t
+    dim %= t.ndim
     w = _to_wire(t, mesh)
-    parts = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(parts, w, group=mesh.get_group(name))
-    return _from_wire(torch.cat(parts, dim=dim), t, mesh)
+    out = torch.empty((n,) + tuple(w.shape), dtype=w.dtype, device=w.device)
+    # flat: gloo checks the first dimension, n times the input's
+    _ALL_GATHER(out.view(-1), w.reshape(-1), group=mesh.get_group(name))
+    return _from_wire(out.movedim(0, dim).flatten(dim, dim + 1), t, mesh)
 
 
 # torch 2.13 renames reduce_scatter_tensor (deprecated there)
@@ -180,6 +192,19 @@ def _reduce_scatter(t: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
         _REDUCE_SCATTER(out, w.reshape(-1), group=mesh.get_group(name))
         t = _from_wire(out.view(w.shape[1:]), t, mesh)
     return t
+
+
+def _all_to_all(t: torch.Tensor, mesh, name: str, send: list,
+                recv: list) -> torch.Tensor:
+    """``t``'s rows (dimension 0) in consecutive pieces of ``send[i]``
+    rows to the i-th rank along ``name``; the pieces received, ``recv[i]``
+    rows from the i-th, in the ranks' order (``all_to_all_single``)."""
+    w = _to_wire(t, mesh)
+    out = torch.empty((sum(recv),) + tuple(w.shape[1:]), dtype=w.dtype,
+                      device=w.device)
+    dist.all_to_all_single(out, w, list(recv), list(send),
+                           group=mesh.get_group(name))
+    return _from_wire(out, t, mesh)
 
 
 def _pack(tensors: list) -> torch.Tensor:
@@ -359,6 +384,33 @@ def reduce_from(t: torch.Tensor, mesh, names) -> torch.Tensor:
     cotangent passes through unchanged: a row-parallel product's output
     (module docstring)."""
     return _ReduceFrom.apply(mesh, names_of(names), t)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, name, dim, send, recv, t):
+        ctx.mesh, ctx.name, ctx.dim = mesh, name, dim
+        ctx.send, ctx.recv = send, recv
+        out = _all_to_all(t.movedim(dim, 0).contiguous(), mesh, name, send,
+                          recv)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _all_to_all(g.movedim(ctx.dim, 0).contiguous(), ctx.mesh,
+                           ctx.name, ctx.recv, ctx.send)
+        return (None,) * 5 + (back.movedim(0, ctx.dim).contiguous(),)
+
+
+def exchange(t: torch.Tensor, mesh, name: str, dim: int, send, recv
+             ) -> torch.Tensor:
+    """An all-to-all along ``name`` on dimension ``dim``: ``t``'s
+    consecutive pieces of ``send[i]`` along it go to the i-th rank, and
+    the result holds the pieces received, ``recv[i]`` from the i-th, in
+    the ranks' order.  Its backward sends each piece of the cotangent
+    back to the rank it came from."""
+    return _Exchange.apply(mesh, name, dim % t.ndim, tuple(send),
+                           tuple(recv), t)
 
 
 def pmax(t: torch.Tensor, mesh, names) -> torch.Tensor:

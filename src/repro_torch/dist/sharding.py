@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Any, Mapping, NamedTuple, Optional, Sequence, Union
 
@@ -613,27 +614,106 @@ def take(leaf, dim: Optional[int] = None, axes: tuple = ()):
     return collectives.split(leaf, active_mesh(), spec)
 
 
-def take_parts(leaf, dim: int, axes: tuple, parts: int):
-    """:func:`take` for a leaf whose dimension ``dim`` concatenates
-    ``parts`` equal parts (the mLSTM's ``w_up`` = [core_in | gate], the
-    sLSTM's ``w_gates`` = [z | i | f | o]): with ``axes``, this rank's
-    block of each part, concatenated in the parts' order, whole along every
-    other dimension; without, the whole leaf.  A contiguous block of the
-    concatenated axis (what a :class:`Block` holds there) is not that: on
-    4 ranks ranks 0-1 would hold only the first half's channels.  A Block
-    is therefore gathered whole first; the cut is ``collectives.split``'s
-    (its backward all-gathers the gradient)."""
+def take_parts(leaf, dim: int, axes: tuple, parts):
+    """:func:`take` for a leaf whose dimension ``dim`` concatenates equal
+    parts (the mLSTM's ``w_up`` = [core_in | gate], the sLSTM's
+    ``w_gates`` = [z | i | f | o]): with ``axes``, this rank's block of
+    each part, concatenated in the parts' order, whole along every other
+    dimension; without, the whole leaf.  ``parts`` is their count, or a
+    tuple: ``dim`` then concatenates that many equal segments, the i-th of
+    ``parts[i]`` equal parts (the mLSTM's ``w_up`` on value rows, (1, H):
+    the core half's block and the gate half's block of each head).  A
+    contiguous block of the concatenated axis (what a :class:`Block` holds
+    there) is not that: on 4 ranks ranks 0-1 would hold only the first
+    half's channels.  A Block held over ``axes`` on ``dim`` (one mesh axis
+    of more than one rank among them) is regrouped by one all-to-all
+    (:func:`_regroup`), so each rank receives 1/n of the leaf; another
+    Block is gathered whole first.  A whole leaf is cut by
+    ``collectives.split``, a segment at a time (its backward all-gathers
+    the gradient)."""
+    segments = (parts,) if isinstance(parts, int) else tuple(parts)
     if isinstance(leaf, Block):
+        regrouped = _regroup(leaf, dim, axes, segments)
+        if regrouped is not None:
+            return regrouped
         leaf = collectives.gather(leaf.local, leaf.mesh, leaf.spec)
     if not axes:
         return leaf
-    shape = tuple(leaf.shape)
-    grouped = leaf.reshape(shape[:dim] + (parts, shape[dim] // parts)
-                           + shape[dim + 1:])
-    spec = tuple(tuple(axes) if i == dim + 1 else None
-                 for i in range(grouped.ndim))
-    block = collectives.split(grouped, active_mesh(), spec)
-    return block.flatten(dim, dim + 1)
+    blocks = []
+    for seg, count in zip(leaf.chunk(len(segments), dim), segments):
+        shape = tuple(seg.shape)
+        grouped = seg.reshape(shape[:dim] + (count, shape[dim] // count)
+                              + shape[dim + 1:])
+        spec = tuple(tuple(axes) if i == dim + 1 else None
+                     for i in range(grouped.ndim))
+        blocks.append(collectives.split(grouped, active_mesh(), spec)
+                      .flatten(dim, dim + 1))
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim)
+
+
+def _regroup(leaf: "Block", dim: int, axes: tuple, segments: tuple):
+    """:func:`take_parts` of a Block held over ``axes`` on ``dim`` (its
+    other split axes gathered first, as :func:`take` does), by one
+    all-to-all over the one axis of more than one rank among ``axes``:
+    rank s holds positions [s·D/n, (s+1)·D/n) of the concatenated
+    dimension, rank r wants its block of each part, and each position
+    has one owner either side, so each rank sends and receives D/n.  The
+    pieces rank r receives, in the senders' order, are its wanted
+    positions in ascending order.  None where this does not apply."""
+    mesh = leaf.mesh
+    spec = leaf.spec
+    live = [a for a in names_of(spec[dim])
+            if collectives.axis_size(mesh, a) > 1]
+    if not axes or tuple(names_of(spec[dim])) != tuple(axes) \
+            or len(live) != 1:
+        return None
+    n = collectives.axis_size(mesh, live[0])
+    held = leaf.local.shape[dim]
+    seg, rem = divmod(held * n, len(segments))
+    if rem or any(seg % count or (seg // count) % n for count in segments):
+        return None
+    runs, send, recv = _regroup_plan(held, n, collectives.axis_index(
+        mesh, live[0]), segments)
+    rest = tuple(None if i == dim else e for i, e in enumerate(spec))
+    local_ = leaf.local
+    if any(names_of(e) for e in rest):
+        local_ = collectives.gather(local_, mesh, rest)
+    pieces = [local_.narrow(dim, start, size) for start, size in runs]
+    sent = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+    return collectives.exchange(sent, mesh, live[0], dim, send, recv)
+
+
+@functools.lru_cache(maxsize=None)
+def _regroup_plan(held: int, n: int, me: int, segments: tuple) -> tuple:
+    """(the runs (start, size) of held positions rank ``me`` sends, in the
+    order it sends them, the count it sends to each rank, the count it
+    receives from each) for :func:`_regroup`: the n·held positions are
+    ``len(segments)`` equal segments, the i-th of ``segments[i]`` equal
+    parts, and rank r wants its block of each part, in ascending order."""
+    seg = held * n // len(segments)
+
+    def wanted(r):
+        out = []
+        for i, count in enumerate(segments):
+            part = seg // count
+            step = part // n
+            out.extend(i * seg + p * part + r * step + j
+                       for p in range(count) for j in range(step))
+        return out
+
+    lo, hi = me * held, (me + 1) * held
+    runs, send = [], []
+    for r in range(n):
+        got = [i - lo for i in wanted(r) if lo <= i < hi]
+        send.append(len(got))
+        for i in got:
+            if runs and runs[-1][0] + runs[-1][1] == i:
+                runs[-1][1] += 1
+            else:
+                runs.append([i, 1])
+    recv = [sum(1 for i in wanted(me) if s * held <= i < (s + 1) * held)
+            for s in range(n)]
+    return tuple(map(tuple, runs)), tuple(send), tuple(recv)
 
 
 def held_batch_shardings(batch_specs: Mapping[str, Any], mesh,

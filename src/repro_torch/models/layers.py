@@ -158,21 +158,6 @@ def rmsnorm_spec(d: int) -> dict:
     return {"scale": ParamSpec((d,), torch.float32, ("embed",), init="ones")}
 
 
-def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6,
-            impl: str = "f32") -> torch.Tensor:
-    dtype = x.dtype
-    if impl == "bf16_apply":
-        # f32 statistics, application in x's type: the full-width tensors
-        # never materialise in f32
-        var = x.float().square().mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(var + eps).to(dtype)
-        return x * inv * params["scale"].to(dtype)
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"]).to(dtype)
-
-
 def layernorm_spec(d: int) -> dict:
     return {
         "scale": ParamSpec((d,), torch.float32, ("embed",), init="ones"),
@@ -180,25 +165,154 @@ def layernorm_spec(d: int) -> dict:
     }
 
 
-def _mean_var(x: torch.Tensor) -> tuple:
-    """fp32 mean and population variance over the last axis, as
-    ``jnp.mean``/``jnp.var``."""
-    mu = x.mean(dim=-1, keepdim=True)
-    return mu, (x - mu).square().mean(dim=-1, keepdim=True)
+# The bytes of fp32 a row-chunked loop (the norms, the MoE's combine)
+# holds per buffer: no fp32 [rows, d] buffer larger than this is live,
+# where the reference's XLA fuses the whole computation into one pass.
+ROW_CHUNK_BYTES = 64 << 20
+
+
+def row_chunks(rows: int, width: int) -> list:
+    """[lo, hi) bounds of ``rows`` rows of ``width`` fp32 elements, each
+    chunk at most :data:`ROW_CHUNK_BYTES` (one row at least); one empty
+    chunk for no rows."""
+    step = max(1, ROW_CHUNK_BYTES // (4 * width))
+    return [(lo, min(lo + step, rows))
+            for lo in range(0, max(rows, 1), step)]
+
+
+def _norm_chunk(kind, impl, eps, xc, scale, bias) -> tuple:
+    """One chunk of rows of the norm, in the reference's order of ops:
+    (the result in x's type, the fp32 per-row mean (layernorm) or None,
+    the fp32 per-row rstd)."""
+    dtype = xc.dtype
+    xf = xc.float()
+    m = None
+    if kind == "layernorm":
+        m = xf.mean(dim=-1, keepdim=True)
+        c = xf - m                        # (x - mu), as jnp.var takes it
+        var = c.square().mean(dim=-1, keepdim=True)
+    else:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    if impl == "bf16_apply":
+        # f32 statistics, application in x's type: the full-width tensors
+        # never materialise in f32
+        inv = r.to(dtype)
+        if kind == "layernorm":
+            y = (xc - m.to(dtype)).mul_(inv).mul_(scale.to(dtype))
+            return y.add_(bias.to(dtype)), m, r
+        return (xc * inv).mul_(scale.to(dtype)), m, r
+    if kind == "layernorm":
+        y = c.mul_(r).mul_(scale).add_(bias)
+    else:
+        y = (xf * r).mul_(scale)          # xf may be xc itself
+    return y.to(dtype), m, r
+
+
+def _norm_rows(kind, impl, eps, x, scale, bias) -> tuple:
+    """(the norm of ``x`` in x's type, the fp32 per-row mean or None, the
+    fp32 per-row rstd [rows, 1]), chunk by chunk of rows; one chunk's
+    result as it comes, several written into one result."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    chunks = row_chunks(x2.shape[0], d)
+    if len(chunks) == 1:
+        y, mu, rstd = _norm_chunk(kind, impl, eps, x2, scale, bias)
+        return y.view(x.shape), mu, rstd
+    out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    stat = (x2.shape[0], 1)
+    rstd = torch.empty(stat, dtype=torch.float32, device=x.device)
+    mu = (torch.empty(stat, dtype=torch.float32, device=x.device)
+          if kind == "layernorm" else None)
+    for lo, hi in chunks:
+        y, m, r = _norm_chunk(kind, impl, eps, x2[lo:hi], scale, bias)
+        out[lo:hi], rstd[lo:hi] = y, r
+        if mu is not None:
+            mu[lo:hi] = m
+    return out.view(x.shape), mu, rstd
+
+
+def _norm_grads(kind, xc, dyc, scale, mu, r, want) -> tuple:
+    """One chunk's (dx in fp32 or None, its dscale and dbias terms or
+    None): x̂ recomputed from x, the mean and rstd."""
+    want_x, want_scale, want_bias = want
+    xhat = xc.float()
+    if kind == "layernorm":
+        xhat = xhat - mu
+    xhat = xhat * r
+    g = dyc.to(torch.float32, copy=True)
+    dscale = (g * xhat).sum(dim=0) if want_scale else None
+    dbias = g.sum(dim=0) if want_bias else None
+    if not want_x:
+        return None, dscale, dbias
+    g = g.mul_(scale)                                   # dL/dx̂
+    corr = (g * xhat).mean(dim=-1, keepdim=True)
+    if kind == "layernorm":
+        g = g.sub_(g.mean(dim=-1, keepdim=True))
+    return g.sub_(xhat.mul_(corr)).mul_(r), dscale, dbias
+
+
+class _Norm(torch.autograd.Function):
+    """RMSNorm or LayerNorm (both ``impl``s) as one node: the forward
+    writes the result chunk by chunk of rows (:func:`_norm_rows`) and
+    saves x as given (alive anyway as the residual) with the fp32 per-row
+    mean (layernorm) and rstd; the backward recomputes x̂ chunk by chunk
+    and sums the scale's and bias's gradients in fp32.  No fp32 buffer of
+    the rows' full size is made either way."""
+
+    @staticmethod
+    def forward(ctx, kind, impl, eps, x, scale, bias):
+        out, mu, rstd = _norm_rows(kind, impl, eps, x, scale, bias)
+        ctx.kind = kind
+        ctx.save_for_backward(x, scale, mu, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mu, rstd = ctx.saved_tensors
+        d = x.shape[-1]
+        x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+        want = ctx.needs_input_grad[3:]
+        chunks = row_chunks(x2.shape[0], d)
+        dx = (torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+              if want[0] and len(chunks) > 1 else None)
+        dscale = dbias = None
+        for lo, hi in chunks:
+            dxc, ds, db = _norm_grads(
+                ctx.kind, x2[lo:hi], dy2[lo:hi], scale,
+                None if mu is None else mu[lo:hi], rstd[lo:hi], want)
+            dscale = ds if dscale is None else dscale.add_(ds)
+            dbias = db if dbias is None else dbias.add_(db)
+            if dx is not None:
+                dx[lo:hi] = dxc
+            elif dxc is not None:
+                dx = dxc.to(x.dtype)
+        return (None, None, None, None if dx is None else dx.view(x.shape),
+                None if dscale is None else dscale.to(scale.dtype),
+                None if dbias is None else dbias.to(scale.dtype))
+
+
+def _norm(kind, params, x, eps, impl) -> torch.Tensor:
+    scale, bias = params["scale"], params.get("bias")
+    parts = (x, scale) if bias is None else (x, scale, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in parts):
+        return _Norm.apply(kind, impl, eps, x, scale, bias)
+    return _norm_rows(kind, impl, eps, x, scale, bias)[0]
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6,
+            impl: str = "f32") -> torch.Tensor:
+    """The reference's RMSNorm (``impl`` "f32": normalised and scaled in
+    fp32; "bf16_apply": fp32 statistics applied in x's type), as one
+    autograd node over chunks of rows (:class:`_Norm`)."""
+    return _norm("rmsnorm", params, x, eps, impl)
 
 
 def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5,
               impl: str = "f32") -> torch.Tensor:
-    dtype = x.dtype
-    if impl == "bf16_apply":
-        mu, var = _mean_var(x.float())
-        inv = torch.rsqrt(var + eps).to(dtype)
-        return ((x - mu.to(dtype)) * inv * params["scale"].to(dtype)
-                + params["bias"].to(dtype))
-    x = x.float()
-    mu, var = _mean_var(x)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * params["scale"] + params["bias"]).to(dtype)
+    """The reference's LayerNorm (population variance, as ``jnp.var``),
+    as :func:`rmsnorm` runs it."""
+    return _norm("layernorm", params, x, eps, impl)
 
 
 def norm_spec(kind: str, d: int) -> dict:
@@ -246,18 +360,33 @@ def embed(params: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     return constrain(out, "batch", "seq", "embed")
 
 
+def _fp32_rows_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x.float(), w)`` (w fp32 [d, v]) outside autograd,
+    chunk by chunk of x's rows (:func:`row_chunks`) into one fp32 result:
+    no fp32 copy of all of x, where XLA fuses the reference's convert into
+    its dot."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = torch.empty((x2.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for lo, hi in row_chunks(*x2.shape):
+        torch.matmul(x2[lo:hi].float(), w, out=out[lo:hi])
+    return out.view(*x.shape[:-1], w.shape[1])
+
+
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 (loss stability); table shared with embed when tied.
-    Under a split vocabulary, this rank's block of them."""
+    Under a split vocabulary, this rank's block of them.  Where no
+    gradient is taken x is converted to fp32 a chunk of rows at a time."""
     table = params["table"]
     axes = vocab_axes(*x.shape[:-1], whole_shape(table)[0])
-    x32 = x.float()
+    w = take(table, 0, axes).float().t()
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        return constrain(_fp32_rows_product(x, w), "batch", "seq", "vocab")
     if not axes:
-        logits = whole_matmul(x32, take(table).float().t(), 0)
+        logits = whole_matmul(x.float(), w, 0)
         return constrain(logits, "batch", "seq", "vocab")
-    x32 = collectives.copy_to(x32, active_mesh(), axes)
-    logits = torch.matmul(x32, take(table, 0, axes).float().t())
-    return constrain(logits, "batch", "seq", "vocab")
+    x32 = collectives.copy_to(x.float(), active_mesh(), axes)
+    return constrain(torch.matmul(x32, w), "batch", "seq", "vocab")
 
 
 # --------------------------------------------------------------------------

@@ -70,7 +70,7 @@ from repro_torch.dist.sharding import (Block, _axis_sizes, active_mesh,
                                        active_region, active_rules,
                                        constrain, gather_tree, region_period,
                                        split_axes, take)
-from repro_torch.models.layers import gelu, mlp, mlp_spec
+from repro_torch.models.layers import gelu, mlp, mlp_spec, row_chunks
 from repro_torch.models.module import ParamSpec
 
 
@@ -286,15 +286,7 @@ def moe_apply_local(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     h = _act(cfg, g) * u
     ye = torch.einsum("xecf,efd->xecd", h, w_down)
 
-    # combine via scatter-from-experts: each slot adds its weighted output
-    # to its token (empty slots point at token 0 and add zeros)
-    contrib = (ye * w_slot[..., None].to(ye.dtype)
-               * occupied[..., None].to(ye.dtype))
-    scatter_shard = torch.arange(shards, device=dev)[:, None].expand(
-        shards, e_loc * cap).reshape(-1)
-    y = torch.zeros((shards, nl, d), dtype=torch.float32, device=dev)
-    y.index_put_((scatter_shard, dispatch.reshape(-1)),
-                 contrib.reshape(-1, d).float(), accumulate=True)
+    y = _combine_slots(ye, w_slot, occupied, dispatch, nl)
     if axes:
         y = collectives.reduce_from(y, mesh, axes)
     y = constrain(y, "batch", None, "embed")
@@ -305,6 +297,51 @@ def moe_apply_local(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
     aux = _aux(expert_idx, probs, e, active_region())
     y = y.reshape(b, s, d).to(x.dtype)
     return constrain(y, "batch", "seq", "embed"), aux
+
+
+def _combine_slots(ye, w_slot, occupied, dispatch, nl: int) -> torch.Tensor:
+    """The local dispatch's combine, y [shards, nl, d] in fp32: each slot
+    of ye [shards, E_loc, cap, d] adds its output, times its weight and
+    occupancy in ye's type, to its token (an empty slot points at token 0
+    and adds zeros).  Over blocks of slots in their order
+    (``layers.row_chunks``), so each token's slots add in the order one
+    scatter of every slot adds them, and no fp32 buffer of every slot is
+    made."""
+    shards, d = ye.shape[0], ye.shape[-1]
+    per = ye[0].numel() // d
+    scatter_shard = torch.arange(shards, device=ye.device)[:, None].expand(
+        shards, per).reshape(-1)
+    rows, w, occ, tok = (ye.reshape(-1, d), w_slot.reshape(-1),
+                         occupied.reshape(-1), dispatch.reshape(-1))
+    y = torch.zeros((shards, nl, d), dtype=torch.float32, device=ye.device)
+    for lo, hi in row_chunks(rows.shape[0], d):
+        part = (rows[lo:hi] * w[lo:hi, None].to(ye.dtype)
+                * occ[lo:hi, None].to(ye.dtype))
+        y.index_put_((scatter_shard[lo:hi], tok[lo:hi]), part.float(),
+                     accumulate=True)
+    return y
+
+
+def _combine_tokens(ye_rows, src, weights) -> torch.Tensor:
+    """The global dispatch's combine, y [N, d] in fp32: token t adds, for
+    each of its k slots in order, the row ``src[t, j]`` of this rank's
+    experts' outputs ye_rows [E_loc*cap, d] in fp32 times ``weights[t,
+    j]``, or zeros where ``src[t, j]`` lies outside ye_rows (another
+    rank's expert, or dropped).  Over blocks of whole tokens
+    (``layers.row_chunks``): the reference's XLA fuses its gather, weight
+    and scatter into one pass, where one block of every token would hold
+    three fp32 [N*k, d] buffers."""
+    (n, k), (slots, d) = src.shape, ye_rows.shape
+    held = (src >= 0) & (src < slots)
+    src = torch.clamp(src, 0, slots - 1)
+    token_ids = torch.arange(n, device=ye_rows.device)[:, None].expand(n, k)
+    y = torch.zeros((n, d), dtype=torch.float32, device=ye_rows.device)
+    for lo, hi in row_chunks(n, k * d):
+        part = ye_rows[src[lo:hi].reshape(-1)]
+        part = part.float() * weights[lo:hi].reshape(-1)[:, None]
+        part = torch.where(held[lo:hi].reshape(-1)[:, None], part, 0.0)
+        y.index_add_(0, token_ids[lo:hi].reshape(-1), part)
+    return y
 
 
 def moe_apply_shardmap(cfg: ArchConfig, params: dict, x: torch.Tensor):
@@ -452,16 +489,8 @@ def moe_apply(cfg: ArchConfig, params: dict, x: torch.Tensor) -> tuple:
         h = constrain(h, "expert", None, "expert_mlp")
         ye = torch.einsum("ecf,efd->ecd", h, w_down)  # [E_loc,cap,d]
 
-    # combine: scatter-add this rank's experts' outputs back to tokens,
-    # weighted; the other slots add zeros
-    flat_src = flat_dest.reshape(-1) - lo * cap                # [N*k]
-    held = (flat_src >= 0) & (flat_src < e_loc * cap)
-    gathered = ye.reshape(e_loc * cap, d)[
-        torch.clamp(flat_src, 0, e_loc * cap - 1)]
-    gathered = gathered.float() * weights.reshape(-1)[:, None]
-    gathered = torch.where(held[:, None], gathered, 0.0)
-    y = torch.zeros((n, d), dtype=torch.float32, device=dev)
-    y.index_add_(0, token_ids.reshape(-1), gathered)
+    y = _combine_tokens(ye.reshape(e_loc * cap, d), flat_dest - lo * cap,
+                        weights)
     if axes:
         y = collectives.reduce_from(y, mesh, axes)
 

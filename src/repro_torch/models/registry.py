@@ -201,7 +201,8 @@ class Model:
                                      max_seq=max_seq, cache_dtype=cache_dtype,
                                      memory=memory, k_chunk=k_chunk,
                                      use_kernel=use_kernel)
-        return self._logits(params, self._final(params, x)), cache
+        x = self._final(params, x)      # the stack's output dies here
+        return self._logits(params, x), cache
 
     # -- single-token decode -------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
@@ -218,7 +219,8 @@ class Model:
             x = x + table[index:index + 1].to(dtype)[None]
         x, cache = tfm.stack_decode(cfg, params["stack"], x, cache, index,
                                     start=start, stream_kv=stream_kv)
-        return self._logits(params, self._final(params, x)), cache
+        x = self._final(params, x)      # the stack's output dies here
+        return self._logits(params, x), cache
 
     # -- convenience ---------------------------------------------------------
     def init_params(self, generator: torch.Generator, device="cuda") -> dict:

@@ -240,12 +240,14 @@ def block_forward(cfg: ArchConfig, kind: str, params: dict, x: torch.Tensor, *,
     if kind == "hybrid":
         a, _ = _fuse_ssm(cfg, params, h, a, x.dtype, ssm_mod.ssm_apply)
     x = x + a
+    del h, a          # dead: no local holds them through the FFN
     if memory is not None and "cross" in params:
         hx = apply_norm(cfg.norm_kind, params["norm_x"], x, impl=cfg.norm_impl)
         cx = attn.attention(cfg, params["cross"], hx, causal=False,
                             use_rope=False, kv_src=memory, k_chunk=k_chunk,
                             use_kernel=use_kernel)
         x = x + cx
+        del hx, cx
     x, aux = _ffn(cfg, kind, params, x)
     return x, _zero(x) if aux is None else aux
 
@@ -278,10 +280,12 @@ def block_prefill(cfg: ArchConfig, kind: str, params: dict, x: torch.Tensor, *,
                                k_chunk=k_chunk, return_kv=True,
                                use_kernel=use_kernel)
     cache = {"k": pad_seq(k), "v": pad_seq(v)}
+    del k, v
     if kind == "hybrid":
         a, cache["h_ssm"] = _fuse_ssm(cfg, params, h, a, x.dtype,
                                       ssm_mod.ssm_apply)
     x = x + a
+    del h, a          # dead: no local holds them through the FFN
     if memory is not None and "cross" in params:
         hx = apply_norm(cfg.norm_kind, params["norm_x"], x, impl=cfg.norm_impl)
         cx, (xk, xv) = attn.attention(cfg, params["cross"], hx, causal=False,
@@ -289,6 +293,7 @@ def block_prefill(cfg: ArchConfig, kind: str, params: dict, x: torch.Tensor, *,
                                       k_chunk=k_chunk, return_kv=True,
                                       use_kernel=use_kernel)
         x = x + cx
+        del hx, cx
         cache["xk"] = xk.to(cache_dtype)
         cache["xv"] = xv.to(cache_dtype)
     x, _ = _ffn(cfg, kind, params, x)

@@ -98,17 +98,15 @@ def _mlstm_up(params, u, axes, rows, n_heads):
     value rows)."""
     if axes:
         u = collectives.copy_to(u, active_mesh(), axes)
-    if not rows:
-        up = torch.matmul(u, take_parts(params["w_up"], 1, axes, 2)
-                          .to(u.dtype))
-        half = up.shape[-1] // 2
-        return up[..., :half], up[..., half:]
-    w = take(params["w_up"])
-    half = w.shape[1] // 2
-    core_in = torch.matmul(u, take(w[:, :half], 1, axes).to(u.dtype))
-    gate = torch.matmul(u, take_parts(w[:, half:], 1, rows, n_heads)
-                        .to(u.dtype))
-    return core_in, gate
+    w = take_parts(params["w_up"], 1, axes, (1, n_heads) if rows else 2)
+    if rows:
+        # two products, so core_in comes contiguous for q, k and v
+        core_w, gate_w = w.chunk(2, dim=1)
+        return (torch.matmul(u, core_w.to(u.dtype)),
+                torch.matmul(u, gate_w.to(u.dtype)))
+    up = torch.matmul(u, w.to(u.dtype))
+    half = up.shape[-1] // 2
+    return up[..., :half], up[..., half:]
 
 
 def _mlstm_inputs(params, core_in, axes, heads, rows=()):

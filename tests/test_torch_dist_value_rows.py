@@ -61,6 +61,8 @@ for what, cut_dim in (("gate", 1), ("w_down", 0)):
     def contiguous(leaf, dim, axes, parts, _dim=cut_dim, _real=real):
         if parts == cfg.n_heads and dim == _dim:
             return shd.take(leaf, dim, axes)
+        if parts == (1, cfg.n_heads) and dim == _dim:
+            return _real(leaf, dim, axes, 2)     # the gate half's block
         return _real(leaf, dim, axes, parts)
 
     xl.take_parts = contiguous
