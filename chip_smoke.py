@@ -39,9 +39,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    the JAX tests' grid (Sq 100 padded to 128, bq = bk = 32, GQA, causal,
    window), at full width (``attention_block``'s q/k/v, one attention
    layer of yi-9b and gemma3-1b's local and global layers at 4096 tokens,
-   B = 1 of the train_4k shape's global batch of 256) and at two shapes
+   B = 1 of the train_4k shape's global batch of 256), at two shapes
    whose backward tiles are wholly visible (D = 128) or end in a sk_orig
-   tail (D = 256), at 1e-4
+   tail (D = 256), and at whisper-medium's two non-causal shapes at D =
+   64 over its 1500 frames padded to 1536 (the decoder's cross-attention,
+   2048 queries, Sq != Sk; the encoder's self-attention), at 1e-4
    (fp32) and 3e-2 (bf16), gradients relative to their largest magnitude
    above 1, each kernel launched twice and held equal bit for bit.
 4. main path — four paths, each over fresh tuning caches (the card's
@@ -147,28 +149,36 @@ Phases, each of which fails the run (non-zero exit) on error:
    the runtime overhead on the blur axis (``quick``).  The MAPEs and
    speedups are printed, not gated.
 7. models  — the model stack (``repro_torch.models``) on the card, the
-   launch counters zeroed just before and read just after: gemma3-1b
-   uncut (26 layers, full width) and yi-9b at full width cut to 2 of its
-   48 layers, fp32 parameters from a seeded ``torch.Generator``.  Each
-   model's ``forward`` at B = 1, S = 4096 (train_4k, the batch cut to 1)
-   through the hand flash-attention kernel and through the plain
-   ``attend_chunked`` (``use_kernel=False``), in fp32 compute and in the
-   config's bf16: the kernel's launches rise by one a layer
-   (``flash_attention``; the lse forward by none) and the logits agree
-   within MODEL_TOL relative to their largest magnitude, top-1 agreement
-   printed.  Then serving: ``prefill`` of two 2048-token prompts into a
-   cache of 2048 + 32 (one launch a layer), its logits and every cache
-   leaf held against the plain prefill's, and 32 greedy ``decode_step``s
-   (no launch), in fp32 — the decode logits held against ``forward``'s
-   at the same positions, that forward (2080 tokens, a ragged length the
-   kernel pads) against its plain twin — and in bf16 with a bf16 cache.
+   launch counters zeroed just before and read just after: gemma3-1b and
+   whisper-medium uncut (whisper: 24 encoder and 24 decoder layers), and
+   at full width cut to 2 layers yi-9b, internvl2-26b, nemotron-4-15b
+   and deepseek-67b, fp32 parameters from a seeded ``torch.Generator``;
+   whisper's 1500 frames and internvl2's 256 patches (rows of d_model,
+   standard normal times 0.05, as ``launch.serve`` draws them) in every
+   batch.  Each model's ``forward`` at B = 1, S = 4096 tokens (train_4k,
+   the batch cut to 1; internvl2's behind its patches) through the hand
+   flash-attention kernel and through the plain ``attend_chunked``
+   (``use_kernel=False``), in fp32 compute and in the config's bf16: the
+   kernel's launches rise by one an attention (``flash_attention``; the
+   lse forward by none; whisper 72: encoder, self and cross) and the
+   logits agree within MODEL_TOL relative to their largest magnitude,
+   top-1 agreement printed.  Then serving: ``prefill`` of two 2048-token
+   prompts into a cache of 2048 + 32 (internvl2: 256 + 2048 + 32; the
+   same launches as the forward), its logits and every cache leaf held
+   against the plain prefill's, and 32 greedy ``decode_step``s (no
+   launch) from the first position past the prompt, in fp32 — the decode
+   logits held against ``forward``'s at the same positions, that forward
+   (2080 tokens, a ragged length the kernel pads, with the same frames
+   or patches) against its plain twin — and in bf16 with a bf16 cache.
    Each model's weights are freed before the next one's are made.  Last
    (outside the counted window, the weights made anew from the same
    seed) each forward timed by CUDA events, with an event pair around
    every kernel launch: the kernel's share of the forward's wall; the
-   serving run twice, the second timed (prefill wall, decode tokens/s,
-   peak device memory over it); and a planted fault (gemma3-1b's window
-   dropped, yi-9b's causal mask) that must land above MODEL_TOL.
+   serving run timed (prefill wall, decode tokens/s, peak device memory
+   over it; the checks above ran its shapes first); and a planted fault
+   (gemma3-1b's window dropped, whisper's encoder and cross-attention
+   made causal, the others' causal mask dropped) that must land above
+   MODEL_TOL.
 8. serve   — the serving slice (``repro_torch.serve``, ``bench serve``,
    ``launch.serve``, ``checkpoint``) at gemma3-1b uncut, the launch
    counters zeroed just before and read just after.  ``generate`` at the
@@ -229,13 +239,23 @@ Phases, each of which fails the run (non-zero exit) on error:
    Function (``train.step._CESegment``) at whisper-medium's vocabulary of
    51865, fp32: its loss and gradients within CE_TOL of the checkpointed
    autograd segment it replaced, each backward's peak and time printed.
+   (a) and (b) also run, B = 1 and seed-0 weights, for TRAIN_GATES:
+   whisper-medium uncut over 2048 decoder tokens and 1500 frames (its dq
+   and dk/dv at Sq != Sk in the cross-attention; the planted fault makes
+   the encoder and cross-attention causal in the backward kernels),
+   internvl2-26b at 2 of 48 layers over 256 patches and 2048 tokens, and
+   nemotron-4-15b at 2 of 32 layers over 1024 tokens (their fault drops
+   the causal mask); each value-and-grad's flash launches held to the
+   stack's (the lse forward twice an attention, in the forward and the
+   period's recompute, dq and dk/dv once), each gate's peak printed, at
+   most two gradient trees alive at once.
 10. dist   — the dist slice (``repro_torch.dist``, the shard_map MoE,
    ``launch.train --data-parallel``) on ``torch.distributed``.  (1)-(3)
    run in DIST_RANKS child processes (``--dist-child``) that share
    ``cuda:0`` over gloo, their CUDA tensors staged through host memory
    (NCCL refuses two ranks on one card; ``tools/dist_probe.py``): (1)
    gemma3-1b uncut, seed-0 fp32 weights (their checksum equal on every
-   rank), the forward at B = 1, S = 4096 with ``ring=True`` under a
+   rank), the forward at B = 1, S = DIST_SEQ with ``ring=True`` under a
    4-rank ``("model",)`` mesh and ``train_rules(seq_parallel=True)``:
    the logits within MODEL_TOL["float32"] of the one-process forward
    through the flash kernel (rank 0), bit-equal on every rank, no flash
@@ -248,13 +268,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    rank and within MODEL_TOL of the flash forward, per rank the wall, the
    bytes staged (the gathers' beside (1)'s), the peak and the bytes held;
    (2)
-   prefill 2048 tokens under ``serve_rules(long_context=True)``, the
+   prefill DIST_PROMPT tokens under ``serve_rules(long_context=True)``, the
    cache cut into each rank's block of its sequence (``cache_seq`` over
    the 4 ranks, a quarter of its bytes a rank, printed) and 4 decode
    steps on the blocks with ``stream_kv`` and with the plain
    ``make_serve_step``: each run's fp32 tokens equal the one-process
    run's (or a top-2 margin within 1e-3); (2b) a blocked decode: gemma3-1b cut to 2 of 26
-   layers, fp32, four prompts of 2048 tokens and 32 steps through
+   layers, fp32, four prompts of DIST_PROMPT tokens and 32 steps through
    ``make_prefill_step``/``make_serve_step`` on a 4-rank ``("data",)``
    mesh under ``serve_rules()``, the tokens and the bf16 cache held as
    each rank's row: the tokens equal one process's (the same margin
@@ -271,7 +291,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    tensor-parallel layers, in the same DIST_RANKS children on a
    ``("model",)`` mesh of 4, gemma3-1b fp32 with its params held as
    blocks (each rank its heads, MLP and vocabulary rows): (5a) the forward
-   uncut at B = 1, S = 4096 under ``train_rules()``: each rank's
+   uncut at B = 1, S = DIST_SEQ under ``train_rules()``: each rank's
    vocabulary block of the logits within MODEL_TOL["float32"] of the
    matching slice of the one-process flash forward (gathered to rank 0),
    the final hidden states bit-equal on every rank, exactly 26 flash
@@ -485,11 +505,17 @@ FA_SHAPES = (("attention_block", 4, 8, 8, 512, 32, True, 0),
              ("yi-9b", 1, 32, 4, 4096, 128, True, 0),
              ("gemma3-1b", 1, 4, 1, 4096, 256, True, 512),
              ("gemma3-1b-global", 1, 4, 1, 4096, 256, True, 0))
-# (label, B, H, KV, S, D, causal, window, sk_orig) the backward tiles meet
-# otherwise: every tile visible (no mask evaluated) at D = 128, and a key
-# tail past sk_orig that ends inside a 16-row tile at D = 256
-FA_EDGES = (("whole-tiles", 1, 8, 2, 512, 128, False, 0, 0),
-            ("sk_orig-tail", 1, 4, 2, 512, 256, True, 0, 437))
+# (label, B, H, KV, Sq, Sk, D, causal, window, sk_orig) the kernels meet
+# otherwise: every backward tile visible (no mask evaluated) at D = 128, a
+# key tail past sk_orig that ends inside a 16-row tile at D = 256, and
+# whisper-medium's two non-causal shapes at D = 64 over its 1500 encoder
+# frames padded to 1536 (src/repro/configs/whisper_medium.py): the
+# decoder's cross-attention, 2048 queries over them, and the encoder's
+# self-attention
+FA_EDGES = (("whole-tiles", 1, 8, 2, 512, 512, 128, False, 0, 0),
+            ("sk_orig-tail", 1, 4, 2, 512, 512, 256, True, 0, 437),
+            ("whisper-cross", 1, 16, 16, 2048, 1536, 64, False, 0, 1500),
+            ("whisper-encoder", 1, 16, 16, 1536, 1536, 64, False, 0, 1500))
 
 # fp32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s (half
 # the data sheets' rate with sparsity) and device-memory bytes/s, from
@@ -950,13 +976,13 @@ def _check_conv_paths(mc, device, gen, report) -> None:
         raise RuntimeError(f"conv2d ran only its {paths} path")
 
 
-def _fa_inputs(b, h, kv, s, d, dtype, device, gen) -> tuple:
-    """q, k scaled by 0.5 and v, do standard normal, as the JAX
-    flash-attention tests draw them."""
+def _fa_inputs(b, h, kv, sq, sk, d, dtype, device, gen) -> tuple:
+    """q [B,H,Sq,D], k [B,KV,Sk,D] scaled by 0.5 and v, do standard normal,
+    as the JAX flash-attention tests draw them."""
     q, k = (torch.randn(b, n, s, d, generator=gen, device=device) * 0.5
-            for n in (h, kv))
+            for n, s in ((h, sq), (kv, sk)))
     v, do = (torch.randn(b, n, s, d, generator=gen, device=device)
-             for n in (kv, h))
+             for n, s in ((kv, sk), (h, sq)))
     return tuple(t.to(dtype) for t in (q, k, v, do))
 
 
@@ -1021,20 +1047,21 @@ def _check_flash_attention(fa, device, gen, report, worst) -> None:
                        (torch.bfloat16, FA_BF16_TOL)):
         dname = str(dtype).removeprefix("torch.")
         cases = [(f"grid h={h} kv={kv} causal={c} window={w}",
-                  (2, h, kv, 128, 32),
+                  (2, h, kv, 128, 128, 32),
                   {"causal": c, "window": w, "bq": 32, "bk": 32,
                    "sk_orig": 100}) for h, kv, c, w in FA_GRID]
-        cases += [(label, (b, h, kv, s, d),
+        cases += [(label, (b, h, kv, s, s, d),
                    {"causal": c, "window": w, "bq": 256, "bk": 256})
                   for label, b, h, kv, s, d, c, w in FA_SHAPES]
-        cases += [(label, (b, h, kv, s, d),
+        cases += [(label, (b, h, kv, sq, sk, d),
                    {"causal": c, "window": w, "bq": 256, "bk": 256,
                     "sk_orig": sk_orig})
-                  for label, b, h, kv, s, d, c, w, sk_orig in FA_EDGES]
+                  for label, b, h, kv, sq, sk, d, c, w, sk_orig in FA_EDGES]
         for label, dims, kw in cases:
             q, k, v, do = _fa_inputs(*dims, dtype, device, gen)
-            if kw.get("sk_orig"):         # zero padding, as ops.attention
-                for t in (q, k, v, do):
+            if kw.get("sk_orig"):         # zero padding, as ops.attention:
+                # the keys past sk_orig, and the queries of self-attention
+                for t in (q, k, v, do) if dims[3] == dims[4] else (k, v):
                     t[:, :, kw["sk_orig"]:] = 0
             errs = _fa_case(fa, q, k, v, do, kw, tol)
             # attention_block's forward also within the workloads' budget
@@ -2368,9 +2395,11 @@ def phase_bench(K, card: str) -> dict:
 
 # the paper's experiments on the card: the 9 card combos through Tables
 # 4-8's protocol, Fig. 4 and the runtime overhead on cuda:0
-# half of benchmarks/run.py --quick's 4000: the fits took 110 s of the
-# script's 1200 s on a slow host; no gate reads their MAPE but finiteness
-PAPER_EPOCHS = 2000
+# a quarter of benchmarks/run.py --quick's 4000: the fits took 110 s of
+# the script's 1200 s on a slow host at 4000, and about 45 s at 2000 once
+# the models phase came to carry four more configurations; no gate reads
+# their MAPE but finiteness
+PAPER_EPOCHS = 1000
 PAPER_CHECK = 5        # timed instances a card combo holds against the host
 PAPER_HOST = {"mm": "blas", "mv": "blas", "mc": "window", "mp": "window"}
 # shapes every card variant is held at besides the timed ones: m, n, k at 1
@@ -2543,14 +2572,25 @@ def phase_paper(K, card: str) -> dict:
 
 
 # the model path: (arch, layers kept or None for all, the planted fault) —
-# gemma3-1b uncut and yi-9b at full width cut to 2 of 48 layers (0.87 B
-# parameters, 3.5 GB in fp32); a forward over MODEL_SEQ tokens at B = 1
-# (train_4k, the batch cut to 1), serving SERVE_BATCH prompts of
-# SERVE_PROMPT tokens then SERVE_STEPS greedy decode steps.  The fault is
-# given to every kernel launch of one more forward, which MODEL_TOL must
-# catch: gemma3-1b's local layers lose their window, yi-9b (no window)
-# its causal mask
-MODELS = (("gemma3-1b", None, {"window": 0}), ("yi-9b", 2, {"causal": False}))
+# gemma3-1b and whisper-medium uncut (24 encoder and 24 decoder layers,
+# 0.82 B parameters), and at full width cut to 2 layers yi-9b (of 48; 0.87
+# B parameters, 3.5 GB in fp32), internvl2-26b (of 48; 1.91 B, 7.7 GB),
+# nemotron-4-15b (of 32; 3.93 B, 15.7 GB, 12.6 GB of it its two untied
+# 256000 x 6144 tables) and deepseek-67b (of 95; 3.06 B, 12.2 GB); a
+# forward over MODEL_SEQ tokens at B = 1 (train_4k, the batch cut to 1),
+# serving SERVE_BATCH prompts of SERVE_PROMPT tokens then SERVE_STEPS
+# greedy decode steps, whisper's over FRONTEND_SCALE-scaled frames and
+# internvl2's behind as many patches (their n_frontend_tokens rows of
+# d_model, as launch.serve draws them).  The fault is given to every kernel
+# launch of one more forward, which MODEL_TOL must catch: gemma3-1b's local
+# layers lose their window, whisper's encoder and cross-attention gain a
+# causal mask, the others (no window) lose theirs
+MODELS = (("gemma3-1b", None, {"window": 0}), ("yi-9b", 2, {"causal": False}),
+          ("whisper-medium", None, {"causal": True}),
+          ("internvl2-26b", 2, {"causal": False}),
+          ("nemotron-4-15b", 2, {"causal": False}),
+          ("deepseek-67b", 2, {"causal": False}))
+FRONTEND_SCALE = 0.05
 MODEL_SEQ = 4096
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 2048, 32
 # kernel against plain logits (and prefill caches), relative to their
@@ -2592,10 +2632,59 @@ def _gate(name, what, err, dtype) -> str:
     return f"{what} {err:.3g}"
 
 
-def _model_forward_check(name, model, params, batch, fa, layers,
+def _dtype_models(name, layers=None) -> tuple:
+    """(the config of ``name`` cut to ``layers`` if given, {compute dtype:
+    its model} in fp32 and bf16 over the same fp32 parameters)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
+                 for dt in ("float32", "bfloat16")}
+
+
+def _attn_launches(cfg) -> tuple:
+    """(the flash launches of one forward of ``cfg``: one a decoder layer,
+    two with cross-attention, one an encoder layer; those of them in the
+    checkpointed periods, which a training step's backward recomputes).
+    Every layer kind of MODELS attends."""
+    from repro_torch.models import transformer as tfm
+
+    per = 2 if cfg.encdec else 1
+    full, _ = tfm._segments(cfg, cfg.n_layers)
+    launches = per * cfg.n_layers
+    rematted = per * full * len(cfg.layer_pattern)
+    if cfg.encdec:
+        full, _ = tfm._segments(cfg, cfg.n_encoder_layers)
+        launches += cfg.n_encoder_layers
+        rematted += full * len(cfg.layer_pattern)
+    return launches, rematted
+
+
+def _frontend(cfg, b: int, gen, device) -> dict:
+    """whisper's frames or internvl2's patches for ``b`` sequences:
+    n_frontend_tokens rows of d_model, standard normal times
+    FRONTEND_SCALE, fp32 (each model casts them to its compute type)."""
+    key = {"frame": "frames", "patch": "patches"}.get(cfg.frontend)
+    if key is None:
+        return {}
+    return {key: torch.randn(b, cfg.n_frontend_tokens, cfg.d_model,
+                             generator=gen, device=device) * FRONTEND_SCALE}
+
+
+def _prefix(batch: dict) -> int:
+    """The positions the patches take before the tokens (0 without)."""
+    return batch["patches"].shape[1] if "patches" in batch else 0
+
+
+def _model_forward_check(name, model, params, batch, fa, launches,
                          card) -> None:
-    """One forward through the kernel (exactly one ``flash_attention``
-    launch a layer, no other kernel) and one through the plain
+    """One forward through the kernel (exactly ``launches`` launches of
+    ``flash_attention``, no other kernel) and one through the plain
     attend_chunked; the logits within MODEL_TOL of each other."""
     dtype = model.cfg.compute_dtype
     before = dict(fa.LAUNCHES)
@@ -2606,7 +2695,7 @@ def _model_forward_check(name, model, params, batch, fa, layers,
     wall = time.perf_counter() - t0
     delta = _fa_delta(fa, before)
     want_delta = dict.fromkeys(delta, 0)
-    want_delta["flash_attention"] = layers
+    want_delta["flash_attention"] = launches
     if delta != want_delta:
         raise RuntimeError(f"models {name} {dtype}: a forward launched "
                            f"{delta}, not {want_delta}")
@@ -2616,6 +2705,7 @@ def _model_forward_check(name, model, params, batch, fa, layers,
         raise RuntimeError(f"models {name}: the plain forward launched a "
                            "kernel")
     b, s = batch["tokens"].shape
+    s += _prefix(batch)
     if tuple(got.shape) != (b, s, model.cfg.vocab_size) \
             or not bool(torch.isfinite(got).all()) \
             or not bool(torch.isfinite(aux)):
@@ -2626,21 +2716,24 @@ def _model_forward_check(name, model, params, batch, fa, layers,
     print(f"models: {name} {dtype} forward B={b} S={s}: kernel against "
           f"plain attend_chunked, max |diff| / max |logit| {err:.3g} "
           f"(bound {MODEL_TOL[dtype]}), top-1 agreement {top1:.4f}; "
-          f"flash launches {delta['flash_attention']} ({layers} layers); "
+          f"flash launches {delta['flash_attention']} (want {launches}); "
           f"first-call wall {wall * 1e3:.1f} ms; {card}")
     _gate(name, "kernel logits from plain", err, dtype)
 
 
-def _serve_check(name, model, params, prompts, fa, layers, cache_dtype,
-                 card) -> None:
+def _serve_check(name, model, params, prompts, extras, fa, launches,
+                 cache_dtype, card) -> None:
     """prefill then SERVE_STEPS greedy decode steps: the prefill launches
-    the kernel once a layer, decode never.  The prefill's logits and every
-    cache leaf are held against the plain prefill's; in fp32 the decode
-    logits against forward's at the same positions, and that forward (a
-    ragged length, the kernel's key padding) against its plain twin."""
+    the kernel ``launches`` times, decode never.  The prefill's logits and
+    every cache leaf are held against the plain prefill's; in fp32 the
+    decode logits against forward's at the same positions, and that
+    forward (a ragged length, the kernel's key padding) against its plain
+    twin.  ``extras`` are the frontend's rows (:func:`_frontend`); patches
+    take the first positions, so decode starts after them."""
     b, s = prompts.shape
     dtype = model.cfg.compute_dtype
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **extras}
+    s += _prefix(batch)
     before = dict(fa.LAUNCHES)
     logits, cache = model.prefill(params, batch, max_seq=s + SERVE_STEPS,
                                   cache_dtype=cache_dtype)
@@ -2664,40 +2757,46 @@ def _serve_check(name, model, params, prompts, fa, layers, cache_dtype,
         outs.append(lg)
         toks.append(tok)
     decode_launches = sum(_fa_delta(fa, before).values())
-    if prefill_launches != layers or plain_launches or decode_launches:
-        raise RuntimeError(f"models {name} {dtype} serving: prefill "
-                           f"launched {prefill_launches} (want {layers}), "
+    dec = torch.cat(outs, dim=1)
+    if tuple(dec.shape) != (b, SERVE_STEPS, model.cfg.vocab_size) \
+            or prefill_launches != launches or plain_launches \
+            or decode_launches:
+        raise RuntimeError(f"models {name} {dtype} serving: decode logits "
+                           f"{tuple(dec.shape)}, prefill "
+                           f"launched {prefill_launches} (want {launches}), "
                            f"the plain prefill {plain_launches} and decode "
                            f"{decode_launches} (want 0)")
-    dec = torch.cat(outs, dim=1)
     if not bool(torch.isfinite(dec).all()):
         raise RuntimeError(f"models {name} {dtype}: non-finite decode logits")
     if dtype == "float32":
-        seq = {"tokens": torch.cat([prompts] + toks[:-1], dim=1)}
+        seq = {"tokens": torch.cat([prompts] + toks[:-1], dim=1), **extras}
         got, _ = model.forward(params, seq)
         want, _ = model.forward(params, seq, use_kernel=False)
-        checks.append(_gate(name, f"forward S={seq['tokens'].shape[1]} "
+        checks.append(_gate(name, f"forward S={got.shape[1]} "
                             "from plain", _rel_err(got, want), dtype))
         del want
         checks.append(_gate(name, f"decode at positions {s}.."
                             f"{s + SERVE_STEPS - 1} from forward",
                             _rel_err(dec, got[:, s:]), dtype))
-    print(f"models: {name} {dtype} serving {b} x {s} tokens, cache "
+    front = "".join(f", {t.shape[1]} {key}" for key, t in extras.items())
+    print(f"models: {name} {dtype} serving {b} x {s} positions{front}, cache "
           f"{str(cache_dtype).removeprefix('torch.')} of {s + SERVE_STEPS}: "
           f"prefill {prefill_launches} flash launches, {SERVE_STEPS} decode "
           f"steps {decode_launches}; max |diff| / max |value|: "
           f"{', '.join(checks)} (bound {MODEL_TOL[dtype]}); {card}")
 
 
-def _serve_time(model, params, prompts, cache_dtype) -> dict:
+def _serve_time(model, params, prompts, extras, cache_dtype) -> dict:
     """One prefill and SERVE_STEPS greedy decode steps, timed, the peak
     device memory taken over them alone."""
+    batch = {"tokens": prompts, **extras}
     b, s = prompts.shape
+    s += _prefix(batch)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts},
+    logits, cache = model.prefill(params, batch,
                                   max_seq=s + SERVE_STEPS,
                                   cache_dtype=cache_dtype)
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -2739,10 +2838,10 @@ def _planted_fault(name, model, params, batch, fa, fault, card) -> float:
     return err
 
 
-def _kernel_share(model, params, batch, fa, reps: int = 2) -> dict:
-    """The forward timed by CUDA events, and each flash-attention launch
-    in it by an event pair around the wrapper: (the fastest of ``reps``
-    forwards) its wall, the kernel's summed time and its share."""
+def _kernel_share(model, params, batch, fa) -> dict:
+    """One forward timed by CUDA events, and each flash-attention launch
+    in it by an event pair around the wrapper: its wall, the kernel's
+    summed time and its share (the checks ran the forward first)."""
     real = fa.flash_attention
     spans = []
 
@@ -2755,26 +2854,21 @@ def _kernel_share(model, params, batch, fa, reps: int = 2) -> dict:
         spans.append((start, end))
         return out
 
-    best = None
     fa.flash_attention = timed
     try:
-        for _ in range(reps):
-            spans.clear()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            model.forward(params, batch)
-            end.record()
-            end.synchronize()
-            wall = start.elapsed_time(end)
-            kernel = sum(a.elapsed_time(b) for a, b in spans)
-            if best is None or wall < best[0]:
-                best = (wall, kernel, len(spans))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.forward(params, batch)
+        end.record()
+        end.synchronize()
     finally:
         fa.flash_attention = real
-    return {"forward_ms": best[0], "flash_ms": best[1],
-            "flash_launches": best[2], "share": best[1] / best[0]}
+    wall = start.elapsed_time(end)
+    kernel = sum(a.elapsed_time(b) for a, b in spans)
+    return {"forward_ms": wall, "flash_ms": kernel,
+            "flash_launches": len(spans), "share": kernel / wall}
 
 
 def phase_models(K, device, card: str) -> tuple:
@@ -2782,10 +2876,7 @@ def phase_models(K, device, card: str) -> tuple:
     (path label -> launch counts of the counted run, "<model> <dtype>" ->
     the forward's wall and the kernel's share of it, the serving walls and
     memory, the planted fault's error)."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
-    from repro_torch.models import build_model, module
+    from repro_torch.models import module
 
     fa = K["flash_attention"]
     t_phase = time.perf_counter()
@@ -2798,36 +2889,42 @@ def phase_models(K, device, card: str) -> tuple:
     runs = []
     zero_counts(K)
     for name, layers, fault in MODELS:
-        cfg = get_arch(name)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-        layers = cfg.n_layers
-        models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
-                  for dt in ("float32", "bfloat16")}
+        t_model = time.perf_counter()
+        cfg, models = _dtype_models(name, layers)
+        launches, _ = _attn_launches(cfg)
         t0 = time.perf_counter()
         params = params_of(models)
         torch.cuda.synchronize()
-        print(f"models: {name}: {layers} layers, d_model {cfg.d_model}, "
-              f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
-              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}: "
+        enc = (f"{cfg.n_encoder_layers} encoder and "
+               if cfg.encdec else "")
+        print(f"models: {name}: {enc}{cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+              f"head_dim {cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+              f"{cfg.mlp_kind} MLP, {cfg.norm_kind}: "
               f"{module.count_params(params) / 1e9:.3f} B fp32 parameters "
               f"({module.param_bytes(params) / 2**30:.2f} GiB) initialised "
               f"on the card in {time.perf_counter() - t0:.1f} s; {card}")
         gen = torch.Generator(device=device).manual_seed(1)
         batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, MODEL_SEQ),
-                                         generator=gen, device=device)}
+                                         generator=gen, device=device),
+                 **_frontend(cfg, 1, gen, device)}
         prompts = torch.randint(1, cfg.vocab_size,
                                 (SERVE_BATCH, SERVE_PROMPT), generator=gen,
                                 device=device)
+        extras = _frontend(cfg, SERVE_BATCH, gen, device)
+        torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             for dt, model in models.items():
-                _model_forward_check(name, model, params, batch, fa, layers,
-                                     card)
-                _serve_check(name, model, params, prompts, fa, layers,
-                             getattr(torch, dt), card)
+                _model_forward_check(name, model, params, batch, fa,
+                                     launches, card)
+                _serve_check(name, model, params, prompts, extras, fa,
+                             launches, getattr(torch, dt), card)
+        print(f"models: {name} checked in {time.perf_counter() - t_model:.1f}"
+              f" s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB; {card}")
         del params
         torch.cuda.empty_cache()
-        runs.append((name, fault, models, batch, prompts))
+        runs.append((name, fault, models, batch, prompts, extras))
     counts = launch_counts(K)
     print(f"models: launches of the model path "
           f"{json.dumps({k: v for k, v in counts.items() if v})}")
@@ -2836,22 +2933,23 @@ def phase_models(K, device, card: str) -> tuple:
                            "launched")
     timing = {}
     with torch.no_grad():
-        for name, fault, models, batch, prompts in runs:
+        for name, fault, models, batch, prompts, extras in runs:
+            t_model = time.perf_counter()
             params = params_of(models)
             for dt, model in models.items():
                 rec = _kernel_share(model, params, batch, fa)
-                _serve_time(model, params, prompts, getattr(torch, dt))
-                rec.update(_serve_time(model, params, prompts,
+                rec.update(_serve_time(model, params, prompts, extras,
                                        getattr(torch, dt)))
                 rec["planted_fault_err"] = _planted_fault(
                     name, model, params, batch, fa, fault, card)
                 timing[f"{name} {dt}"] = rec
-                print(f"models: {name} {dt} forward B=1 S={MODEL_SEQ}: "
+                print(f"models: {name} {dt} forward B=1 S="
+                      f"{MODEL_SEQ + _prefix(batch)}: "
                       f"{rec['forward_ms']:.2f} ms by events, the flash "
                       f"kernel {rec['flash_ms']:.2f} ms over "
                       f"{rec['flash_launches']} launches = "
                       f"{100 * rec['share']:.1f}% of it; serving "
-                      f"{SERVE_BATCH} x {SERVE_PROMPT} (the second run): "
+                      f"{SERVE_BATCH} x {SERVE_PROMPT}: "
                       f"prefill {rec['prefill_ms']:.1f} ms, "
                       f"{SERVE_STEPS} decode steps at "
                       f"{rec['decode_tokens_s']:.1f} tokens/s, peak "
@@ -2860,6 +2958,8 @@ def phase_models(K, device, card: str) -> tuple:
                       f"before the prefill); {card}")
             del params
             torch.cuda.empty_cache()
+            print(f"models: {name} timed in "
+                  f"{time.perf_counter() - t_model:.1f} s")
     print(f"models: phase {time.perf_counter() - t_phase:.1f} s")
     return {"models": counts}, timing
 
@@ -3344,17 +3444,10 @@ def _serve_bench(device, card) -> None:
 def phase_serve(K, device, card: str) -> tuple:
     """Serving on the card (module docstring, phase 8).  Returns (path
     label -> launch counts of the counted run, the serving numbers)."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
-
     fa = K["flash_attention"]
     t_phase = time.perf_counter()
-    cfg = get_arch(SERVE_ARCH)
+    cfg, models = _dtype_models(SERVE_ARCH)
     layers = cfg.n_layers
-    models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
-              for dt in ("float32", "bfloat16")}
     zero_counts(K)
     params = models["float32"].init_params(torch.Generator().manual_seed(0),
                                            device=device)
@@ -3407,6 +3500,15 @@ FA_KERNEL_NAMES = {"flash_attention_fwd": "fa_fwd_kernel",
                    "flash_attention_bwd_dq": "fa_bwd_dq_kernel",
                    "flash_attention_bwd_dkv": "fa_bwd_dkv_kernel"}
 TRAIN_KERNELS = tuple(FA_KERNEL_NAMES)
+# the gradient gate beside TRAIN_ARCH's: (arch, layers kept or None for
+# all, decoder tokens at B = 1, the fault planted in the backward
+# kernels).  whisper-medium uncut is the one path whose dq and dk/dv run
+# at Sq != Sk (2048 decoder queries over the 1500 frames' keys); it has
+# no window to drop, so its encoder and cross-attention gain a causal
+# mask.  internvl2-26b's tokens follow its 256 patches
+TRAIN_GATES = (("whisper-medium", None, 2048, {"causal": True}),
+               ("internvl2-26b", 2, 2048, {"causal": False}),
+               ("nemotron-4-15b", 2, 1024, {"causal": False}))
 
 
 def _grads(model, params, batch, use_kernel: bool) -> tuple:
@@ -3439,49 +3541,96 @@ def _paths(tree, prefix="") -> list:
     return [(prefix[:-1], tree)]
 
 
-def _train_gate(models, params, batch, fa, card) -> dict:
+def _train_gate(name, models, params, batch, fa, fault, card) -> dict:
     """(a) and (b): the loss and every gradient leaf through the kernels
-    against the plain twin, fp32 and bf16, within MODEL_TOL; then a fault
-    planted in the backward kernels alone (the local layers' window
-    dropped) must land above the bound."""
+    against the plain twin, fp32 and bf16, within MODEL_TOL, the flash
+    launches of the kernel run held to what the stack implies (the lse
+    forward once an attention, again in each checkpointed period's
+    recompute; dq and dk/dv once an attention); then ``fault`` planted in
+    the backward kernels alone (the forward right) must land above the
+    bound.  At most two gradient trees are held at once."""
     out = {}
+    attn, rematted = _attn_launches(models["float32"].cfg)
+    want_launches = {"flash_attention": 0, "flash_attention_fwd":
+                     attn + rematted, "flash_attention_bwd_dq": attn,
+                     "flash_attention_bwd_dkv": attn}
+    b, s = batch["tokens"].shape
+    front = "".join(f" + {t.shape[1]} {key}" for key, t in batch.items()
+                    if key in ("frames", "patches"))
     for dt, model in models.items():
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         want = _grads(model, params, batch, use_kernel=False)
+        before = dict(fa.LAUNCHES)
         got = _grads(model, params, batch, use_kernel=True)
         torch.cuda.synchronize()
+        launches = _fa_delta(fa, before)
         loss_err, grad_err, leaf = _grad_errs(got, want)
-        out[dt] = {"loss_err": loss_err, "grad_err": grad_err}
-        print(f"train: {TRAIN_ARCH} {dt} value-and-grad B={TRAIN_BATCH} "
-              f"S={TRAIN_SEQ}: loss {got[0].item():.6f} through the kernels, "
+        out[dt] = {"loss_err": loss_err, "grad_err": grad_err,
+                   "launches": launches}
+        print(f"train: {name} {dt} value-and-grad B={b} S={s}{front}: loss "
+              f"{got[0].item():.6f} through the kernels, "
               f"{want[0].item():.6f} plain, relative {loss_err:.3g}; the "
               f"worst gradient leaf {leaf} {grad_err:.3g} of its largest "
               f"magnitude (bound {MODEL_TOL[dt]}); both in "
-              f"{time.perf_counter() - t0:.1f} s; {card}")
-        _gate(TRAIN_ARCH, "train loss from plain", loss_err, dt)
-        _gate(TRAIN_ARCH, f"train gradient {leaf} from plain", grad_err, dt)
+              f"{time.perf_counter() - t0:.1f} s; flash launches "
+              f"{json.dumps(launches)} (want {json.dumps(want_launches)}); "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{card}")
+        del got
+        if launches != want_launches:
+            raise RuntimeError(f"train {name} {dt}: value-and-grad launched "
+                               f"{launches}, not {want_launches}")
+        _gate(name, "train loss from plain", loss_err, dt)
+        _gate(name, f"train gradient {leaf} from plain", grad_err, dt)
         real = {k: getattr(fa, k) for k in ("flash_attention_bwd_dq",
                                             "flash_attention_bwd_dkv")}
         for k, fn in real.items():
             setattr(fa, k, lambda *a, _fn=fn, **kw: _fn(*a, **{**kw,
-                                                             "window": 0}))
+                                                             **fault}))
         try:
             bad = _grads(model, params, batch, use_kernel=True)
         finally:
             for k, fn in real.items():
                 setattr(fa, k, fn)
         loss_err, grad_err, leaf = _grad_errs(bad, want)
+        del bad, want
         out[dt]["planted_fault_err"] = grad_err
-        print(f"train: {TRAIN_ARCH} {dt} planted fault: the dq and dk/dv "
-              f"kernels launched with window=0 on every layer, the forward "
-              f"right: loss relative {loss_err:.3g}, the worst gradient leaf "
-              f"{leaf} {grad_err:.3g} (bound {MODEL_TOL[dt]}); {card}")
+        out[dt]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"train: {name} {dt} planted fault: the dq and dk/dv kernels "
+              f"launched with {fault} on every layer, the forward right: "
+              f"loss relative {loss_err:.3g}, the worst gradient leaf {leaf} "
+              f"{grad_err:.3g} (bound {MODEL_TOL[dt]}); peak "
+              f"{out[dt]['peak_bytes'] / 2**30:.2f} GiB; {card}")
         if not grad_err > MODEL_TOL[dt]:
-            raise RuntimeError(f"train {dt}: the bound {MODEL_TOL[dt]} "
-                               f"misses the planted backward fault "
-                               f"({grad_err:.3g})")
-        del want, got, bad
+            raise RuntimeError(f"train {name} {dt}: the bound "
+                               f"{MODEL_TOL[dt]} misses the planted backward "
+                               f"fault ({grad_err:.3g})")
         torch.cuda.empty_cache()
+    return out
+
+
+def _train_gates(device, card, fa) -> dict:
+    """The gate of :func:`_train_gate` for each of TRAIN_GATES, at full
+    width, seed-0 weights and the step-0 batch of ``data.pipeline`` (its
+    frontend rows as ``launch.train`` draws them)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+
+    out = {}
+    for name, layers, seq, fault in TRAIN_GATES:
+        t0 = time.perf_counter()
+        cfg, models = _dtype_models(name, layers)
+        params = models["float32"].init_params(
+            torch.Generator().manual_seed(0), device=device)
+        batch = batch_at(DataConfig(cfg.vocab_size, seq, 1), 0,
+                         frontend=cfg.frontend,
+                         n_frontend_tokens=cfg.n_frontend_tokens,
+                         d_model=cfg.d_model, device=device)
+        out[name] = _train_gate(name, models, params, batch, fa, fault, card)
+        del params, batch
+        torch.cuda.empty_cache()
+        print(f"train: {name} at {cfg.n_layers} layers gated in "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
     return out
 
 
@@ -3941,24 +4090,20 @@ def _train_resume(card) -> dict:
 def phase_train(K, device, card: str) -> tuple:
     """Training on the card (module docstring, phase 9).  Returns (path
     label -> launch counts of the counted run, the training numbers)."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, batch_at
-    from repro_torch.models import build_model
 
     fa = K["flash_attention"]
     t_phase = time.perf_counter()
-    cfg = get_arch(TRAIN_ARCH)
-    models = {dt: build_model(dataclasses.replace(cfg, compute_dtype=dt))
-              for dt in ("float32", "bfloat16")}
+    cfg, models = _dtype_models(TRAIN_ARCH)
     params = models["float32"].init_params(torch.Generator().manual_seed(0),
                                            device=device)
     batch = batch_at(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
                      device=device)
-    timing = {"gate": _train_gate(models, params, batch, fa, card)}
+    timing = {"gate": _train_gate(TRAIN_ARCH, models, params, batch, fa,
+                                  {"window": 0}, card)}
     del params
     torch.cuda.empty_cache()
+    timing["gates"] = _train_gates(device, card, fa)
     timing["ce"] = _train_ce_check(device, card)
     torch.cuda.empty_cache()
     timing["norm"] = _train_norm_check(device, card)
@@ -3986,9 +4131,14 @@ def phase_train(K, device, card: str) -> tuple:
 DIST_ARCH = "gemma3-1b"
 DIST_DEVICE = "cuda:0"   # the one card the ranks share
 DIST_RANKS = 4           # ranks sharing DIST_DEVICE over gloo
-DIST_SEQ = 4096          # the ring forward, B = 1
-DIST_PROMPT, DIST_STEPS = 2048, 32   # (2b) and (5c): 4 prompts, max_seq 2080
-# the decode ring (2): max_seq 2052 = 4 x 513; cut from 32 steps when its
+# the ring forward and (5a), B = 1: 2048 since the models phase came to
+# carry four more configurations (4096 before; the dist phase's time)
+DIST_SEQ = 2048
+# (2), (2b) and (5c): 4 prompts, max_seq 1056 (from 2048 tokens when the
+# models phase came to carry four more configurations; past gemma3-1b's
+# window of 512 all the same)
+DIST_PROMPT, DIST_STEPS = 1024, 32
+# the decode ring (2): max_seq 1028 = 4 x 257; cut from 32 steps when its
 # MLP and vocabulary came to be split (53 psums a step through gloo), and
 # from 8 when (5d)/(5e) came
 DIST_RING_STEPS = 4
@@ -4003,8 +4153,10 @@ DIST_TP_TRAIN_SEQ = 2048       # (5b): B = 1
 # tokens) at full width; hymba cut to 2 of 32 layers, xlstm to one period
 # (7 mLSTM and 1 sLSTM) of 48 and to 256 tokens (from 1024 when (5g)
 # came to carry the mLSTM core at 1024: the sLSTM steps one token at a
-# time, thrice a step)
-DIST_TP_RECURRENT = {"hymba-1.5b": (2, 2048), "xlstm-1.3b": (8, 256)}
+# time, thrice a step), and to 128 (from 256) when the models phase came
+# to carry four more configurations; hymba keeps 2048, past its window of
+# 1024
+DIST_TP_RECURRENT = {"hymba-1.5b": (2, 2048), "xlstm-1.3b": (8, 128)}
 DIST_TP_REC_STEPS = 4          # decode tokens after the prefill
 # logits, loss and gradient leaves against one process: the row-parallel
 # psums add in another order, and hymba's norm of its SSM branch and the
@@ -7182,7 +7334,8 @@ def _fa_sets(fa, dims, kw, device, gen) -> tuple:
     count = max(2, -(-2 * L2_BYTES // (8 * (b * h + b * kv) * s * d)))
     fwd, bwd = [], []
     for _ in range(count):
-        q, k, v, do = _fa_inputs(b, h, kv, s, d, torch.float32, device, gen)
+        q, k, v, do = _fa_inputs(b, h, kv, s, s, d, torch.float32, device,
+                                 gen)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         fwd.append((q, k, v))
         bwd.append((q, k, v, do, lse, (do * o).sum(dim=-1)))

@@ -33,7 +33,8 @@ from repro_torch.train import step as tstep
 B, S = 2, 12          # S not a multiple of the CE chunk (8)
 STEP_REL = 1e-4       # the step's metrics, losses and grads
 PARITY_ARCHS = ("gemma3-1b", "yi-9b", "qwen3-moe-235b-a22b",
-                "internvl2-26b", "xlstm-1.3b")
+                "internvl2-26b", "xlstm-1.3b", "whisper-medium",
+                "nemotron-4-15b", "deepseek-67b")
 
 
 @pytest.fixture(autouse=True)
